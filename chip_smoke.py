@@ -2,12 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from misaka_tpu_torch/csrc/, holds it against
-its plain torch version on the card (every NetworkState field exactly equal:
-the state is all integers, so the tolerance is zero), serves the add-2
-network over HTTP at B=262144 through `python -m misaka_tpu_torch.runtime.app`
-and checks every answer, then times the kernel at the served shapes.  Each
-phase prints one JSON line; the last line is
+Builds the port's CUDA kernel from misaka_tpu_torch/csrc/ and holds it
+against its plain torch version on the card: the full kernel with every
+NetworkState field exactly equal (the state is all integers, so the
+tolerance is zero), and the elided variant (MISAKA_FUSED_ELIDE_HI) with
+every field exact except acc_hi/bak_hi of hi-dead lanes, which must keep
+their entry values.  Then it serves at B=262144 through
+`python -m misaka_tpu_torch.runtime.app` and checks every answer:
+
+- add2 on the default lane (the serve scheduler, striped /compute_raw and
+  /compute_batch, 32 coalescing clients, a checkpoint saved and restored,
+  /load and /reset);
+- reverse_any with stack_cap=16, which must grow its stack to answer;
+- add2 again under MISAKA_FUSED_ELIDE_HI=1, served by the elided variant.
+
+Last it times the kernel and its variants at the served shapes and at
+caps 1024.  Each phase prints one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -18,12 +28,15 @@ and misaka_tpu_torch only.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -44,14 +57,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # its arbitration (2).  Every committed instruction (the rise of `retired`)
 # on top: the 64-bit register update (4: lo add, carry, hi add, select), the
 # pc advance with wrap (3), the retired count (1), the hold latch clear (1).
+# On a hi-dead lane under the elided variant the register update is the lo
+# add alone (1), so a commit there costs 6.
 OPS_PER_LANE_TICK = 5
 OPS_PER_COMMIT = 9
+OPS_PER_DEAD_COMMIT = 6
 
 # The served configuration (add2, caps 128/128/16, 2048-tick chunks) and
 # the kernel bench's batch.
 MAIN_BATCH = 262144
 MAIN_CHUNK = 2048
 MAIN_CAPS = dict(in_cap=128, out_cap=128, stack_cap=16)
+EXAMPLES = os.path.join(ROOT, "examples")
 
 
 def emit(obj) -> None:
@@ -66,7 +83,7 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# --- phase 3 helpers ---------------------------------------------------------
+# --- parity helpers -------------------------------------------------------------
 
 
 def random_program(rng, lane_names, stack_names, length):
@@ -113,7 +130,7 @@ def random_program(rng, lane_names, stack_names, length):
     return "\n".join(out)
 
 
-def random_topology(seed, Topology, lanes=(1, 5)):
+def random_topology(seed, Topology, lanes=(1, 5), stack_cap=4, in_cap=8, out_cap=8):
     """A random network of lanes[0] to lanes[1] - 1 program lanes."""
     rng = np.random.default_rng(seed)
     n_lanes = int(rng.integers(*lanes))
@@ -127,7 +144,7 @@ def random_topology(seed, Topology, lanes=(1, 5)):
         for name in lanes
     }
     return Topology(node_info=node_info, programs=programs,
-                    stack_cap=4, in_cap=8, out_cap=8)
+                    stack_cap=stack_cap, in_cap=in_cap, out_cap=out_cap)
 
 
 def seeded_inputs(net, rng, n_inputs, lo=-1000, hi=1000):
@@ -144,17 +161,33 @@ def seeded_inputs(net, rng, n_inputs, lo=-1000, hi=1000):
     )
 
 
-def compare(label, net, state, steps):
-    """Kernel vs plain version from the same state; every field exact.
-    Also checks the kernel left its input state untouched, and reports the
-    plain version's time (CUDA events, one call) and the instructions the
-    kernel committed (the rise of `retired`)."""
+def with_random_hi(state, rng):
+    """`state` with random acc_hi/bak_hi planes, so that a hi-dead lane's
+    'keeps its entry value' is a real check."""
     import torch
 
+    def plane(t):
+        v = rng.integers(-(2**31), 2**31, size=tuple(t.shape), dtype=np.int64).astype(np.int32)
+        return torch.from_numpy(v).to(t.device)
+
+    return state._replace(acc_hi=plane(state.acc_hi), bak_hi=plane(state.bak_hi))
+
+
+def compare(label, net, state, steps, elide=False):
+    """Kernel vs plain version from the same state.  The full kernel must
+    give every field exactly; the elided variant (elide=True) every field
+    but acc_hi/bak_hi of hi-dead lanes, which must equal their entry
+    values.  Also checks the kernel left its input state untouched, and
+    reports the plain version's time (CUDA events, one call) and the
+    instructions the kernel committed (the rise of `retired`), in all and
+    on hi-dead lanes."""
+    import torch
+
+    from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.core.state import clone_state, state_to_numpy
 
     before = clone_state(state)
-    got = net.fused_runner(steps)(state)
+    got = net.fused_runner(steps, elide_dead_hi=elide)(state)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = net.run(state, steps)
@@ -162,16 +195,23 @@ def compare(label, net, state, steps):
     torch.cuda.synchronize()
     g, w, b0 = state_to_numpy(got), state_to_numpy(want), state_to_numpy(before)
     a0 = state_to_numpy(state)
+    live = fused.hi_live_lanes(net.code, net.prog_len) if elide else [True] * net.num_lanes
+    dead = [n for n, is_live in enumerate(live) if not is_live]
+    for f in ("acc_hi", "bak_hi"):  # dead lanes are held to their entry values
+        w[f][:, dead] = a0[f][:, dead]
     diverged = [f for f in g if not np.array_equal(g[f], w[f])]
     touched = [f for f in a0 if not np.array_equal(a0[f], b0[f])]
     err = max(
         int(np.abs(g[f].astype(np.int64) - w[f].astype(np.int64)).max(initial=0))
         for f in g
     )
+    commits = (g["retired"] - a0["retired"]).astype(np.int64)
     row = {"case": label, "batch": net.batch, "lanes": net.num_lanes, "steps": steps,
+           "elide": elide, "dead_lanes": len(dead),
            "exact": not diverged and not touched, "max_abs_err": err,
            "out_wr_min": int(g["out_wr"].min()),
-           "commits": int((g["retired"] - a0["retired"]).astype(np.int64).sum()),
+           "stack_full": int((g["stack_top"] >= net.stack_cap).any(axis=1).sum()),
+           "commits": int(commits.sum()), "dead_commits": int(commits[:, dead].sum()),
            "plain_ms": start.elapsed_time(end)}
     if diverged:
         row["diverged"] = diverged
@@ -223,16 +263,63 @@ def phase_parity():
         net = random_topology(seed, Topology, lanes=(9, 33)).compile(batch=2048, device="cuda")
         rows.append(compare(f"random_wide/{seed}", net,
                             seeded_inputs(net, rng, 6, -100, 100), 96))
+    return report_parity("parity", rows)
+
+
+def report_parity(phase, rows):
     bad = [r for r in rows if not r["exact"]]
-    emit({"phase": "parity", "tolerance": "exact (integer state)", "cases": len(rows),
+    emit({"phase": phase, "tolerance": "exact (integer state)", "cases": len(rows),
           "lanes": sorted({r["lanes"] for r in rows}),
+          "dead_lanes": sorted({r["dead_lanes"] for r in rows}),
           "failed": bad, "max_abs_err": max(r["max_abs_err"] for r in rows)})
     if bad:
-        raise SystemExit(f"kernel disagrees with its plain version on {len(bad)} case(s)")
+        raise SystemExit(f"{phase}: kernel disagrees with its plain version on {len(bad)} case(s)")
     return max(r["max_abs_err"] for r in rows)
 
 
-# --- phase 4: the main path over HTTP -----------------------------------------
+def mixed_seeds(Topology, fused, count, first=200):
+    """The first `count` seeds from `first` up whose random network mixes
+    hi-live and hi-dead lanes."""
+    seeds, seed = [], first
+    while len(seeds) < count:
+        net = random_topology(seed, Topology, lanes=(2, 9)).compile(batch=1, device="cpu")
+        live = fused.hi_live_lanes(net.code, net.prog_len)
+        if any(live) and not all(live):
+            seeds.append(seed)
+        seed += 1
+    return seeds
+
+
+def phase_elided_parity():
+    """The elided variant against the plain version, from states with
+    random hi planes: the five baselines, overflow64 (hi-live: JLZ on a
+    64-bit value), running_total and 8 random networks that mix hi-live and
+    hi-dead lanes, at caps 8 and 1024."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    rng = np.random.default_rng(SEED + 1)
+    tops = dict(networks.BASELINE_CONFIGS)
+    for ex in ("overflow64", "running_total"):
+        with open(os.path.join(EXAMPLES, f"{ex}.json")) as f:
+            text = f.read()
+        tops[ex] = lambda text=text, **caps: Topology.from_json(text, **caps)
+    for seed in mixed_seeds(Topology, fused, 8):
+        tops[f"random_mixed/{seed}"] = lambda seed=seed, **caps: random_topology(
+            seed, Topology, lanes=(2, 9), **caps)
+    rows = []
+    for name, make in tops.items():
+        for cap in (8, 1024):
+            net = make(in_cap=cap, out_cap=cap, stack_cap=cap).compile(batch=4096, device="cuda")
+            state = with_random_hi(seeded_inputs(net, rng, 6, -(2**31), 2**31), rng)
+            rows.append(compare(f"{name}/cap{cap}", net, state, 256, elide=True))
+    if not any(0 < r["dead_lanes"] < r["lanes"] for r in rows):
+        raise SystemExit("elided parity: no case mixes hi-live and hi-dead lanes")
+    return report_parity("elided_parity", rows)
+
+
+# --- the main path over HTTP ------------------------------------------------------
 
 
 def free_port() -> int:
@@ -254,6 +341,10 @@ def post_form(port, path, **fields):
     return http(port, path, urlencode(fields).encode())
 
 
+def status(port):
+    return json.loads(http(port, "/status", timeout=60)[1])
+
+
 def expect(cond, what):
     if not cond:
         raise SystemExit(f"main path check failed: {what}")
@@ -263,29 +354,28 @@ def wrap_i32(x):
     return (np.asarray(x, np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
-def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency=100,
-                    device=None):
-    """Serve add2 through the app entry point and check every answer.
-    device="cpu" (with a small batch, chunk and n_raw) rehearses this phase
-    without a card, through the plain version."""
-    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+ADD2_NODES = {"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
+              "misaka3": {"type": "stack"}}
 
+
+@contextlib.contextmanager
+def served_app(label, node_info, programs, batch, chunk, caps, device=None, **env_extra):
+    """Boot `python -m misaka_tpu_torch.runtime.app`, wait until it runs,
+    yield (port, boot seconds); stop it on the way out."""
     port = free_port()
     env = dict(os.environ)
     env.update(
-        NODE_INFO=json.dumps({"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
-                              "misaka3": {"type": "stack"}}),
-        MISAKA_PROGRAMS=json.dumps(ADD2_PROGRAMS),
-        MISAKA_PORT=str(port), MISAKA_BATCH=str(batch),
-        MISAKA_CHUNK_STEPS=str(chunk),
-        MISAKA_IN_CAP=str(MAIN_CAPS["in_cap"]), MISAKA_OUT_CAP=str(MAIN_CAPS["out_cap"]),
-        MISAKA_STACK_CAP=str(MAIN_CAPS["stack_cap"]), MISAKA_AUTORUN="1",
+        NODE_INFO=json.dumps(node_info), MISAKA_PROGRAMS=json.dumps(programs),
+        MISAKA_PORT=str(port), MISAKA_BATCH=str(batch), MISAKA_CHUNK_STEPS=str(chunk),
+        MISAKA_IN_CAP=str(caps["in_cap"]), MISAKA_OUT_CAP=str(caps["out_cap"]),
+        MISAKA_STACK_CAP=str(caps["stack_cap"]), MISAKA_AUTORUN="1",
         PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""),
+        **env_extra,
     )
     env.pop("MISAKA_DEVICE", None)
     if device is not None:
         env["MISAKA_DEVICE"] = device
-    log_path = os.path.join(ROOT, "build", "chip_smoke_server.log")
+    log_path = os.path.join(ROOT, "build", f"chip_smoke_{label}.log")
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
     t_boot = time.perf_counter()
     with open(log_path, "w") as log:
@@ -296,135 +386,15 @@ def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency
     try:
         deadline = time.monotonic() + 240
         while True:
-            expect(proc.poll() is None, f"server exited early (rc {proc.returncode})")
+            expect(proc.poll() is None, f"{label}: server exited early (rc {proc.returncode})")
             try:
-                st = json.loads(http(port, "/status", timeout=10)[1])
-                if st["running"]:
+                if status(port)["running"]:
                     break
             except (urllib.error.URLError, ConnectionError, OSError):
                 pass
-            expect(time.monotonic() < deadline, "server not ready within 240 s")
+            expect(time.monotonic() < deadline, f"{label}: server not ready within 240 s")
             time.sleep(0.5)
-        boot_s = time.perf_counter() - t_boot
-        launches_at_ready = st["kernel_launches"]["fused_superstep"]
-
-        # sequential /compute on a quiet server: the latency samples
-        # (the first one also pays the server's first-request warm-up)
-        lat = []
-        for v in [5, -3, 0, 999] + list(range(-48, 48, 1))[: n_latency - 4]:
-            t = time.perf_counter()
-            code, body = post_form(port, "/compute", value=str(v))
-            lat.append(time.perf_counter() - t)
-            expect(code == 200 and json.loads(body) == {"value": v + 2},
-                   f"/compute {v} -> {code} {body!r}")
-        steady = np.sort(np.asarray(lat[1:]))
-
-        # /compute_raw with 100,000 values through one instance
-        rng = np.random.default_rng(SEED)
-        vals = rng.integers(-(2**31), 2**31, size=n_raw, dtype=np.int64).astype(np.int32)
-        t = time.perf_counter()
-        code, body = http(port, "/compute_raw", vals.astype("<i4").tobytes())
-        raw_s = time.perf_counter() - t
-        got = np.frombuffer(body, "<i4")
-        expect(code == 200 and np.array_equal(got, wrap_i32(vals.astype(np.int64) + 2)),
-               "/compute_raw answers differ from v+2")
-
-        # a few concurrent clients, each with its own values
-        errors, done = [], []
-
-        def client(i):
-            try:
-                for j in range(10):
-                    v = i * 1000 + j
-                    c, b = post_form(port, "/compute", value=str(v))
-                    if c != 200 or json.loads(b) != {"value": v + 2}:
-                        errors.append((v, c, b))
-                vs = np.arange(n_raw // 50, dtype="<i4") + i * 100_000
-                c, b = http(port, "/compute_raw", vs.tobytes())
-                if c != 200 or not np.array_equal(np.frombuffer(b, "<i4"), vs + 2):
-                    errors.append(("raw", i, c))
-                done.append(i)
-            except Exception as e:  # recorded and failed below
-                errors.append(repr(e))
-
-        t = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        conc_s = time.perf_counter() - t
-        expect(not errors and len(done) == 8, f"concurrent clients: {errors[:4]}")
-
-        # served throughput: many clients, each a FIFO stream on its own
-        # instance, all progressing in the same kernel launches
-        n_clients, per_client = 32, n_raw // 8
-        streams = [rng.integers(-(2**30), 2**30, size=per_client).astype("<i4")
-                   for _ in range(n_clients)]
-        results = [None] * n_clients
-
-        def stream_client(i):
-            try:
-                results[i] = http(port, "/compute_raw", streams[i].tobytes())
-            except Exception as e:  # recorded and failed below
-                results[i] = repr(e)
-
-        t = time.perf_counter()
-        threads = [threading.Thread(target=stream_client, args=(i,)) for i in range(n_clients)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        thr_s = time.perf_counter() - t
-        for i, r in enumerate(results):
-            expect(isinstance(r, tuple) and r[0] == 200
-                   and np.array_equal(np.frombuffer(r[1], "<i4"), streams[i] + 2),
-                   f"throughput client {i}: {str(r)[:200]}")
-
-        # /load a new misaka1 program (answer v + 11), /run, check
-        new_prog = "IN ACC\nADD 10\nMOV ACC, misaka2:R0\nMOV R0, ACC\nOUT ACC\n"
-        code, body = post_form(port, "/load", targetURI="misaka1", program=new_prog)
-        expect(code == 200 and body == b"Success", f"/load -> {code} {body!r}")
-        expect(post_form(port, "/run")[0] == 200, "/run after /load")
-        code, body = post_form(port, "/compute", value="5")
-        expect(json.loads(body) == {"value": 16}, f"after /load: {body!r}")
-        vs = np.arange(-500, 500, dtype="<i4")
-        code, body = http(port, "/compute_raw", vs.tobytes())
-        expect(np.array_equal(np.frombuffer(body, "<i4"), vs + 11), "after /load raw")
-
-        # /reset stops and zeroes; /run again serves
-        expect(post_form(port, "/reset") == (200, b"Success"), "/reset")
-        st = json.loads(http(port, "/status")[1])
-        expect(not st["running"] and st["tick"] == 0, f"status after reset: {st}")
-        expect(post_form(port, "/run")[0] == 200, "/run after /reset")
-        code, body = post_form(port, "/compute", value="-7")
-        expect(json.loads(body) == {"value": 4}, f"after /reset: {body!r}")
-
-        st = json.loads(http(port, "/status")[1])
-        launches = st["kernel_launches"]["fused_superstep"]
-        want_engine = "plain" if device == "cpu" else "fused"
-        expect(st["engine"] == want_engine and st["device"].startswith(device or "cuda"),
-               f"engine {st['engine']} on {st['device']}")
-        expect(launches > 0 or device == "cpu",
-               "the kernel was never launched on the main path")
-        row = {
-            "phase": "main_path", "batch": batch, "chunk_steps": chunk,
-            **MAIN_CAPS, "engine": st["engine"], "device": st["device"],
-            "boot_s": boot_s, "kernel_launches": launches,
-            "kernel_launches_at_ready": launches_at_ready,
-            "compute_latency_samples": len(steady),
-            "compute_latency_first_s": lat[0],
-            "compute_latency_p50_s": float(np.percentile(steady, 50)),
-            "compute_latency_p90_s": float(np.percentile(steady, 90)),
-            "compute_latency_max_s": float(steady[-1]),
-            "compute_raw_values": int(vals.size), "compute_raw_s": raw_s,
-            "compute_raw_values_per_s": vals.size / raw_s,
-            "concurrent_clients": 8, "concurrent_s": conc_s,
-            "throughput_clients": n_clients, "throughput_values": n_clients * per_client,
-            "throughput_s": thr_s, "served_values_per_s": n_clients * per_client / thr_s,
-        }
-        emit(row)
-        return row
+        yield port, time.perf_counter() - t_boot
     finally:
         proc.terminate()
         try:
@@ -434,7 +404,272 @@ def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency
             proc.wait(timeout=30)
 
 
-# --- phase 5: timings at the served shapes ------------------------------------
+def run_clients(n, target):
+    """Run target(i) on n threads; returns (errors, seconds)."""
+    errors = []
+
+    def wrap(i):
+        try:
+            target(i)
+        except Exception as e:  # recorded and failed by the caller
+            errors.append(repr(e))
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=wrap, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish within 300 s")
+    return errors, time.perf_counter() - t
+
+
+def check_raw(port, vals, query="", want=None):
+    t = time.perf_counter()
+    code, body = http(port, "/compute_raw" + query, vals.astype("<i4").tobytes())
+    secs = time.perf_counter() - t
+    want = wrap_i32(vals.astype(np.int64) + 2) if want is None else want
+    expect(code == 200 and np.array_equal(np.frombuffer(body, "<i4"), want),
+           f"/compute_raw{query} answers differ")
+    return secs
+
+
+def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency=100,
+                    device=None):
+    """Serve add2 on the default lane through the app entry point and check
+    every answer.  device="cpu" (with a small batch, chunk and n_raw)
+    rehearses this phase without a card, through the plain version."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.join(ROOT, "build"))
+    try:
+        with served_app("main", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                        device=device, MISAKA_CHECKPOINT_DIR=ckpt_dir) as (port, boot_s):
+            row = drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    row["boot_s"] = boot_s
+    emit(row)
+    return row
+
+
+def drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir):
+    st = status(port)
+    launches_at_ready = st["kernel_launches"]["fused_superstep"]
+    # sequential /compute on a quiet server: the latency samples (the first
+    # one also pays the server's first-request warm-up)
+    lat = []
+    for v in [5, -3, 0, 999] + list(range(-48, 48))[: n_latency - 4]:
+        t = time.perf_counter()
+        code, body = post_form(port, "/compute", value=str(v))
+        lat.append(time.perf_counter() - t)
+        expect(code == 200 and json.loads(body) == {"value": v + 2},
+               f"/compute {v} -> {code} {body!r}")
+    steady = np.sort(np.asarray(lat[1:]))
+
+    # /compute_raw of n_raw values: striped (the default), then pinned
+    rng = np.random.default_rng(SEED)
+    vals = rng.integers(-(2**31), 2**31, size=n_raw, dtype=np.int64).astype(np.int32)
+    striped_s = check_raw(port, vals)
+    pinned_s = check_raw(port, vals, "?spread=0")
+
+    # /compute_batch, pinned and spread
+    batch_vals = rng.integers(-10**6, 10**6, size=n_raw // 20).astype(np.int32)
+    text = ",".join(map(str, batch_vals.tolist()))
+    for spread in ("0", "1"):
+        code, body = post_form(port, "/compute_batch", values=text, spread=spread)
+        expect(code == 200 and json.loads(body)["values"] == (batch_vals + 2).tolist(),
+               f"/compute_batch spread={spread}")
+
+    # many clients, many small /compute requests each: they coalesce
+    st = status(port)
+    passes0, reqs0 = st["serve_passes"], st["requests_total"]
+    iters0 = sum(st["kernel_launches"].values())  # one launch per loop iteration
+    n_small, per_small = 32, 40
+
+    def small_client(i):
+        for j in range(per_small):
+            v = i * 10_000 + j
+            c, b = post_form(port, "/compute", value=str(v))
+            if c != 200 or json.loads(b) != {"value": v + 2}:
+                raise RuntimeError(f"/compute {v} -> {c} {b!r}")
+
+    errors, small_s = run_clients(n_small, small_client)
+    expect(not errors, f"small-request clients: {errors[:4]}")
+    st = status(port)
+    passes = st["serve_passes"] - passes0
+    requests = st["requests_total"] - reqs0
+    small_iters = sum(st["kernel_launches"].values()) - iters0
+    expect(0 < passes < requests == n_small * per_small,
+           f"small requests did not coalesce: {passes} passes for {requests} requests")
+
+    # served throughput: 32 clients each streaming /compute_raw (striped and
+    # coalesced by the scheduler)
+    n_clients, per_client = 32, n_raw // 8
+    streams = [rng.integers(-(2**30), 2**30, size=per_client).astype("<i4")
+               for _ in range(n_clients)]
+    errors, thr_s = run_clients(n_clients, lambda i: check_raw(port, streams[i]))
+    expect(not errors, f"throughput clients: {errors[:4]}")
+
+    # /checkpoint, more traffic, /restore, /run: the answers stay right
+    t = time.perf_counter()
+    expect(post_form(port, "/checkpoint", name="c1") == (200, b"Success"), "/checkpoint")
+    save_s = time.perf_counter() - t
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, "c1.npz"))
+    check_raw(port, np.arange(-1000, 1000, dtype=np.int32))
+    t = time.perf_counter()
+    expect(post_form(port, "/restore", name="c1") == (200, b"Success"), "/restore")
+    restore_s = time.perf_counter() - t
+    expect(not status(port)["running"], "the network runs after /restore")
+    expect(post_form(port, "/run")[0] == 200, "/run after /restore")
+    code, body = post_form(port, "/compute", value="41")
+    expect(json.loads(body) == {"value": 43}, f"after /restore: {body!r}")
+    check_raw(port, vals[:20_000])
+
+    # /load a new misaka1 program (answer v + 11), /run, check
+    new_prog = "IN ACC\nADD 10\nMOV ACC, misaka2:R0\nMOV R0, ACC\nOUT ACC\n"
+    code, body = post_form(port, "/load", targetURI="misaka1", program=new_prog)
+    expect(code == 200 and body == b"Success", f"/load -> {code} {body!r}")
+    expect(post_form(port, "/run")[0] == 200, "/run after /load")
+    code, body = post_form(port, "/compute", value="5")
+    expect(json.loads(body) == {"value": 16}, f"after /load: {body!r}")
+    vs = np.arange(-500, 500, dtype=np.int32)
+    check_raw(port, vs, want=vs + 11)
+
+    # /reset stops and zeroes; /run again serves
+    expect(post_form(port, "/reset") == (200, b"Success"), "/reset")
+    st = status(port)
+    expect(not st["running"] and st["tick"] == 0, f"status after reset: {st}")
+    expect(post_form(port, "/run")[0] == 200, "/run after /reset")
+    code, body = post_form(port, "/compute", value="-7")
+    expect(json.loads(body) == {"value": 4}, f"after /reset: {body!r}")
+
+    st = status(port)
+    launches = st["kernel_launches"]
+    want_engine = "plain" if device == "cpu" else "fused"
+    expect(st["engine"] == want_engine and st["device"].startswith(device or "cuda"),
+           f"engine {st['engine']} on {st['device']}")
+    expect(device == "cpu" or (launches["fused_superstep"] > 0
+                               and launches["fused_superstep_elide_hi"] == 0),
+           f"main path launches: {launches}")
+    return {
+        "phase": "main_path", "batch": batch, "chunk_steps": chunk,
+        **MAIN_CAPS, "engine": st["engine"], "device": st["device"],
+        "kernel_launches": launches, "kernel_launches_at_ready": launches_at_ready,
+        "compute_latency_samples": len(steady),
+        "compute_latency_first_s": lat[0],
+        "compute_latency_p50_s": float(np.percentile(steady, 50)),
+        "compute_latency_p90_s": float(np.percentile(steady, 90)),
+        "compute_latency_max_s": float(steady[-1]),
+        "compute_raw_values": int(vals.size),
+        "compute_raw_striped_s": striped_s,
+        "compute_raw_striped_values_per_s": vals.size / striped_s,
+        "compute_raw_pinned_s": pinned_s,
+        "compute_raw_pinned_values_per_s": vals.size / pinned_s,
+        "small_clients": n_small, "small_requests": requests, "small_s": small_s,
+        "small_requests_per_s": requests / small_s, "serve_passes": passes,
+        "small_loop_iterations": small_iters,
+        "throughput_clients": n_clients, "throughput_values": n_clients * per_client,
+        "throughput_s": thr_s, "served_values_per_s": n_clients * per_client / thr_s,
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s,
+    }
+
+
+def reverse_any_parity(text, batch, chunk):
+    """The kernel against its plain version on reverse_any at the served
+    shapes, at stack_cap 16 (where the phase starts) and 64 (where it grows
+    to): one chunk from 128 queued values per instance, with the 0 sentinel
+    at a seeded position or nowhere, so that some instances fill the stack
+    and park on it and others dump and drain theirs."""
+    import torch
+
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    rng = np.random.default_rng(SEED + 3)
+    n = MAIN_CAPS["in_cap"]
+    vals = (rng.integers(1, 1000, size=(batch, n)) * rng.choice([-1, 1], size=(batch, n)))
+    sentinel = rng.integers(0, n + 1, size=batch)  # n: no sentinel in the stream
+    has = sentinel < n
+    vals[np.flatnonzero(has), sentinel[has]] = 0
+    rows = []
+    for cap in (16, 64):
+        net = Topology.from_json(text, **dict(MAIN_CAPS, stack_cap=cap)).compile(
+            batch=batch, device="cuda")
+        s = net.init_state()
+        state = s._replace(in_buf=torch.from_numpy(vals.astype(np.int32)).cuda(),
+                           in_wr=torch.full_like(s.in_wr, n))
+        row = compare(f"reverse_any/cap{cap}", net, state, chunk)
+        if not 0 < row["stack_full"] < batch:
+            row["exact"] = False
+            row["why"] = f"{row['stack_full']} of {batch} instances filled the stack"
+        rows.append(row)
+    return report_parity("autogrow_parity", rows), [
+        {k: r[k] for k in ("case", "stack_full", "commits", "plain_ms")} for r in rows]
+
+
+def phase_autogrow(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
+    """reverse_any at stack_cap=16: one unspread /compute_batch of 40 values
+    and a 0 needs depth 40, so the stack must grow 16 -> 32 -> 64.  First
+    the kernel is held against its plain version at these shapes and both
+    caps (not in a CPU rehearsal: the comparison needs the card)."""
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        text = f.read()
+    spec = json.loads(text)
+    parity_err, parity = (None, None) if device == "cpu" else reverse_any_parity(
+        text, batch, chunk)
+    nodes = {name: {"type": kind} for name, kind in spec["nodes"].items()}
+    with served_app("autogrow", nodes, spec["programs"], batch, chunk, MAIN_CAPS,
+                    device=device) as (port, boot_s):
+        cap0 = status(port)["stack_cap"]
+        block = list(range(1, 41)) + [0]
+        t = time.perf_counter()
+        code, body = post_form(port, "/compute_batch", values=",".join(map(str, block)))
+        grow_s = time.perf_counter() - t
+        expect(code == 200 and json.loads(body)["values"] == [0] + list(range(40, 0, -1)),
+               f"reverse_any: {code} {body[:200]!r}")
+        st = status(port)
+        expect(cap0 == 16 and st["stack_cap"] == 64, f"stack_cap {cap0} -> {st['stack_cap']}")
+        code, body = post_form(port, "/compute_batch", values="7,8,9,0")
+        expect(json.loads(body)["values"] == [0, 9, 8, 7], f"after growth: {body!r}")
+        launches = status(port)["kernel_launches"]
+    expect(device == "cpu" or launches["fused_superstep"] > 0, f"autogrow launches {launches}")
+    row = {"phase": "autogrow", "network": "reverse_any", "batch": batch, "chunk_steps": chunk,
+           "stack_cap_before": cap0, "stack_cap_after": st["stack_cap"],
+           "stack_mem_bytes_after": batch * st["stack_cap"] * 4,
+           "request_s": grow_s, "boot_s": boot_s, "kernel_launches": launches,
+           "parity_max_abs_err": parity_err, "parity": parity}
+    emit(row)
+    return row
+
+
+def phase_elided_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, device=None):
+    """add2 again, served by the elided variant (MISAKA_FUSED_ELIDE_HI=1)."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    with served_app("elided", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                    device=device, MISAKA_FUSED_ELIDE_HI="1") as (port, boot_s):
+        for v in (5, -3, 2**31 - 1):
+            code, body = post_form(port, "/compute", value=str(v))
+            expect(code == 200 and json.loads(body) == {"value": int(wrap_i32(v + 2))},
+                   f"elided /compute {v}: {body!r}")
+        vals = np.random.default_rng(SEED + 2).integers(
+            -(2**31), 2**31, size=n_raw, dtype=np.int64).astype(np.int32)
+        raw_s = check_raw(port, vals)
+        launches = status(port)["kernel_launches"]
+    expect(device == "cpu" or (launches["fused_superstep_elide_hi"] > 0
+                               and launches["fused_superstep"] == 0),
+           f"elided path launches: {launches}")
+    row = {"phase": "elided_path", "batch": batch, "chunk_steps": chunk, "boot_s": boot_s,
+           "compute_raw_values": int(vals.size), "compute_raw_s": raw_s,
+           "kernel_launches": launches}
+    emit(row)
+    return row
+
+
+# --- timings at the served shapes -------------------------------------------------
 
 
 def cuda_time_ms(fn, reps):
@@ -479,41 +714,78 @@ def device_breakdown_ms(fn, reps=3):
     return {"kernel_ms": kernel / reps / 1e3, "conversion_ms": other / reps / 1e3}
 
 
-def phase_timings(smi):
-    """Kernel against plain version at the main path's shapes (every field
-    exact), then the kernel's time, its bound and the plain version's time,
-    all from the same input state."""
-    from misaka_tpu_torch import networks
-
-    net = networks.add2(**MAIN_CAPS).compile(batch=MAIN_BATCH, device="cuda")
-    rng = np.random.default_rng(SEED)
-    state = seeded_inputs(net, rng, MAIN_CAPS["in_cap"])
-    check = compare("main_path/add2", net, state, MAIN_CHUNK)
-    if not check["exact"]:
-        emit({"phase": "timings", "failed": check})
-        raise SystemExit("kernel disagrees with its plain version at the main path's shapes")
-    runner = net.fused_runner(MAIN_CHUNK)
-    ms = cuda_time_ms(lambda: runner(state), 10)
-    breakdown = device_breakdown_ms(lambda: runner(state))
+def bound(net, state, check, steps):
+    """The least time the card could take for one chunk of this run's work:
+    the larger of bytes over HBM rate and int32 operations over the int32
+    rate.  Bytes: every field read once, every field but the pass-through
+    ones written once; the elided variant leaves out the hi rows of hi-dead
+    lanes.  Operations: OPS_PER_LANE_TICK on every lane-tick, plus each
+    committed instruction's update (cheaper on a hi-dead lane)."""
     nbytes = {f: t.numel() * t.element_size() for f, t in zip(state._fields, state)}
-    # every field read once; every field but the pass-through ones written once
     bytes_moved = 2 * sum(nbytes.values()) - sum(
         nbytes[f] for f in ("in_buf", "in_wr", "out_rd"))
-    lane_ticks = MAIN_BATCH * MAIN_CHUNK * net.num_lanes
-    ops = lane_ticks * OPS_PER_LANE_TICK + check["commits"] * OPS_PER_COMMIT
+    bytes_moved -= 2 * 2 * check["dead_lanes"] * net.batch * 4  # acc_hi, bak_hi rows
+    lane_ticks = net.batch * steps * net.num_lanes
+    dead = check["dead_commits"] if check["elide"] else 0
+    ops = (lane_ticks * OPS_PER_LANE_TICK + (check["commits"] - dead) * OPS_PER_COMMIT
+           + dead * OPS_PER_DEAD_COMMIT)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"lane_ticks": lane_ticks, "commits": check["commits"],
+            "dead_commits": dead, "bytes": bytes_moved, "int32_ops": ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_timings(smi):
+    """At the main path's shapes: the full kernel and the elided variant,
+    each held against the plain version from the same input state, then
+    timed in turns (full, elided, elided, full) with their bounds; and the
+    full kernel at caps 1024, the big-capacity row."""
+    from misaka_tpu_torch import networks
+
+    rng = np.random.default_rng(SEED)
+    net = networks.add2(**MAIN_CAPS).compile(batch=MAIN_BATCH, device="cuda")
+    state = with_random_hi(seeded_inputs(net, rng, MAIN_CAPS["in_cap"]), rng)
+    full = compare("main_path/add2", net, state, MAIN_CHUNK)
+    elided = compare("main_path/add2/elided", net, state, MAIN_CHUNK, elide=True)
+    big_net = networks.add2(in_cap=1024, out_cap=1024, stack_cap=1024).compile(
+        batch=MAIN_BATCH, device="cuda")
+    big_state = seeded_inputs(big_net, rng, 1024)
+    big = compare("add2/cap1024", big_net, big_state, MAIN_CHUNK)
+    failed = [c for c in (full, elided, big) if not c["exact"]]
+    if failed:
+        emit({"phase": "timings", "failed": failed})
+        raise SystemExit("kernel disagrees with its plain version at the timed shapes")
+    run_full = net.fused_runner(MAIN_CHUNK, elide_dead_hi=False)
+    run_elided = net.fused_runner(MAIN_CHUNK, elide_dead_hi=True)
+    turns = {"full": [], "elided": []}
+    for which in ("full", "elided", "elided", "full"):
+        fn = run_full if which == "full" else run_elided
+        turns[which].append(cuda_time_ms(lambda: fn(state), 10))
+    run_big = big_net.fused_runner(MAIN_CHUNK, elide_dead_hi=False)
+    big_ms = cuda_time_ms(lambda: run_big(big_state), 5)
     row = {
         "phase": "timings", "card": smi, "network": "add2", "batch": MAIN_BATCH,
         "ticks": MAIN_CHUNK, **MAIN_CAPS,
-        "exact": check["exact"], "max_abs_err": check["max_abs_err"],
-        "kernel_ms": ms, "plain_ms": check["plain_ms"],
-        "device_breakdown": breakdown or "not measured",
-        "instance_ticks_per_s": MAIN_BATCH * MAIN_CHUNK / (ms / 1e3),
-        "lane_ticks": lane_ticks, "commits": check["commits"],
-        "bytes": bytes_moved, "int32_ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "full": {"exact": full["exact"], "max_abs_err": full["max_abs_err"],
+                 "ms": float(np.mean(turns["full"])), "ms_turns": turns["full"],
+                 "plain_ms": full["plain_ms"],
+                 "device_breakdown": device_breakdown_ms(lambda: run_full(state))
+                 or "not measured",
+                 **bound(net, state, full, MAIN_CHUNK)},
+        "elided": {"exact": elided["exact"], "max_abs_err": elided["max_abs_err"],
+                   "dead_lanes": elided["dead_lanes"],
+                   "ms": float(np.mean(turns["elided"])), "ms_turns": turns["elided"],
+                   "plain_ms": elided["plain_ms"],
+                   "device_breakdown": device_breakdown_ms(lambda: run_elided(state))
+                   or "not measured",
+                   **bound(net, state, elided, MAIN_CHUNK)},
+        "cap1024": {"caps": 1024, "exact": big["exact"], "max_abs_err": big["max_abs_err"],
+                    "ms": big_ms, "plain_ms": big["plain_ms"],
+                    "device_breakdown": device_breakdown_ms(lambda: run_big(big_state), 2)
+                    or "not measured",
+                    **bound(big_net, big_state, big, MAIN_CHUNK)},
         "library_ms": None,
     }
     emit(row)
@@ -521,17 +793,18 @@ def phase_timings(smi):
 
 
 def ptxas_summary(report: str):
-    """Registers, spills, stack and shared memory per kernel instantiation."""
+    """Registers, spills, stack and shared memory per kernel instantiation
+    (max lanes, hi mode: 0 full, 1 mask, 2 all lanes hi-dead)."""
     out = []
     for m in re.finditer(
-        r"fused_superstep_kernelILi(\d+)EE.*?\n\s+(\d+) bytes stack frame, (\d+) bytes spill "
-        r"stores, (\d+) bytes spill loads\nptxas info\s+: Used (\d+) registers(.*)",
+        r"fused_superstep_kernelILi(\d+)ELi(\d+)EE.*?\n\s+(\d+) bytes stack frame, (\d+) bytes "
+        r"spill stores, (\d+) bytes spill loads\nptxas info\s+: Used (\d+) registers(.*)",
         report,
     ):
-        smem = re.search(r"(\d+) bytes smem", m.group(6))
-        out.append({"max_lanes": int(m.group(1)), "registers": int(m.group(5)),
-                    "stack_bytes": int(m.group(2)), "spill_stores": int(m.group(3)),
-                    "spill_loads": int(m.group(4)),
+        smem = re.search(r"(\d+) bytes smem", m.group(7))
+        out.append({"max_lanes": int(m.group(1)), "hi_mode": int(m.group(2)),
+                    "registers": int(m.group(6)), "stack_bytes": int(m.group(3)),
+                    "spill_stores": int(m.group(4)), "spill_loads": int(m.group(5)),
                     "static_smem": int(smem.group(1)) if smem else 0})
     return out
 
@@ -546,6 +819,7 @@ def main() -> int:
     from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.csrc import build
 
+    t_all = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = smi_line()
@@ -558,22 +832,46 @@ def main() -> int:
           "ptxas": ptxas_summary(build.ptxas_report(fused.KERNEL))})
 
     max_err = phase_parity()
+    max_err_elided = phase_elided_parity()
 
-    for k in fused.launch_counts:  # the main path runs in a fresh server
-        fused.launch_counts[k] = 0  # process, whose counts start at 0
+    # Each served phase runs in a fresh server process, whose launch counts
+    # start at 0 when it boots; the counts are read from its /status at the
+    # end of the phase.
+    for k in fused.launch_counts:
+        fused.launch_counts[k] = 0
     main_row = phase_main_path()
+    grow_row = phase_autogrow()
+    elided_row = phase_elided_path()
 
     timing = phase_timings(smi)
-    emit({"kernels": [{
-        "name": fused.KERNEL, "route": "cuda",
-        "source": "misaka_tpu_torch/csrc/fused_superstep.cu",
-        "replaces": "misaka_tpu/core/fused.py:80",
-        "launches": main_row["kernel_launches"],
-        "max_abs_err": max(max_err, timing["max_abs_err"]),
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]})
+    full, elided, big = timing["full"], timing["elided"], timing["cap1024"]
+    emit({"kernels": [
+        {
+            "name": fused.KERNEL, "route": "cuda",
+            "source": "misaka_tpu_torch/csrc/fused_superstep.cu",
+            "replaces": "misaka_tpu/core/fused.py:80",
+            "launches": main_row["kernel_launches"][fused.KERNEL]
+            + grow_row["kernel_launches"][fused.KERNEL],
+            "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
+                               grow_row["parity_max_abs_err"]),
+            "ms": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": None, "exact": True,
+            "big_capacity": {"caps": 1024, "ms": big["ms"], "plain_ms": big["plain_ms"],
+                             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
+        },
+        {
+            "name": fused.KERNEL_ELIDE, "route": "cuda",
+            "source": "misaka_tpu_torch/csrc/fused_superstep.cu",
+            "replaces": "misaka_tpu/core/fused.py:100",
+            "launches": elided_row["kernel_launches"][fused.KERNEL_ELIDE],
+            "max_abs_err": max(max_err_elided, elided["max_abs_err"]),
+            "ms": elided["ms"], "plain_ms": elided["plain_ms"],
+            "bound_ms": elided["bound_ms"], "bound_by": elided["bound_by"],
+            "library_ms": None, "exact": True,
+        },
+    ]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -14,6 +14,7 @@ the master's device loop parses (`read_packed`).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -69,18 +70,26 @@ class CompiledNetwork:
         """Advance `num_steps` supersteps with the plain torch tick loop."""
         return fused.plain_run(self._code_t, self._len_t, state, num_steps)
 
-    def fused_runner(self, num_steps: int):
+    def fused_runner(self, num_steps: int, elide_dead_hi: bool | None = None):
         """fn(state) -> state, `num_steps` ticks in ONE launch of the fused
         CUDA kernel (on a CUDA device; the plain version on the CPU).
         Raises ValueError naming the bound when the network exceeds the
-        kernel's; on the card it builds the kernel now."""
+        kernel's; on the card it builds the kernel now.
+
+        elide_dead_hi (None: MISAKA_FUSED_ELIDE_HI == "1", as the JAX
+        engine reads it) launches the kernel's elided variant: lanes with
+        no 64-bit reader keep acc_hi/bak_hi at their entry values.  The
+        lane mask is computed here, from this network's programs."""
         fused.check_kernel_bounds(self.num_lanes, self.num_stacks, self.code.shape[1])
+        if elide_dead_hi is None:
+            elide_dead_hi = os.environ.get("MISAKA_FUSED_ELIDE_HI") == "1"
+        hi_live = fused.hi_live_mask(self.code, self.prog_len) if elide_dead_hi else None
         if self.device.type == "cuda":
             fused.load_kernel()
         code, lens = self._code_t, self._len_t
 
         def run(state: NetworkState) -> NetworkState:
-            return fused.fused_superstep(code, lens, state, num_steps)
+            return fused.fused_superstep(code, lens, state, num_steps, hi_live)
 
         return run
 

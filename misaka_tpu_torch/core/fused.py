@@ -14,12 +14,22 @@ wrapper converts the public [B, ...] `NetworkState` in and out once per
 chunk (`_to_rows` / `_from_rows`), as fused.py's to_rows/from_rows do, and
 rebases the rings after the ticks.  `in_buf`, `in_wr` and `out_rd` pass
 through untouched.
+
+The elided variant (fused.py:100-134's `elide_dead_hi`): given the
+`hi_live` lane mask (`hi_live_mask`), the kernel keeps only the 32-bit low
+words of lanes no 64-bit reader looks at, and leaves their `acc_hi`/`bak_hi`
+at the entry values.  A mask that covers every lane is the full kernel, and
+is launched and counted as such (`variant`).  On a CPU state the plain version runs either way: it
+computes the full 64-bit state, which is what the elided kernel is held
+against (every field exact but the dead lanes' hi planes, which must equal
+their entry values).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from misaka_tpu_torch.core.state import BOOL_FIELDS, NetworkState, rebase_rings
@@ -27,13 +37,14 @@ from misaka_tpu_torch.core.step import step
 from misaka_tpu_torch.tis import isa
 
 KERNEL = "fused_superstep"
+KERNEL_ELIDE = "fused_superstep_elide_hi"  # the same kernel, elided variant
 MAX_LANES = 32   # the kernel's compile-time lane bound (fused_superstep.cu)
 MAX_STACKS = 16
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block can use
 
 # Launches of each kernel by its wrapper, counted where the kernel is
 # launched and nowhere else.  chip_smoke.py zeroes and reads these.
-launch_counts = {KERNEL: 0}
+launch_counts = {KERNEL: 0, KERNEL_ELIDE: 0}
 
 # the kernel's state arguments, in order; "sc" is the [5, B] scalar block
 # (in_rd, in_wr, out_rd, out_wr, tick), every other name a state field the
@@ -54,6 +65,25 @@ def plain_run(code: torch.Tensor, prog_len: torch.Tensor, state: NetworkState,
     for _ in range(num_steps):
         state = step(code, prog_len, state)
     return rebase_rings(state)
+
+
+def hi_live_lanes(code: np.ndarray, prog_len: np.ndarray) -> list[bool]:
+    """Per lane: does its program read the 64-bit high word of ACC?  Only a
+    conditional jump (JEZ/JNZ/JGZ/JLZ) or a JRO whose source is ACC does
+    (misaka_tpu/core/fused.py:123-134)."""
+    cond = (isa.OP_JEZ, isa.OP_JNZ, isa.OP_JGZ, isa.OP_JLZ)
+    live = []
+    for n in range(code.shape[0]):
+        ops = code[n, : prog_len[n], isa.F_OP]
+        srcs = code[n, : prog_len[n], isa.F_SRC]
+        live.append(bool(np.isin(ops, cond).any()
+                         or ((ops == isa.OP_JRO) & (srcs == isa.SRC_ACC)).any()))
+    return live
+
+
+def hi_live_mask(code: np.ndarray, prog_len: np.ndarray) -> int:
+    """`hi_live_lanes` as the kernel's uint32 lane mask (bit n: lane n)."""
+    return sum(1 << n for n, live in enumerate(hi_live_lanes(code, prog_len)) if live)
 
 
 def check_kernel_bounds(n_lanes: int, n_stacks: int, max_len: int) -> None:
@@ -85,11 +115,18 @@ def load_kernel() -> ctypes.CDLL:
         lib = build.load(KERNEL)
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.misaka_fused_superstep.argtypes = (
-            [ptr, ptr] + [i] * 8 + [ptr] * 15 + [ptr]
+            [ptr, ptr] + [i] * 8 + [ctypes.c_uint] + [ptr] * 15 + [ptr]
         )
         lib.misaka_fused_superstep.restype = i
         _lib = lib
     return _lib
+
+
+def variant(hi_live: int | None, n_lanes: int) -> str:
+    """The launch-count key of what the kernel runs for `hi_live`: the full
+    kernel for None or a mask that covers every lane (the C entry picks
+    its full instantiation from the mask), the elided variant otherwise."""
+    return KERNEL if hi_live in (None, (1 << n_lanes) - 1) else KERNEL_ELIDE
 
 
 def _to_rows(x: torch.Tensor, batch: int) -> torch.Tensor:
@@ -109,9 +146,12 @@ def _from_rows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
-                    state: NetworkState, num_steps: int) -> NetworkState:
+                    state: NetworkState, num_steps: int,
+                    hi_live: int | None = None) -> NetworkState:
     """Advance a batched state `num_steps` ticks: the kernel on a CUDA
-    state, the plain version on a CPU state."""
+    state, the plain version on a CPU state.  `hi_live` (a lane mask from
+    `hi_live_mask`) launches the elided variant unless it covers every
+    lane; None the full kernel."""
     dev = state.pc.device
     if dev.type == "cpu":
         return plain_run(code, prog_len, state, num_steps)
@@ -147,24 +187,39 @@ def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
     check_kernel_bounds(n_lanes, n_stacks, max_len)
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    if hi_live is not None and not 0 <= hi_live < (1 << n_lanes):
+        raise ValueError(f"hi_live mask {hi_live:#x} names lanes beyond the "
+                         f"network's {n_lanes}")
 
+    mask = (1 << n_lanes) - 1 if hi_live is None else hi_live
+    lib = load_kernel()
+    with torch.cuda.device(dev):
+        out = _launch(lib, code, prog_len, state, num_steps, mask,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts[variant(hi_live, n_lanes)] += 1
+    return out
+
+
+def _launch(lib, code: torch.Tensor, prog_len: torch.Tensor, state: NetworkState,
+            num_steps: int, hi_live: int, stream) -> NetworkState:
+    """One call of the C entry on [rows, B] copies of a checked state: the
+    layout conversion in and out, the launch (`hi_live`: the kernel's lane
+    mask), the ring rebase."""
+    n_lanes, max_len, _ = code.shape
+    batch, n_stacks, stack_cap = state.stack_mem.shape
     rows = {f: _to_rows(getattr(state, f), batch) for f in _ROW_FIELDS}
     rows["sc"] = torch.stack(
         [state.in_rd, state.in_wr, state.out_rd, state.out_wr, state.tick]
     ).contiguous()                                                  # [5, B]
     in_rows = _to_rows(state.in_buf, batch)
-    lib = load_kernel()
-    with torch.cuda.device(dev):
-        err = lib.misaka_fused_superstep(
-            code.data_ptr(), prog_len.data_ptr(),
-            n_lanes, max_len, n_stacks, stack_cap, in_cap, out_cap, batch,
-            num_steps,
-            *[rows[f].data_ptr() for f in _ARG_ORDER],
-            in_rows.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = lib.misaka_fused_superstep(
+        code.data_ptr(), prog_len.data_ptr(),
+        n_lanes, max_len, n_stacks, stack_cap, state.in_buf.shape[-1],
+        state.out_buf.shape[-1], batch, num_steps, hi_live,
+        *[rows[f].data_ptr() for f in _ARG_ORDER], in_rows.data_ptr(), stream,
+    )
     if err != 0:
         raise RuntimeError(f"fused_superstep launch failed: cudaError {err}")
-    launch_counts[KERNEL] += 1
     out = {f: _from_rows(rows[f], getattr(state, f)) for f in _ROW_FIELDS}
     sc = rows["sc"]
     return rebase_rings(state._replace(

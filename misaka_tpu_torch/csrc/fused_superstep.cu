@@ -37,6 +37,35 @@
 //     lane-private, so committing a lane in place still reads its own
 //     begin-of-tick acc/bak.
 //
+// The elided variant (elide_dead_hi, misaka_tpu/core/fused.py:100-134).
+// The high word of a lane's 64-bit ACC/BAK is read only by its conditional
+// jumps (JEZ/JNZ/JGZ/JLZ) and by a JRO whose source is ACC; the wire
+// (ports, stacks, OUT) carries the low word, and add, sub and neg of the
+// low word depend on the low words alone.  A lane with none of those
+// readers is "hi-dead": the kernel keeps only its 32-bit low words, never
+// loads or stores its acc_hi/bak_hi rows (they keep their entry values,
+// the reference's documented contract), and does no carry arithmetic for
+// it.  Every other plane stays bit-identical to the full kernel.  The
+// wrapper passes the live lanes as a bit mask (`hi_live`, every lane for the
+// full kernel) and the C entry picks one of three instantiations from it
+// (template parameter HI):
+//   HI_FULL -- the mask covers every lane: every lane 64-bit;
+//   HI_MASK -- live lanes 64-bit, dead lanes 32-bit, chosen per lane by
+//              the mask (a warp-uniform test: every thread of a launch runs
+//              the same programs);
+//   HI_DEAD -- mask 0, no live lane (add2: neither of its programs
+//              branches): ACC/BAK are int32 registers outright.
+// What it saves on this card: per dead lane and chunk, two [1, B] rows of
+// loads and two of stores (16 bytes per instance), and per committed
+// ADD/SUB/NEG the carry chain of wadd/wsub.  Alone that is nothing against
+// a chunk's 2048 ticks of fetch-and-branch work: on an H100 80GB HBM3 at
+// 700 W, HI_MASK with mask 0 ran the add2 chunk (B=262144) in the full
+// kernel's time, while HI_DEAD took 3.7% off it (5.40 -> 5.20 ms through
+// the wrapper, timed in turns in one call; PERF.md).  What HI_DEAD adds is
+// ACC/BAK in 32-bit registers: ptxas gives it 40/56/72/149/236 registers
+// for the 2/4/8/16/32-lane builds against 48/64/96/188/255 for HI_FULL and
+// HI_MASK, and the 32-lane build's spills go.
+//
 // Bounds (checked by the Python wrapper, which raises ValueError naming the
 // bound): n_lanes <= 32, n_stacks <= MAX_STACKS, code tables within the
 // shared-memory limit.  The kernel allocates nothing.
@@ -60,6 +89,25 @@ constexpr int NUM_PORTS = 4;
 constexpr int MAX_STACKS = 16;
 constexpr int32_t JRO_PRECLIP = 1 << 20;
 constexpr int BLOCK = 128;
+constexpr int HI_FULL = 0, HI_MASK = 1, HI_DEAD = 2;
+
+// The register type of ACC/BAK: int32 when no lane is hi-live.
+template <int HI>
+struct RegOf {
+  using type = int64_t;
+};
+template <>
+struct RegOf<HI_DEAD> {
+  using type = int32_t;
+};
+
+// Is lane n hi-live under this instantiation and mask?
+template <int HI>
+__device__ __forceinline__ bool hi_live_lane(uint32_t mask, int n) {
+  if (HI == HI_FULL) return true;
+  if (HI == HI_DEAD) return false;
+  return (mask >> n) & 1u;
+}
 
 __device__ __forceinline__ bool reads_src(int op) {
   return op == OP_MOV_LOCAL || op == OP_MOV_NET || op == OP_ADD ||
@@ -82,6 +130,29 @@ __device__ __forceinline__ int64_t wsub(int64_t a, int64_t b) {
 
 __device__ __forceinline__ int64_t join64(int32_t hi, int32_t lo) {
   return (int64_t)(((uint64_t)(uint32_t)hi << 32) | (uint64_t)(uint32_t)lo);
+}
+__device__ __forceinline__ int32_t lo32(int64_t x) {
+  return (int32_t)(uint32_t)(uint64_t)x;
+}
+__device__ __forceinline__ int32_t hi32(int64_t x) {
+  return (int32_t)(uint32_t)((uint64_t)x >> 32);
+}
+
+// ACC arithmetic of one lane: 64-bit on a hi-live lane, the low word
+// alone (sign-extended back into the register) on a hi-dead one.
+__device__ __forceinline__ int64_t reg_add(int64_t a, int64_t b, bool live) {
+  return live ? wadd(a, b)
+              : (int64_t)(int32_t)((uint32_t)lo32(a) + (uint32_t)lo32(b));
+}
+__device__ __forceinline__ int64_t reg_sub(int64_t a, int64_t b, bool live) {
+  return live ? wsub(a, b)
+              : (int64_t)(int32_t)((uint32_t)lo32(a) - (uint32_t)lo32(b));
+}
+__device__ __forceinline__ int32_t reg_add(int32_t a, int32_t b, bool) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t reg_sub(int32_t a, int32_t b, bool) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
 // core/regs64.py::jro_target on the 64-bit value v.
@@ -117,15 +188,17 @@ struct Params {
   const int32_t* prog_len;  // [n_lanes]
   int n_lanes, max_len, n_stacks, stack_cap, in_cap, out_cap, batch,
       num_steps;
+  uint32_t hi_live;  // bit n: lane n is hi-live (read under HI_MASK only)
   // [rows, B] structure-of-arrays state, updated in place
   int32_t *acc, *bak, *acc_hi, *bak_hi, *pc, *port_val, *port_full, *hold_val,
       *holding, *stack_mem, *stack_top, *out_buf, *sc, *retired;
   const int32_t* in_buf;
 };
 
-template <int MAXL>
+template <int MAXL, int HI>
 __global__ void __launch_bounds__(BLOCK)
     fused_superstep_kernel(const Params p) {
+  using Reg = typename RegOf<HI>::type;
   extern __shared__ int32_t smem[];
   int32_t* code_s = smem;  // [n_lanes * max_len * NFIELDS]
   int32_t* len_s = smem + p.n_lanes * p.max_len * NFIELDS;
@@ -145,7 +218,7 @@ __global__ void __launch_bounds__(BLOCK)
   const int cap = p.stack_cap;
 
   // ---- load the instance's state ----------------------------------------
-  int64_t acc[MAXL], bak[MAXL];
+  Reg acc[MAXL], bak[MAXL];
   int32_t pc[MAXL], hv[MAXL], ret[MAXL];
   int32_t pv[MAXL * NUM_PORTS];
   PortBits<MAXL> pf;
@@ -156,8 +229,13 @@ __global__ void __launch_bounds__(BLOCK)
   for (int n = 0; n < MAXL; ++n) {
     if (n < nl) {
       const size_t o = (size_t)n * B + b;
-      acc[n] = join64(p.acc_hi[o], p.acc[o]);
-      bak[n] = join64(p.bak_hi[o], p.bak[o]);
+      if (hi_live_lane<HI>(p.hi_live, n)) {
+        acc[n] = (Reg)join64(p.acc_hi[o], p.acc[o]);
+        bak[n] = (Reg)join64(p.bak_hi[o], p.bak[o]);
+      } else {  // hi-dead: the low words only, hi rows never touched
+        acc[n] = (Reg)p.acc[o];
+        bak[n] = (Reg)p.bak[o];
+      }
       pc[n] = p.pc[o];
       hv[n] = p.hold_val[o];
       ret[n] = p.retired[o];
@@ -214,9 +292,10 @@ __global__ void __launch_bounds__(BLOCK)
         const int op = ins[F_OP];
         const int src = ins[F_SRC];
 
-        // source operand: 64-bit (ACC keeps its width, the rest sign-extend)
+        // source operand: register width (ACC keeps its width, the rest
+        // sign-extend)
         bool src_ok = true;
-        int64_t sv = 0;
+        Reg sv = 0;
         if (reads_src(op)) {
           if (src == SRC_IMM) {
             sv = ins[F_IMM];
@@ -227,10 +306,10 @@ __global__ void __launch_bounds__(BLOCK)
             src_ok = (hold >> n) & 1u;
           }
         }
-        const int32_t wire = (int32_t)(uint32_t)(uint64_t)sv;  // sint32
+        const int32_t wire = lo32(sv);  // sint32
 
         bool commit = src_ok;
-        int64_t incoming = 0;  // POP / IN value for an ACC destination
+        int32_t incoming = 0;  // POP / IN value for an ACC destination
         if (op == OP_MOV_NET) {
           commit = false;
           if (src_ok) {
@@ -279,7 +358,8 @@ __global__ void __launch_bounds__(BLOCK)
         }
 
         if (commit) {
-          const int64_t a = acc[n];  // begin-of-tick acc (jump conditions)
+          const Reg a = acc[n];  // begin-of-tick acc (jump conditions)
+          const bool live = hi_live_lane<HI>(p.hi_live, n);
           const int dst = ins[F_DST];
           switch (op) {
             case OP_MOV_LOCAL:
@@ -287,11 +367,11 @@ __global__ void __launch_bounds__(BLOCK)
               break;
             case OP_POP:
             case OP_IN:
-              if (dst == DST_ACC) acc[n] = incoming;
+              if (dst == DST_ACC) acc[n] = (Reg)incoming;
               break;
-            case OP_ADD: acc[n] = wadd(a, sv); break;
-            case OP_SUB: acc[n] = wsub(a, sv); break;
-            case OP_NEG: acc[n] = wsub(0, a); break;
+            case OP_ADD: acc[n] = reg_add(a, sv, live); break;
+            case OP_SUB: acc[n] = reg_sub(a, sv, live); break;
+            case OP_NEG: acc[n] = reg_sub((Reg)0, a, live); break;
             case OP_SWP: acc[n] = bak[n]; bak[n] = a; break;
             case OP_SAV: bak[n] = a; break;
             default: break;
@@ -304,7 +384,7 @@ __global__ void __launch_bounds__(BLOCK)
               (op == OP_JLZ && a < 0)) {
             npc = jmp;
           } else if (op == OP_JRO) {
-            npc = jro_target(pcn, sv, len);
+            npc = jro_target(pcn, (int64_t)sv, len);
           }
           pc[n] = npc;
           hold &= ~(1u << n);
@@ -322,10 +402,12 @@ __global__ void __launch_bounds__(BLOCK)
   for (int n = 0; n < MAXL; ++n) {
     if (n < nl) {
       const size_t o = (size_t)n * B + b;
-      p.acc[o] = (int32_t)(uint32_t)(uint64_t)acc[n];
-      p.acc_hi[o] = (int32_t)(uint32_t)((uint64_t)acc[n] >> 32);
-      p.bak[o] = (int32_t)(uint32_t)(uint64_t)bak[n];
-      p.bak_hi[o] = (int32_t)(uint32_t)((uint64_t)bak[n] >> 32);
+      p.acc[o] = lo32(acc[n]);
+      p.bak[o] = lo32(bak[n]);
+      if (hi_live_lane<HI>(p.hi_live, n)) {
+        p.acc_hi[o] = hi32(acc[n]);
+        p.bak_hi[o] = hi32(bak[n]);
+      }
       p.pc[o] = pc[n];
       p.hold_val[o] = hv[n];
       p.holding[o] = (hold >> n) & 1u;
@@ -344,19 +426,26 @@ __global__ void __launch_bounds__(BLOCK)
   p.sc[4 * B + b] = tick;
 }
 
-template <int MAXL>
+template <int MAXL, int HI>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem =
       ((size_t)p.n_lanes * p.max_len * NFIELDS + p.n_lanes) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_superstep_kernel<MAXL>,
+        fused_superstep_kernel<MAXL, HI>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int grid = (p.batch + BLOCK - 1) / BLOCK;
-  fused_superstep_kernel<MAXL><<<grid, BLOCK, smem, stream>>>(p);
+  fused_superstep_kernel<MAXL, HI><<<grid, BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int MAXL>
+cudaError_t launch_mode(const Params& p, int mode, cudaStream_t stream) {
+  if (mode == HI_MASK) return launch<MAXL, HI_MASK>(p, stream);
+  if (mode == HI_DEAD) return launch<MAXL, HI_DEAD>(p, stream);
+  return launch<MAXL, HI_FULL>(p, stream);
 }
 
 }  // namespace
@@ -368,15 +457,18 @@ int misaka_fused_max_lanes() { return 32; }
 int misaka_fused_max_stacks() { return MAX_STACKS; }
 
 // Advance `num_steps` ticks in place on the [rows, B] state buffers.
-// Returns the launch's cudaError_t (0 = launched).
+// `hi_live` is the lane mask (bit n: lane n has a 64-bit reader): a mask
+// that covers every lane runs the full kernel, any other the elided
+// variant.  Returns the launch's cudaError_t (0 = launched).
 int misaka_fused_superstep(
     const int32_t* code, const int32_t* prog_len, int n_lanes, int max_len,
     int n_stacks, int stack_cap, int in_cap, int out_cap, int batch,
-    int num_steps, int32_t* acc, int32_t* bak, int32_t* acc_hi,
-    int32_t* bak_hi, int32_t* pc, int32_t* port_val, int32_t* port_full,
-    int32_t* hold_val, int32_t* holding, int32_t* stack_mem,
-    int32_t* stack_top, int32_t* out_buf, int32_t* sc, int32_t* retired,
-    const int32_t* in_buf, void* stream) {
+    int num_steps, unsigned int hi_live, int32_t* acc,
+    int32_t* bak, int32_t* acc_hi, int32_t* bak_hi, int32_t* pc,
+    int32_t* port_val, int32_t* port_full, int32_t* hold_val,
+    int32_t* holding, int32_t* stack_mem, int32_t* stack_top,
+    int32_t* out_buf, int32_t* sc, int32_t* retired, const int32_t* in_buf,
+    void* stream) {
   Params p;
   p.code = code;
   p.prog_len = prog_len;
@@ -406,13 +498,16 @@ int misaka_fused_superstep(
   if (n_lanes < 1 || n_lanes > 32 || n_stacks < 1 || n_stacks > MAX_STACKS ||
       batch < 1)
     return (int)cudaErrorInvalidValue;
+  const uint32_t all = n_lanes == 32 ? 0xffffffffu : (1u << n_lanes) - 1u;
+  p.hi_live = (uint32_t)hi_live & all;
+  const int mode = p.hi_live == all ? HI_FULL : (p.hi_live == 0 ? HI_DEAD : HI_MASK);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (n_lanes <= 2) e = launch<2>(p, s);
-  else if (n_lanes <= 4) e = launch<4>(p, s);
-  else if (n_lanes <= 8) e = launch<8>(p, s);
-  else if (n_lanes <= 16) e = launch<16>(p, s);
-  else e = launch<32>(p, s);
+  if (n_lanes <= 2) e = launch_mode<2>(p, mode, s);
+  else if (n_lanes <= 4) e = launch_mode<4>(p, mode, s);
+  else if (n_lanes <= 8) e = launch_mode<8>(p, mode, s);
+  else if (n_lanes <= 16) e = launch_mode<16>(p, mode, s);
+  else e = launch_mode<32>(p, mode, s);
   return (int)e;
 }
 

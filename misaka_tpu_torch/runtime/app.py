@@ -14,6 +14,16 @@ Environment:
   MISAKA_AUTORUN     "1" starts the network at boot
   MISAKA_DEVICE      cuda (default) | cpu -- with no card and no
                      MISAKA_DEVICE=cpu the app refuses to start
+  MISAKA_SERVE_BATCH "0" turns the serve scheduler off: /compute and the
+                     spread lanes then stripe per request (compute_spread)
+  MISAKA_BATCH_WINDOW_US / MISAKA_BATCH_MAX / MISAKA_BATCH_PASSES /
+  MISAKA_LANE_SMALL  the serve scheduler's knobs (runtime/master.py)
+  MISAKA_STACK_AUTOGROW  "0" leaves a full stack parked; by default its
+                     capacity doubles when a request stalls on it
+  MISAKA_CHECKPOINT_DIR  enables POST /checkpoint and /restore, storing
+                     named .npz snapshots (the JAX package's format) here
+  MISAKA_FUSED_ELIDE_HI  "1" serves through the kernel's elided variant
+                     (lanes with no 64-bit reader skip the hi plane)
 """
 
 from __future__ import annotations
@@ -57,6 +67,8 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
         chunk_steps=int(environ.get("MISAKA_CHUNK_STEPS", "0") or 0) or 128,
         batch=batch,
         device=environ.get("MISAKA_DEVICE") or None,
+        # intStack.go:9-45 is unbounded: capacity grows on a wedge
+        stack_autogrow=environ.get("MISAKA_STACK_AUTOGROW", "1") != "0",
     )
 
 
@@ -65,7 +77,8 @@ def main() -> None:
     environ = os.environ
     master = build_master_from_env(environ)
     port = int(environ.get("MISAKA_PORT", "8000"))
-    httpd = make_http_server(master, port=port)
+    httpd = make_http_server(master, port=port,
+                             checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None)
     log.info("serving on :%d (engine=%s)", httpd.server_address[1], master.engine_name)
     if environ.get("MISAKA_AUTORUN") == "1":
         master.run()

@@ -1,32 +1,50 @@
 """Master node: the batched serving loop and the HTTP control surface.
 
-The port's lean twin of misaka_tpu/runtime/master.py, batched only.  One
-`MasterNode` serves B independent instances of one network: /compute
-requests pick a free instance (per-instance FIFO pairing), a device-loop
+The port's twin of misaka_tpu/runtime/master.py, batched only.  One
+`MasterNode` serves B independent instances of one network.  A device-loop
 thread cuts the pending values into each instance's input ring, runs one
 chunk through the batched serve pair (core/engine.py::make_batched_serve)
 and hands every instance's outputs back to its waiting caller.
 
-Kept from the JAX master, with the same behaviour: run / pause / reset /
-load / compute / compute_many / status, per-slot FIFO pairing with stale
-tracking across timeouts and the epoch wipe on reset/load, the feed cut
-(_build_feed / _cut_pending), and the batched serve/idle branch of the
-device loop.  `make_http_server` keeps POST /run /pause /reset /load
-/compute /compute_raw and GET /status with the same bodies and status
-codes; /compute_raw pins one instance (the JAX route's ?spread=0).
+Kept from the JAX master, with the same behaviour:
 
-One route per device: the chunk runs through the fused CUDA kernel on a
-card and through its plain torch version on an explicit CPU device.
+- the lifecycle (run / pause / reset / load, compile-first) and status;
+- the three compute lanes: `compute_many` (one instance, strict FIFO),
+  `compute_spread` (contiguous stripes over free instances) and
+  `compute_coalesced` (the `ServeBatcher`: concurrent callers fuse into
+  shared passes over free instances; MISAKA_SERVE_BATCH=0 turns it off and
+  the lane falls back to `compute_spread`);
+- per-slot FIFO pairing with stale tracking across timeouts and the epoch
+  wipe on reset/load/restore, the feed cut (_build_feed / _cut_pending);
+- stack autogrow: a request stalled on a full stack doubles the stack
+  capacity, up to a byte budget (the reference's stacks are unbounded);
+- `.npz` checkpoints in the reference's format (runtime/checkpoint.py),
+  snapshot / restore, and the restore flush that keeps a resurrected
+  in-flight value from pairing with a new request.
+
+`make_http_server` keeps POST /run /pause /reset /load /compute
+/compute_batch /compute_raw /checkpoint /restore and GET /status with the
+JAX server's bodies and status codes.  Left out: the metrics, usage,
+trace-span and fault-injection hooks (planes the port has not taken yet).
+
+One route per device: every chunk runs through the fused CUDA kernel (the
+plain variant, or the elided one under MISAKA_FUSED_ELIDE_HI=1) on a card,
+and through its plain torch version on an explicit CPU device.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import logging
 import os
 import queue
+import re
 import threading
 import time
+import weakref
+import zipfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -34,12 +52,21 @@ import numpy as np
 import torch
 
 from misaka_tpu_torch.core import fused
+from misaka_tpu_torch.core.state import (
+    NetworkState,
+    clone_state,
+    state_from_numpy,
+    state_to_numpy,
+)
+from misaka_tpu_torch.runtime import checkpoint as ckpt
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
 from misaka_tpu_torch.tis.parser import TISParseError
 from misaka_tpu_torch.utils import wire
+from misaka_tpu_torch.utils.textcodec import dec_to_ints, ints_to_dec
 
 log = logging.getLogger("misaka_tpu_torch.master")
+
 
 class ComputeTimeout(RuntimeError):
     """A compute request's outputs did not all arrive before its deadline."""
@@ -47,6 +74,336 @@ class ComputeTimeout(RuntimeError):
 
 # wakes collectors parked on a wiped queue (reset/load); never a real output
 _WIPED = np.empty((0,), np.int32)
+
+
+# --- the serve scheduler ------------------------------------------------------
+
+
+class _BatchEntry:
+    """One request in the serve scheduler: values in, outputs back.
+    `taken`/`filled` are guarded by the scheduler's condition lock; each
+    pass writes a disjoint slice of `out`."""
+
+    __slots__ = ("arr", "out", "taken", "filled", "deadline", "event",
+                 "error", "cancelled")
+
+    def __init__(self, arr: np.ndarray, deadline: float):
+        self.arr = arr
+        self.out = np.empty((arr.size,), np.int32)
+        self.taken = 0       # values cut into passes so far
+        self.filled = 0      # values scattered back so far
+        self.deadline = deadline
+        self.event = threading.Event()
+        self.error: BaseException | None = None
+        self.cancelled = False   # the waiter gave up: skip the remainder
+
+
+class _BatcherShared:
+    """The queue state a parked worker holds.  It references no master, so
+    an idle worker never keeps a dropped master alive."""
+
+    __slots__ = ("cond", "pending", "hot", "inflight", "closed", "passes")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        # two priority lanes: `hot` (small entries) is cut into passes
+        # before `pending` (bulk)
+        self.pending: collections.deque[_BatchEntry] = collections.deque()
+        self.hot: collections.deque[_BatchEntry] = collections.deque()
+        self.inflight = 0   # passes currently executing
+        self.closed = False
+        self.passes = 0     # passes dispatched (/status serve_passes)
+
+    def waiting(self) -> int:
+        """Values enqueued but not yet cut into a pass.  Call under `cond`."""
+        return sum(e.arr.size - e.taken for q in (self.hot, self.pending) for e in q)
+
+
+def _batcher_worker(shared: _BatcherShared, ref) -> None:
+    """Dispatcher loop: takes a strong batcher reference only while there is
+    work; exits when the scheduler closes or its master is collected."""
+    while True:
+        with shared.cond:
+            if shared.closed:
+                return
+            if not shared.pending and not shared.hot:
+                shared.cond.wait(0.5)
+            if shared.closed:
+                return
+            empty = not shared.pending and not shared.hot
+        batcher = ref()
+        if batcher is None:
+            with shared.cond:
+                shared.closed = True
+                shared.cond.notify_all()
+            return
+        if not empty:
+            try:
+                batcher._pass_once()
+            except Exception:  # a crashed pass must not kill the pool
+                log.exception("serve-scheduler pass crashed")
+        del batcher
+
+
+class ServeBatcher:
+    """Cross-request micro-batching between the HTTP handlers and the engine
+    (the port of misaka_tpu/runtime/master.py::ServeBatcher).
+
+    Callers enqueue (values, event) entries; a small pool of workers each
+    packs everything waiting (FIFO, large entries split) into contiguous
+    stripes over free instance slots, submits the pass as one
+    submission-queue entry, collects each stripe in order and scatters the
+    outputs back.  Per-slot FIFO plus contiguous striping makes the flat
+    input order the flat output order, so pairing is exact by construction.
+
+    An idle engine dispatches the first arrival at once; entries coalesce
+    only while passes are in flight.  Knobs (the reference's):
+    MISAKA_BATCH_WINDOW_US (an explicit coalesce window while a pass is in
+    flight, default 0), MISAKA_BATCH_MAX (values per pass, default
+    B x in_cap), MISAKA_BATCH_PASSES (workers, default min(4, B)),
+    MISAKA_LANE_SMALL (entries up to this many values ride the hot lane,
+    default 8192; 0 puts everything in the bulk lane).  Timeouts, stale
+    marking and the epoch wipe ride the master's per-slot machinery.
+    """
+
+    def __init__(self, master: "MasterNode", n_slots: int, in_cap: int):
+        self._master = master
+        self._n_slots = int(n_slots)
+        self._in_cap = max(1, int(in_cap))
+        self._max_values = int(
+            os.environ.get("MISAKA_BATCH_MAX", "") or 0
+        ) or self._n_slots * self._in_cap
+        self._window_s = float(os.environ.get("MISAKA_BATCH_WINDOW_US", "") or 0) / 1e6
+        self._n_workers = int(
+            os.environ.get("MISAKA_BATCH_PASSES", "") or 0
+        ) or min(4, self._n_slots)
+        self._hot_max = int(os.environ.get("MISAKA_LANE_SMALL", "") or 8192)
+        self._shared = _BatcherShared()
+        self._workers: list[threading.Thread] = []
+
+    @property
+    def passes(self) -> int:
+        with self._shared.cond:
+            return self._shared.passes
+
+    def waiting_values(self) -> int:
+        with self._shared.cond:
+            return self._shared.waiting()
+
+    def compute(self, arr: np.ndarray, timeout: float) -> np.ndarray:
+        """Enqueue one request's values and wait for its outputs (len(arr)
+        in, len(arr) out, order kept).  Entries of at most
+        MISAKA_LANE_SMALL values ride the hot lane."""
+        self._ensure_workers()
+        entry = _BatchEntry(arr, time.monotonic() + timeout)
+        shared = self._shared
+        with shared.cond:
+            if shared.closed:
+                raise ComputeTimeout("the serve scheduler is closed")
+            hot = 0 < arr.size <= self._hot_max
+            (shared.hot if hot else shared.pending).append(entry)
+            shared.cond.notify()
+        with self._master._waiters_lock:
+            self._master._requests_total += 1
+        if not entry.event.wait(timeout):
+            with shared.cond:
+                entry.cancelled = True  # skip the undispatched remainder
+                missing = entry.arr.size - entry.filled
+            raise ComputeTimeout(
+                f"no output for {missing}/{entry.arr.size} value(s) after {timeout}s"
+            )
+        if entry.error is not None:
+            raise entry.error
+        return entry.out
+
+    def _ensure_workers(self) -> None:
+        """Start the worker pool on first use: a master that never serves
+        coalesced traffic owns no threads."""
+        if self._workers:
+            return
+        with self._shared.cond:
+            if self._workers:
+                return
+            ref = weakref.ref(self)
+            for i in range(self._n_workers):
+                t = threading.Thread(target=_batcher_worker, args=(self._shared, ref),
+                                     daemon=True, name=f"misaka-torch-batcher-{i}")
+                t.start()
+                self._workers.append(t)
+
+    def begin_close(self) -> None:
+        """Refuse new work and fail every queued entry at once."""
+        failed: list[_BatchEntry] = []
+        with self._shared.cond:
+            self._shared.closed = True
+            for q in (self._shared.hot, self._shared.pending):
+                while q:
+                    e = q.popleft()
+                    if e.error is None:
+                        e.error = ComputeTimeout("the serve scheduler was closed")
+                    failed.append(e)
+            self._shared.cond.notify_all()
+        for e in failed:
+            e.event.set()
+
+    def join(self, timeout: float) -> bool:
+        """Wait for every worker to exit; True when all did."""
+        deadline = time.monotonic() + timeout
+        for t in self._workers:
+            t.join(max(0.0, deadline - time.monotonic()))
+        return not any(t.is_alive() for t in self._workers)
+
+    # --- the dispatcher side (worker threads) --------------------------------
+
+    def _acquire_slots(self, want: int) -> list[int]:
+        """Try-acquire up to `want` free instance slots from the master's
+        rotating start (never blocking, so a pass cannot deadlock against
+        direct compute_many/compute_spread callers)."""
+        master = self._master
+        n = self._n_slots
+        with master._rr_lock:
+            start = master._rr
+            master._rr = (master._rr + 1) % n
+        slots: list[int] = []
+        for i in range(n):
+            s = (start + i) % n
+            if master._compute_locks[s].acquire(blocking=False):
+                slots.append(s)
+                if len(slots) >= want:
+                    break
+        return slots
+
+    def _pass_once(self) -> None:
+        """Pack everything waiting into one pass, run it, scatter outputs."""
+        master = self._master
+        shared = self._shared
+        if self._window_s > 0:  # explicit coalesce window, only mid-flight
+            with shared.cond:
+                if shared.inflight and (shared.pending or shared.hot):
+                    deadline = time.monotonic() + self._window_s
+                    while shared.waiting() < self._max_values:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        shared.cond.wait(remaining)
+        with shared.cond:
+            waiting = shared.waiting()
+        if waiting <= 0:
+            return
+        want = min(self._n_slots, -(-min(waiting, self._max_values) // self._in_cap))
+        slots = self._acquire_slots(want)
+        if not slots:
+            # every instance is busy: wait for a pass to finish (it notifies)
+            with shared.cond:
+                if (shared.pending or shared.hot) and not shared.closed:
+                    shared.cond.wait(0.05)
+            return
+        # cut FIFO segments off the waiting entries, hot lane first; when
+        # both lanes wait the hot lane gets at most 3/4 of the pass, so a
+        # sustained hot stream cannot starve an admitted bulk entry
+        budget = min(len(slots) * self._in_cap, self._max_values)
+        segs: list[tuple[_BatchEntry, int, int]] = []
+        with shared.cond:
+            reserve = max(1, budget // 4) if (shared.hot and shared.pending) else 0
+            caps = (max(1, budget - reserve), budget)
+            for q, cap in zip((shared.hot, shared.pending), caps):
+                while q and budget > 0 and cap > 0:
+                    e = q[0]
+                    if e.cancelled:
+                        q.popleft()
+                        continue
+                    take = min(budget, cap, e.arr.size - e.taken)
+                    segs.append((e, e.taken, take))
+                    e.taken += take
+                    budget -= take
+                    cap -= take
+                    if e.taken >= e.arr.size:
+                        q.popleft()
+            if segs:
+                shared.inflight += 1
+                shared.passes += 1
+        if not segs:  # another worker drained the queue first
+            for s in slots:
+                master._compute_locks[s].release()
+            return
+        try:
+            self._run_pass(slots, segs)
+        finally:
+            with shared.cond:
+                shared.inflight -= 1
+                shared.cond.notify_all()  # slots freed; window waiters wake
+
+    def _run_pass(self, slots: list[int], segs: list[tuple[_BatchEntry, int, int]]) -> None:
+        """One pass: stripe, submit, collect, scatter.  Releases `slots`."""
+        master = self._master
+        shared = self._shared
+        if len(segs) == 1:
+            e0, s0, ln = segs[0]
+            flat = e0.arr[s0:s0 + ln]
+        else:
+            flat = np.concatenate([e.arr[s0:s0 + ln] for e, s0, ln in segs])
+        total = int(flat.size)
+        n_used = min(len(slots), -(-total // self._in_cap))
+        used, unused = slots[:n_used], slots[n_used:]
+        for s in unused:
+            master._compute_locks[s].release()
+        stripes = np.array_split(flat, n_used)
+        deadline = max(e.deadline for e, _, _ in segs)
+        timeout_s = max(0.0, deadline - time.monotonic())
+        with master._waiters_lock:
+            master._waiters += 1
+        try:
+            with master._epoch_lock:
+                if shared.closed:  # atomic against close()'s queue wipe
+                    raise ComputeTimeout("the serve scheduler was closed")
+                epoch = master._epoch
+                master._submit_q.put(list(zip(used, stripes)))
+            master._work_event.set()
+            parts: list[np.ndarray] = []
+            try:
+                for i, (s, stripe) in enumerate(zip(used, stripes)):
+                    parts.extend(master._collect_slot(s, stripe.size, deadline, epoch, timeout_s))
+            except ComputeTimeout:
+                # the stripes never collected will surface outputs too: mark
+                # those slots stale so their pairing survives
+                with master._epoch_lock:
+                    if master._epoch == epoch:
+                        for s2, st2 in list(zip(used, stripes))[i + 1:]:
+                            master._stale[s2] += st2.size
+                raise
+            flat_out = np.concatenate(parts)
+            # per-slot FIFO + contiguous striping: segment j's outputs are
+            # flat_out[pos_j : pos_j + len_j]
+            pos = 0
+            done: list[_BatchEntry] = []
+            with shared.cond:
+                for e, s0, ln in segs:
+                    e.out[s0:s0 + ln] = flat_out[pos:pos + ln]
+                    pos += ln
+                    e.filled += ln
+                    if e.filled >= e.arr.size:
+                        done.append(e)
+            for e in done:
+                e.event.set()
+        except Exception as exc:
+            msg = f"{exc} (coalesced pass: {len(segs)} request(s), {total} values)"
+            failed: list[_BatchEntry] = []
+            with shared.cond:
+                for e, _, _ in segs:
+                    if e.error is None:
+                        e.error = ComputeTimeout(msg) if isinstance(exc, ComputeTimeout) else exc
+                    e.cancelled = True  # its caller already fails: stop serving it
+                    failed.append(e)
+            for e in failed:
+                e.event.set()
+        finally:
+            with master._waiters_lock:
+                master._waiters -= 1
+            for s in used:
+                master._compute_locks[s].release()
+
+
+# --- the master ---------------------------------------------------------------
 
 
 class MasterNode:
@@ -58,21 +415,32 @@ class MasterNode:
         chunk_steps: int = 128,
         batch: int = 1,
         device: str | torch.device | None = None,
+        stack_autogrow: bool = True,
+        stack_grow_max_bytes: int = 256 * 1024 * 1024,
     ):
         """batch=B runs B independent instances in lockstep and hands
-        concurrent /compute requests to free instances: up to B requests
-        progress in parallel, each instance's pairing strictly FIFO.
-        device=None serves on the card, which must exist."""
+        concurrent requests to free instances, each instance's pairing
+        strictly FIFO.  device=None serves on the card, which must exist.
+
+        stack_autogrow: double a full stack's capacity when a request
+        stalls on it, while the stacks' bytes stay within
+        stack_grow_max_bytes (the reference's stacks are unbounded,
+        intStack.go:9-45)."""
         if not isinstance(batch, int) or batch < 1:
             raise ValueError(f"batch must be an int >= 1, got {batch!r}")
         self._topology = topology
         self._chunk = chunk_steps
         self._batch = batch
         self._device = device
+        self._grow = bool(stack_autogrow)
+        self._grow_max_bytes = int(stack_grow_max_bytes)
+        self._stall_iters = 0
+        # warn-once latch for a wedge growth cannot fix; cleared when
+        # anything moves again or on reset/load
+        self._grow_blocked = False
         self._net = topology.compile(batch=batch, device=device)
         self._state = self._net.init_state()
-        self._batched_serve = self._net.make_batched_serve(
-            self._net.fused_runner(chunk_steps), chunk_steps)
+        self._batched_serve = self._make_serve(self._net)
         self._running = False
         self._loop: threading.Thread | None = None
         self._state_lock = threading.Lock()      # guards _state/_net swaps
@@ -109,6 +477,23 @@ class MasterNode:
         self._requests_total = 0
         self._feed_vals: np.ndarray | None = None
         self._feed_counts: np.ndarray | None = None
+        # Restore flush: a restored state can carry values that were in
+        # flight when it was taken; the loop runs it to quiescence,
+        # discarding outputs, before it ingests new work.
+        self._restore_flush = False
+        self._flush_iters = 0
+        self._flush_quiet = 0
+        # The serve scheduler; MISAKA_SERVE_BATCH=0 keeps the direct lanes.
+        self._batcher: ServeBatcher | None = None
+        if os.environ.get("MISAKA_SERVE_BATCH", "1") != "0":
+            self._batcher = ServeBatcher(self, n_slots, self._net.in_cap)
+
+    def _make_serve(self, net):
+        """The (serve_fn, idle_fn) pair of `net`: one kernel launch per chunk
+        on a card (the elided variant under MISAKA_FUSED_ELIDE_HI=1, its
+        lane mask computed from `net`'s programs), the plain version on the
+        CPU."""
+        return net.make_batched_serve(net.fused_runner(self._chunk), self._chunk)
 
     @property
     def engine_name(self) -> str:
@@ -139,10 +524,15 @@ class MasterNode:
             log.info("network was paused")
 
     def close(self) -> None:
-        """Stop serving and fail every waiting request."""
+        """Stop serving, fail every waiting request and end the scheduler's
+        workers."""
         with self._lifecycle_lock:
             self.pause()
+            if self._batcher is not None:
+                self._batcher.begin_close()
             self._drain_queues()
+        if self._batcher is not None and not self._batcher.join(10.0):
+            log.warning("serve-scheduler workers still running 10 s after close")
 
     def reset(self) -> None:
         """Stop + zero all state and queues (stopNode/resetNode, master.go:252-266)."""
@@ -163,7 +553,7 @@ class MasterNode:
         with self._lifecycle_lock:
             new_topology = self._topology.with_program(target, program)  # validates target
             new_net = new_topology.compile(batch=self._batch, device=self._device)
-            new_serve = new_net.make_batched_serve(new_net.fused_runner(self._chunk), self._chunk)
+            new_serve = self._make_serve(new_net)
             self.pause()
             with self._state_lock:
                 self._topology = new_topology
@@ -172,6 +562,8 @@ class MasterNode:
                 self._batched_serve = new_serve
             self._drain_queues()
             log.info("successfully loaded program")
+
+    # --- the compute lanes --------------------------------------------------
 
     def compute(self, value: int, timeout: float = 30.0) -> int:
         """One value in, one value out — correlated (fixes quirk #2)."""
@@ -220,6 +612,74 @@ class MasterNode:
             with self._waiters_lock:
                 self._waiters -= 1
             self._compute_locks[slot].release()
+
+    def compute_coalesced(self, values, timeout: float = 30.0, return_array: bool = False):
+        """A value stream through the serve scheduler: len(values) in,
+        len(values) out, order kept, and concurrent callers fuse into
+        shared passes.  Falls back to compute_spread when the scheduler is
+        off (MISAKA_SERVE_BATCH=0)."""
+        arr = np.asarray(values, dtype=np.int32)
+        if arr.ndim != 1:
+            raise ValueError(f"values must be a flat sequence, got shape {arr.shape}")
+        if arr.size == 0:
+            return np.empty((0,), np.int32) if return_array else []
+        if self._batcher is None:
+            return self.compute_spread(arr, timeout=timeout, return_array=return_array)
+        out = self._batcher.compute(arr, timeout)
+        return out if return_array else out.tolist()
+
+    def compute_spread(self, values, timeout: float = 30.0, return_array: bool = False):
+        """A value stream STRIPED over free instances: len(values) in,
+        len(values) out, order kept.  Contiguous stripes (one input ring's
+        worth each) go to the free slots acquired from slot 0 up and run in
+        parallel; per-instance FIFO makes the reassembly exact.  With no
+        free slot, or a stream that fits one stripe, it is compute_many."""
+        arr = np.asarray(values, dtype=np.int32)
+        if arr.ndim != 1:
+            raise ValueError(f"values must be a flat sequence, got shape {arr.shape}")
+        if arr.size == 0:
+            return np.empty((0,), np.int32) if return_array else []
+        n = self._n_slots
+        stripe = self._net.in_cap
+        owned: list[int] = []
+        if n > 1 and arr.size > stripe:
+            want_slots = min(n, -(-arr.size // stripe))
+            for s in range(n):
+                if self._compute_locks[s].acquire(blocking=False):
+                    owned.append(s)
+                    if len(owned) >= want_slots:
+                        break
+        if not owned:
+            return self.compute_many(arr, timeout=timeout, return_array=return_array)
+        with self._waiters_lock:
+            self._waiters += 1
+            self._requests_total += 1
+        try:
+            stripes = np.array_split(arr, len(owned))
+            with self._epoch_lock:
+                epoch = self._epoch
+                self._submit_q.put(list(zip(owned, stripes)))
+            self._work_event.set()
+            deadline = time.monotonic() + timeout
+            parts: list[np.ndarray] = []
+            for i, (s, part) in enumerate(zip(owned, stripes)):
+                try:
+                    parts.extend(self._collect_slot(s, part.size, deadline, epoch, timeout))
+                except ComputeTimeout:
+                    # slot s is marked; the stripes never collected will
+                    # surface outputs too: mark them stale as well
+                    with self._epoch_lock:
+                        if self._epoch == epoch:
+                            for s2, part2 in list(zip(owned, stripes))[i + 1:]:
+                                self._stale[s2] += part2.size
+                    raise
+            out = np.concatenate(parts)
+            return out if return_array else out.tolist()
+        finally:
+            with self._waiters_lock:
+                self._waiters -= 1
+            for s in owned:
+                self._compute_locks[s].release()
 
     def _collect_slot(
         self, slot: int, want: int, deadline: float, epoch: int, timeout: float
@@ -280,7 +740,8 @@ class MasterNode:
 
     def status(self) -> dict:
         """Live metrics: totals across instances (tick is lockstep-identical,
-        instance 0's is reported), plus the engine and its kernel launches."""
+        instance 0's is reported), the engine, its kernel launches per
+        variant, and the serve scheduler's passes."""
         with self._state_lock:
             state = self._state
             topo = self._topology
@@ -295,6 +756,8 @@ class MasterNode:
         host_in = sum(len(c) for pairs in submitted for _, c in pairs) + sum(
             sum(len(c) for c in pend) for pend in self._in_pending
         )
+        if self._batcher is not None:
+            host_in += self._batcher.waiting_values()
         host_out = 0
         for q in self._out_qs:
             with q.mutex:
@@ -306,6 +769,7 @@ class MasterNode:
             "engine": self.engine_name,
             "device": str(self._net.device),
             "kernel_launches": dict(fused.launch_counts),
+            "serve_passes": self._batcher.passes if self._batcher is not None else 0,
             "uptime_seconds": round(time.monotonic() - self._created_mono, 3),
             "requests_total": requests_total,
             "tick": tick,
@@ -318,6 +782,96 @@ class MasterNode:
             "nodes": dict(topo.node_info),
             "batch": self._batch,
         }
+
+    # --- checkpoints, snapshot, restore -------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """Whole-network state + topology to one .npz in the JAX package's
+        format, durably (runtime/checkpoint.py).  The fields are read to the
+        host under the state lock."""
+        with self._state_lock:
+            arrays = state_to_numpy(self._state)
+            topo = self._topology
+        arrays[ckpt.TOPOLOGY_KEY] = ckpt.topology_blob({
+            "nodes": topo.node_info,
+            "programs": topo.programs,
+            "stack_cap": topo.stack_cap,
+            "in_cap": topo.in_cap,
+            "out_cap": topo.out_cap,
+            "batch": self._batch,
+        })
+        ckpt.write_checkpoint(path, arrays, self._batch)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore state + programs from a .npz written by either package.
+
+        The durability gate runs first (CheckpointError for a torn or
+        corrupt file), then the batch check, then the compile: nothing is
+        swapped until all three pass.  Capacities travel in the checkpoint.
+        Leaves the network paused, as the JAX master does."""
+        meta, arrays = ckpt.read_checkpoint(path, NetworkState._fields)
+        ckpt_batch = meta.get("batch")
+        if ckpt_batch != self._batch:
+            raise ValueError(
+                f"checkpoint batch={ckpt_batch} does not match this master's "
+                f"batch={self._batch} (request queues are per-instance)"
+            )
+        new_topology = Topology(
+            node_info=meta["nodes"],
+            programs=meta["programs"],
+            stack_cap=int(meta.get("stack_cap", self._topology.stack_cap)),
+            in_cap=int(meta.get("in_cap", self._topology.in_cap)),
+            out_cap=int(meta.get("out_cap", self._topology.out_cap)),
+        )
+        with self._lifecycle_lock:
+            self.pause()
+            new_net = new_topology.compile(batch=self._batch, device=self._device)
+            new_serve = self._make_serve(new_net)
+            state = state_from_numpy(arrays, device=new_net.device)  # owned copies
+            _check_shapes(state, new_net.init_state(), "checkpoint")
+            with self._state_lock:
+                self._topology = new_topology
+                self._net = new_net
+                self._state = state
+                self._batched_serve = new_serve
+            self._drain_queues()
+            self._flush_iters = self._flush_quiet = 0
+            self._restore_flush = True
+        log.info("checkpoint restored from %s", path)
+
+    def snapshot(self) -> NetworkState:
+        """Whole-network state, deep-copied (programs are not included)."""
+        with self._state_lock:
+            return clone_state(self._state)
+
+    def restore(self, state: NetworkState) -> None:
+        """Reinstall a snapshot() state.  Programs do not roll back (use
+        checkpoints for that).  A snapshot taken before a stack autogrow is
+        zero-padded to the grown capacity; any other shape mismatch is
+        refused.  A running master is paused for the swap and resumed."""
+        with self._lifecycle_lock:
+            resume = self._running
+            if resume:
+                self.pause()
+            self._restore_locked(state)
+            if resume:
+                self.run()
+
+    def _restore_locked(self, state: NetworkState) -> None:
+        with self._state_lock:
+            state = NetworkState(*(t.to(self._net.device).clone() for t in state))
+            want_cap = self._net.stack_cap
+            have_cap = state.stack_mem.shape[-1]
+            if have_cap < want_cap:
+                state = state._replace(stack_mem=torch.nn.functional.pad(
+                    state.stack_mem, (0, want_cap - have_cap)))
+            _check_shapes(state, self._net.init_state(), "snapshot")
+            self._state = state
+        # a request submitted against the pre-restore state must fail, and
+        # the snapshot's in-flight values are flushed before new work
+        self._drain_queues()
+        self._flush_iters = self._flush_quiet = 0
+        self._restore_flush = True
 
     # --- the device loop ----------------------------------------------------
 
@@ -337,9 +891,51 @@ class MasterNode:
             for i in range(len(self._out_leftover)):
                 self._out_leftover[i] = self._out_leftover[i][:0]
             self._stale = [0] * len(self._stale)
+            self._grow_blocked = False
             self._epoch += 1
             for q in self._out_qs:
                 q.put(_WIPED)
+
+    def _maybe_grow_stacks(self) -> None:
+        """Double stack capacity when a full stack has wedged the network.
+
+        Called from the device loop thread only.  The new network is
+        compiled and its runner built outside _state_lock (/status and
+        request ingestion stay responsive), then the references are swapped
+        and stack_mem zero-padded under it: slot indices and occupancy do
+        not change.  The kernel takes stack_cap as a run-time argument, so
+        growth rebuilds nothing on the card.  Bounded by
+        stack_grow_max_bytes: past it the wedge is logged once and left
+        parked."""
+        with self._state_lock:
+            net = self._net
+            if not bool((self._state.stack_top >= net.stack_cap).any()):
+                return  # stalled for another reason (e.g. starvation)
+        new_cap = net.stack_cap * 2
+        new_bytes = self._batch * net.num_stacks * new_cap * 4
+        if new_bytes > self._grow_max_bytes:
+            log.warning(
+                "stack at capacity %d but growing to %d would use %d bytes "
+                "(> stack_grow_max_bytes=%d); leaving it parked",
+                net.stack_cap, new_cap, new_bytes, self._grow_max_bytes,
+            )
+            self._grow_blocked = True
+            return
+        t0 = time.monotonic()
+        new_topology = dataclasses.replace(self._topology, stack_cap=new_cap)
+        new_net = new_topology.compile(batch=self._batch, device=self._device)
+        new_serve = self._make_serve(new_net)
+        with self._state_lock:
+            if self._net is not net:  # a lifecycle swap got here first
+                return
+            pad = new_cap - net.stack_cap
+            self._state = self._state._replace(
+                stack_mem=torch.nn.functional.pad(self._state.stack_mem, (0, pad)))
+            self._topology = new_topology
+            self._net = new_net
+            self._batched_serve = new_serve
+        log.info("grew stack capacity %d -> %d in %.3fs",
+                 net.stack_cap, new_cap, time.monotonic() - t0)
 
     def _mark_ticks(self) -> None:
         """Advance the tick-rate gauge by one chunk (device loop thread)."""
@@ -417,9 +1013,14 @@ class MasterNode:
             ctrs = self._net.counters(self._state)  # [4, B]
         while self._running:
             busy = False
+            # After a restore: run without ingesting new work and discard
+            # what the network emits until it goes quiet, so a resurrected
+            # in-flight value never pairs with a post-restore request.
+            flushing = self._restore_flush
             with self._state_lock:
                 state = self._state
-                self._ingest_submissions()
+                if not flushing:
+                    self._ingest_submissions()
                 serve_fn, idle_fn = self._batched_serve
                 fed = False
                 if self._active:
@@ -443,15 +1044,34 @@ class MasterNode:
                         per_slot = []
                 self._state = state
             for slot, outs in per_slot:
-                self._out_qs[slot].put(outs)
                 busy = True
+                if not flushing:  # a flush discards orphan outputs
+                    self._out_qs[slot].put(outs)
+            if flushing:
+                # quiescence: 8 chunks in a row with no output and empty
+                # input rings; capped at 64 chunks so a generator network
+                # cannot flush forever
+                self._flush_iters += 1
+                quiet = not busy and not bool(np.any(ctrs[1] > ctrs[0]))
+                self._flush_quiet = self._flush_quiet + 1 if quiet else 0
+                if self._flush_quiet >= 8 or self._flush_iters >= 64:
+                    self._restore_flush = False
+                continue
             if busy:
+                self._stall_iters = 0
+                self._grow_blocked = False
                 continue
             # Nothing moved.  A waiting compute means work is mid-flight:
-            # keep chunking.  Otherwise park on the enqueue event.
+            # keep chunking -- and after a few such chunks check the one
+            # wedge the loop can repair, a stack at capacity.  Otherwise
+            # park on the enqueue event.
             with self._waiters_lock:
                 waiting = self._waiters
             if waiting:
+                self._stall_iters += 1
+                if self._grow and not self._grow_blocked and self._stall_iters >= 8:
+                    self._stall_iters = 0
+                    self._maybe_grow_stacks()
                 continue
             self._work_event.clear()
             with self._waiters_lock:
@@ -460,10 +1080,32 @@ class MasterNode:
                 self._work_event.wait(0.05)
 
 
-def make_http_server(master: MasterNode, port: int = 8000) -> ThreadingHTTPServer:
-    """The reference's client routes (master.go:90-224) plus /compute_raw
-    and GET /status, with the JAX server's bodies and status codes."""
+def _check_shapes(state: NetworkState, ref: NetworkState, what: str) -> None:
+    """Raise ValueError unless every field of `state` has `ref`'s shape."""
+    mismatch = [f for f, a, b in zip(NetworkState._fields, state, ref) if a.shape != b.shape]
+    if mismatch:
+        raise ValueError(
+            f"{what} shapes do not match the compiled network (fields "
+            f"{mismatch}); reset/load first"
+        )
+
+
+_NAME_RE = re.compile(r"^[A-Za-z0-9._-]{1,128}$")
+
+
+def make_http_server(master: MasterNode, port: int = 8000,
+                     checkpoint_dir: str | None = None) -> ThreadingHTTPServer:
+    """The reference's client routes (master.go:90-224) plus /compute_batch,
+    /compute_raw, /checkpoint, /restore and GET /status, with the JAX
+    server's bodies and status codes.  /checkpoint and /restore answer 403
+    unless `checkpoint_dir` is set; clients name a checkpoint, never a
+    path."""
     max_body = int(os.environ.get("MISAKA_MAX_BODY", "") or 64 * 1024 * 1024)
+
+    def resolve_checkpoint(name: str) -> str | None:
+        if not checkpoint_dir or not _NAME_RE.match(name) or ".." in name:
+            return None
+        return os.path.join(checkpoint_dir, name if name.endswith(".npz") else name + ".npz")
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -531,62 +1173,109 @@ def make_http_server(master: MasterNode, port: int = 8000) -> ThreadingHTTPServe
                 except ValueError:
                     self._text(400, "cannot parse value")
                     return
-                try:
-                    result = int(master.compute_many([value])[0])
+                try:  # through the serve scheduler
+                    result = int(master.compute_coalesced([value])[0])
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
                 self._json({"value": result})
-            elif path == "/compute_raw":
-                # body: raw little-endian int32 values (or the MSK1 framing);
-                # response: raw int32 outputs, order preserved, one instance
-                length_hdr = self.headers.get("Content-Length")
-                if length_hdr is None:
-                    self.close_connection = True
-                    self._text(411, "Content-Length required")
-                    return
+            elif path == "/compute_batch":
+                # form `values`: comma/whitespace-separated ints; `spread=1`
+                # stripes over free instances, the default pins one
+                form = self._form()
                 try:
-                    length = int(length_hdr)
-                except ValueError:
-                    self.close_connection = True
-                    self._text(400, "cannot parse Content-Length")
+                    values = dec_to_ints(form.get("values", ""))
+                except (ValueError, UnicodeEncodeError):
+                    self._text(400, "cannot parse values")
                     return
-                if length > max_body:
-                    self.close_connection = True
-                    self._text(
-                        413,
-                        f"body of {length} bytes exceeds the "
-                        f"{max_body}-byte cap (MISAKA_MAX_BODY)",
-                    )
-                    return
-                raw = self.rfile.read(length)
-                if wire.is_binary(self.headers.get("Content-Type")):
-                    try:
-                        raw = wire.unpack(raw)
-                    except wire.WireError as e:
-                        self._text(400, f"bad binary body: {e}")
-                        return
-                if len(raw) % 4:
-                    self._text(400, "body must be raw int32 values")
-                    return
-                values = np.frombuffer(raw, dtype="<i4")
                 if not master.is_running:
                     self._text(400, "network is not running")
                     return
                 try:
-                    result = master.compute_many(values, return_array=True)
+                    if form.get("spread") == "1":
+                        result = master.compute_coalesced(values, return_array=True)
+                    else:
+                        result = master.compute_many(values, return_array=True)
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
-                payload = result.astype("<i4").tobytes()
-                if wire.accepts_binary(self.headers.get("Accept")):
-                    self._send(200, wire.header(len(payload) // 4) + payload, wire.CONTENT_TYPE)
+                # fixed-width padded tokens: legal JSON whitespace
+                self._send(200, b'{"values": [' + ints_to_dec(result, b",") + b"]}\n",
+                           "application/json")
+            elif path == "/compute_raw":
+                self._compute_raw()
+            elif path in ("/checkpoint", "/restore"):
+                name = self._form().get("name", "")  # body first
+                if not checkpoint_dir:
+                    self._text(403, "checkpointing disabled (no checkpoint_dir configured)")
+                    return
+                target = resolve_checkpoint(name)
+                if target is None:
+                    self._text(400, "invalid checkpoint name")
+                    return
+                if path == "/checkpoint":
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    master.save_checkpoint(target)
                 else:
-                    self._send(200, payload, "application/octet-stream")
+                    try:
+                        master.load_checkpoint(target)
+                    except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+                        self._text(400, f"error restoring checkpoint: {e}")
+                        return
+                self._text(200, "Success")
             else:
                 # unknown POST: the body is unread -- close, don't desync
                 self.close_connection = True
                 self._text(404, "not found")
+
+        def _compute_raw(self) -> None:
+            """Body: raw little-endian int32 values (or the MSK1 framing);
+            response: raw int32 outputs, order kept.  Striped over free
+            instances by default, one instance under ?spread=0."""
+            length_hdr = self.headers.get("Content-Length")
+            if length_hdr is None:
+                self.close_connection = True
+                self._text(411, "Content-Length required")
+                return
+            try:
+                length = int(length_hdr)
+            except ValueError:
+                self.close_connection = True
+                self._text(400, "cannot parse Content-Length")
+                return
+            if length > max_body:
+                self.close_connection = True
+                self._text(413, f"body of {length} bytes exceeds the "
+                                f"{max_body}-byte cap (MISAKA_MAX_BODY)")
+                return
+            raw = self.rfile.read(length)
+            if wire.is_binary(self.headers.get("Content-Type")):
+                try:
+                    raw = wire.unpack(raw)
+                except wire.WireError as e:
+                    self._text(400, f"bad binary body: {e}")
+                    return
+            if len(raw) % 4:
+                self._text(400, "body must be raw int32 values")
+                return
+            values = np.frombuffer(raw, dtype="<i4")
+            query = {k: v[0] for k, v in parse_qs(urlparse(self.path).query).items()}
+            if not master.is_running:
+                self._text(400, "network is not running")
+                return
+            try:
+                if query.get("spread", "1") == "1":
+                    result = master.compute_coalesced(values, return_array=True)
+                else:
+                    result = master.compute_many(values, return_array=True)
+            except ComputeTimeout as e:
+                self._text(500, str(e))
+                return
+            payload = result.astype("<i4").tobytes()
+            if wire.accepts_binary(self.headers.get("Accept")):
+                self._send(200, wire.header(len(payload) // 4) + payload, wire.CONTENT_TYPE)
+            else:
+                self._send(200, payload, "application/octet-stream")
 
     class _Server(ThreadingHTTPServer):
         request_queue_size = 128  # burst of concurrent client dials

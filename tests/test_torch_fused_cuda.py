@@ -10,7 +10,14 @@ cases reuse chip_smoke.py's helpers: the five BASELINE_CONFIGS at caps 8
 and 1024, 16- and 32-stage pipelines and random networks of 9-32 lanes
 (the kernel's widest builds), deep-stack push at stack_cap 128, and random
 networks over every opcode.
+
+The elided variant (elide_dead_hi) is held to its contract from states with
+random hi planes: every field exact, except acc_hi/bak_hi of hi-dead lanes,
+which must keep their entry values; on the baselines, overflow64 and
+running_total, and random networks that mix hi-live and hi-dead lanes.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -100,3 +107,65 @@ def test_launches_are_counted_and_bad_inputs_refused(card):
     with pytest.raises(ValueError, match="state.acc"):
         net.fused_runner(16)(bad)
     assert fused.launch_counts[fused.KERNEL] == before + 1
+
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
+
+
+def elided_case(label, net, seed, steps=128):
+    rng = np.random.default_rng(seed)
+    state = chip_smoke.with_random_hi(
+        chip_smoke.seeded_inputs(net, rng, 6, -(2**31), 2**31), rng)
+    return chip_smoke.compare(label, net, state, steps, elide=True)
+
+
+@pytest.mark.parametrize("cap", [8, 1024])
+@pytest.mark.parametrize("name", sorted(networks.BASELINE_CONFIGS))
+def test_elided_kernel_matches_plain_on_baselines(card, name, cap):
+    net = networks.BASELINE_CONFIGS[name](in_cap=cap, out_cap=cap, stack_cap=cap).compile(
+        batch=1024, device=card)
+    row = elided_case(name, net, cap)
+    check(row)
+    if name in ("add2", "ring4"):
+        assert row["dead_lanes"] == row["lanes"]  # the all-dead instantiation
+
+
+@pytest.mark.parametrize("example", ["overflow64", "running_total"])
+def test_elided_kernel_matches_plain_on_examples(card, example):
+    with open(os.path.join(EXAMPLES, f"{example}.json")) as f:
+        text = f.read()
+    net = Topology.from_json(text, in_cap=8, out_cap=8, stack_cap=8).compile(
+        batch=1024, device=card)
+    check(elided_case(example, net, 3))
+
+
+def test_elided_kernel_matches_plain_on_mixed_random_networks(card):
+    for seed in chip_smoke.mixed_seeds(Topology, fused, 8):
+        net = chip_smoke.random_topology(seed, Topology, lanes=(2, 9)).compile(
+            batch=512, device=card)
+        row = elided_case(f"random_mixed/{seed}", net, seed, 96)
+        assert 0 < row["dead_lanes"] < row["lanes"]
+        check(row)
+
+
+def test_elided_launches_counted_under_their_own_key(card):
+    net = networks.add2(in_cap=8, out_cap=8, stack_cap=8).compile(batch=128, device=card)
+    before = dict(fused.launch_counts)
+    net.fused_runner(16, elide_dead_hi=True)(net.init_state())
+    assert fused.launch_counts[fused.KERNEL_ELIDE] == before[fused.KERNEL_ELIDE] + 1
+    assert fused.launch_counts[fused.KERNEL] == before[fused.KERNEL]
+    with pytest.raises(ValueError, match="hi_live mask"):
+        fused.fused_superstep(net._code_t, net._len_t, net.init_state(), 4, hi_live=1 << 5)
+
+
+def test_elided_call_on_an_all_live_network_counts_as_the_full_kernel(card):
+    """overflow64's lanes are all hi-live: the elided call's mask covers
+    every lane, the C entry runs the full kernel, and the launch is counted
+    under the full kernel's key."""
+    with open(os.path.join(EXAMPLES, "overflow64.json")) as f:
+        net = Topology.from_json(f.read(), in_cap=8, out_cap=8, stack_cap=8).compile(
+            batch=128, device=card)
+    before = dict(fused.launch_counts)
+    net.fused_runner(16, elide_dead_hi=True)(net.init_state())
+    assert fused.launch_counts[fused.KERNEL] == before[fused.KERNEL] + 1
+    assert fused.launch_counts[fused.KERNEL_ELIDE] == before[fused.KERNEL_ELIDE]

@@ -3,11 +3,18 @@
 One request stream goes to a JAX `MasterNode(engine="scan")` server and to
 the port's `MasterNode(device="cpu")` server; every response (status,
 content type, body) must be identical: /run, /pause, /reset, /compute,
-/compute_raw (legacy raw and the MSK1 binary framing, `?spread=0`, which is
-the port's one-instance behaviour), /load (good and bad programs), unknown
-routes and GET /status's shared fields.  examples/multiply.json (two inputs
-per output) is driven through the Python API, where both masters must
-agree on the timeout bookkeeping of a lone pair.
+/compute_raw (striped by default, pinned under `?spread=0`; legacy raw and
+the MSK1 binary framing), /compute_batch (pinned and `spread=1`),
+/checkpoint and /restore without a checkpoint directory, /load (good and
+bad programs), unknown routes and GET /status's shared fields.
+examples/multiply.json (two inputs per output) is driven through the Python
+API, where both masters must agree on the timeout bookkeeping of a lone
+pair.
+
+Two faults of the first slice are pinned here at exact equality: a
+/compute_raw with no query must stripe like the JAX master's (it pinned one
+instance, which a stateful network answers differently), and a full stack
+must grow as the JAX master's does (it wedged the port).
 """
 
 import json
@@ -92,6 +99,14 @@ def request_stream(name):
         ("/compute_raw?spread=0", raw2.tobytes(), {"Accept": jwire.CONTENT_TYPE}, "POST"),
         ("/compute_raw?spread=0", b"\x00" * 16, {"Content-Type": jwire.CONTENT_TYPE}, "POST"),
         ("/compute_raw?spread=0", b"\x01\x02\x03\x04\x05\x06", None, "POST"),
+        ("/compute_raw", raw.tobytes(), None, "POST"),                  # striped
+        ("/compute_raw?spread=1", jwire.pack(raw2.tobytes()), bin_hdr, "POST"),
+        ("/compute_batch", form(values=" ".join(map(str, raw))), None, "POST"),
+        ("/compute_batch", form(values="5,-6,7", spread="1"), None, "POST"),
+        ("/compute_batch", form(values=""), None, "POST"),
+        ("/compute_batch", form(values="5x"), None, "POST"),            # 400
+        ("/checkpoint", form(name="c1"), None, "POST"),                 # 403
+        ("/restore", form(name="c1"), None, "POST"),                    # 403
         ("/load", form(targetURI="nosuch", program="NOP"), None, "POST"),
         ("/load", form(targetURI=target, program="MOV 1,ACC"), None, "POST"),
         ("/compute", form(value="7"), None, "POST"),          # old program serves
@@ -102,6 +117,8 @@ def request_stream(name):
         ("/compute_raw?spread=0", raw.tobytes(), None, "POST"),
         ("/pause", b"", None, "POST"),
         ("/compute", form(value="2"), None, "POST"),          # 400
+        ("/compute_batch", form(values="2"), None, "POST"),   # 400
+        ("/compute_raw", raw2.tobytes(), None, "POST"),       # 400
         ("/run", b"", None, "POST"),
         ("/reset", b"", None, "POST"),
         ("/run", b"", None, "POST"),
@@ -137,6 +154,72 @@ def test_http_session_matches_jax(name, monkeypatch):
             h.shutdown()
             h.server_close()
             m.close()
+
+
+RUNNING_TOTAL = os.path.join(os.path.dirname(MULTIPLY), "running_total.json")
+REVERSE_ANY = os.path.join(os.path.dirname(MULTIPLY), "reverse_any.json")
+
+
+def test_compute_raw_stripes_by_default_like_jax(monkeypatch):
+    """running_total keeps a total per instance: one 32-value /compute_raw
+    with no query at B=4, in_cap=8 is cut into four 8-value stripes by the
+    JAX master (four running totals); a pinned one would be a single
+    total over all 32.  Fresh masters, one caller: the stripes land on
+    slots 0-3 in order on both."""
+    for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
+        monkeypatch.setenv(switch, "0")
+    with open(RUNNING_TOTAL) as f:
+        text = f.read()
+    jm = JMaster(JTopology.from_json(text, **CAPS), chunk_steps=32, batch=4, engine="scan")
+    tm = TMaster(TTopology.from_json(text, **CAPS), chunk_steps=32, batch=4, device="cpu")
+    jh, th = j_http(jm, port=0), t_http(tm, port=0)
+    jb, tb = serve(jh), serve(th)
+    try:
+        jm.run()
+        tm.run()
+        vals = np.arange(1, 33, dtype="<i4")
+        want = request(jb, "/compute_raw", vals.tobytes())
+        got = request(tb, "/compute_raw", vals.tobytes())
+        assert got == want
+        totals = np.concatenate([np.cumsum(part) for part in np.split(vals, 4)])
+        assert np.frombuffer(got[2], "<i4").tolist() == totals.tolist()
+        # ?spread=0 pins one instance: one total over all 32 values, carried
+        # on from the stripe that instance already summed.  Which instance
+        # depends on how often the scheduler's workers rotated the start
+        # slot, so the check is on the shape of the answer.
+        bases = {int(part.sum()) for part in np.split(vals, 4)}
+        for base in (jb, tb):
+            pinned = np.frombuffer(request(base, "/compute_raw?spread=0", vals.tobytes())[2], "<i4")
+            assert int(pinned[0] - vals[0]) in bases
+            assert (pinned - pinned[0]).tolist() == (np.cumsum(vals) - vals[0]).tolist()
+    finally:
+        for h, m in ((jh, jm), (th, tm)):
+            h.shutdown()
+            h.server_close()
+            m.close()
+
+
+def test_full_stack_grows_like_jax():
+    """reverse_any needs stack depth = stream length.  At stack_cap=4 the
+    block [1..10, 0] parks its pusher on a full stack: the JAX master doubles
+    the capacity (4 -> 8 -> 16) and answers; the port must too."""
+    with open(REVERSE_ANY) as f:
+        text = f.read()
+    caps = dict(in_cap=16, out_cap=16, stack_cap=4)
+    jm = JMaster(JTopology.from_json(text, **caps), chunk_steps=32, batch=2, engine="scan")
+    tm = TMaster(TTopology.from_json(text, **caps), chunk_steps=32, batch=2, device="cpu")
+    jm.run()
+    tm.run()
+    try:
+        block = list(range(1, 11)) + [0]
+        want = jm.compute_many(block, timeout=60)
+        got = tm.compute_many(block, timeout=60)
+        assert got == want == [0] + list(range(10, 0, -1))
+        assert tm.status()["stack_cap"] == jm.status()["stack_cap"] == 16
+        assert tm._topology.stack_cap == 16
+    finally:
+        jm.close()
+        tm.close()
 
 
 def test_compute_many_streams_match_jax():
@@ -243,7 +326,7 @@ def test_app_serves_over_http_as_a_process(tmp_path):
     env = {**os.environ, **ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_DEVICE": "cpu",
            "MISAKA_CHUNK_STEPS": "32", "MISAKA_IN_CAP": "8", "MISAKA_OUT_CAP": "8",
            "MISAKA_STACK_CAP": "8", "MISAKA_AUTORUN": "1", "MISAKA_PORT": str(port),
-           "OMP_NUM_THREADS": "1"}
+           "MISAKA_CHECKPOINT_DIR": str(tmp_path / "ckpt"), "OMP_NUM_THREADS": "1"}
     with open(tmp_path / "app.log", "w") as log:
         proc = subprocess.Popen([sys.executable, "-m", "misaka_tpu_torch.runtime.app"],
                                 cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
@@ -262,6 +345,9 @@ def test_app_serves_over_http_as_a_process(tmp_path):
         assert request(base, "/compute", form(value="5"))[2] == b'{"value": 7}\n'
         raw = np.arange(-4, 4, dtype="<i4")
         assert request(base, "/compute_raw", raw.tobytes())[2] == (raw + 2).tobytes()
+        # MISAKA_CHECKPOINT_DIR arms /checkpoint
+        assert request(base, "/checkpoint", form(name="c1"))[::2] == (200, b"Success")
+        assert (tmp_path / "ckpt" / "c1.npz").is_file()
     finally:
         proc.terminate()
         proc.wait(timeout=30)
