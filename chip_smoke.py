@@ -7,17 +7,28 @@ against its plain torch version on the card: the full kernel with every
 NetworkState field exactly equal (the state is all integers, so the
 tolerance is zero), and the elided variant (MISAKA_FUSED_ELIDE_HI) with
 every field exact except acc_hi/bak_hi of hi-dead lanes, which must keep
-their entry values.  Then it serves at B=262144 through
-`python -m misaka_tpu_torch.runtime.app` and checks every answer:
+their entry values.  The data-parallel runner (the kernel launched once
+per mesh shard, parallel/mesh.py) is held at the served shapes against its
+plain version per shard and against one whole-batch launch, on two shards
+of one card and, on a host with two or more cards, one shard per card.
+Then it serves at B=262144 through `python -m misaka_tpu_torch.runtime.app`
+and checks every answer:
 
 - add2 on the default lane (the serve scheduler, striped /compute_raw and
   /compute_batch, 32 coalescing clients, a checkpoint saved and restored,
   /load and /reset);
 - reverse_any with stack_cap=16, which must grow its stack to answer;
-- add2 again under MISAKA_FUSED_ELIDE_HI=1, served by the elided variant.
+- add2 again under MISAKA_FUSED_ELIDE_HI=1, served by the elided variant;
+- add2 again with MISAKA_DATA_PARALLEL set to the card count, the same
+  drill on the mesh path;
+
+and in process, two shards on cuda:0 (`MasterNode(device=["cuda:0",
+"cuda:0"], data_parallel=2)`): a striped stream, checkpoints D=2 -> D=1 ->
+D=2, and reverse_any's stack grown 16 -> 64.
 
 Last it times the kernel and its variants at the served shapes and at
-caps 1024.  Each phase prints one JSON line; the last line is
+caps 1024, and the data-parallel runner against the whole-batch launch.
+Each phase prints one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -173,6 +184,30 @@ def with_random_hi(state, rng):
     return state._replace(acc_hi=plane(state.acc_hi), bak_hi=plane(state.bak_hi))
 
 
+def held_to_plain(net, want, entry, elide):
+    """The hi-dead lanes of the elided variant (elide=True), after holding
+    `want` (the plain result, field -> array) to the contract: their
+    acc_hi/bak_hi keep the `entry` values."""
+    from misaka_tpu_torch.core import fused
+
+    live = fused.hi_live_lanes(net.code, net.prog_len) if elide else [True] * net.num_lanes
+    dead = [n for n, is_live in enumerate(live) if not is_live]
+    for f in ("acc_hi", "bak_hi"):
+        want[f][:, dead] = entry[f][:, dead]
+    return dead
+
+
+def diverged_fields(got, want):
+    return [f for f in got if not np.array_equal(got[f], want[f])]
+
+
+def max_abs_err(got, want):
+    return max(
+        int(np.abs(got[f].astype(np.int64) - want[f].astype(np.int64)).max(initial=0))
+        for f in got
+    )
+
+
 def compare(label, net, state, steps, elide=False):
     """Kernel vs plain version from the same state.  The full kernel must
     give every field exactly; the elided variant (elide=True) every field
@@ -183,7 +218,6 @@ def compare(label, net, state, steps, elide=False):
     on hi-dead lanes."""
     import torch
 
-    from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.core.state import clone_state, state_to_numpy
 
     before = clone_state(state)
@@ -195,16 +229,10 @@ def compare(label, net, state, steps, elide=False):
     torch.cuda.synchronize()
     g, w, b0 = state_to_numpy(got), state_to_numpy(want), state_to_numpy(before)
     a0 = state_to_numpy(state)
-    live = fused.hi_live_lanes(net.code, net.prog_len) if elide else [True] * net.num_lanes
-    dead = [n for n, is_live in enumerate(live) if not is_live]
-    for f in ("acc_hi", "bak_hi"):  # dead lanes are held to their entry values
-        w[f][:, dead] = a0[f][:, dead]
-    diverged = [f for f in g if not np.array_equal(g[f], w[f])]
-    touched = [f for f in a0 if not np.array_equal(a0[f], b0[f])]
-    err = max(
-        int(np.abs(g[f].astype(np.int64) - w[f].astype(np.int64)).max(initial=0))
-        for f in g
-    )
+    dead = held_to_plain(net, w, a0, elide)
+    diverged = diverged_fields(g, w)
+    touched = diverged_fields(a0, b0)
+    err = max_abs_err(g, w)
     commits = (g["retired"] - a0["retired"]).astype(np.int64)
     row = {"case": label, "batch": net.batch, "lanes": net.num_lanes, "steps": steps,
            "elide": elide, "dead_lanes": len(dead),
@@ -266,12 +294,12 @@ def phase_parity():
     return report_parity("parity", rows)
 
 
-def report_parity(phase, rows):
+def report_parity(phase, rows, **extra):
     bad = [r for r in rows if not r["exact"]]
     emit({"phase": phase, "tolerance": "exact (integer state)", "cases": len(rows),
           "lanes": sorted({r["lanes"] for r in rows}),
           "dead_lanes": sorted({r["dead_lanes"] for r in rows}),
-          "failed": bad, "max_abs_err": max(r["max_abs_err"] for r in rows)})
+          "failed": bad, "max_abs_err": max(r["max_abs_err"] for r in rows), **extra})
     if bad:
         raise SystemExit(f"{phase}: kernel disagrees with its plain version on {len(bad)} case(s)")
     return max(r["max_abs_err"] for r in rows)
@@ -317,6 +345,129 @@ def phase_elided_parity():
     if not any(0 < r["dead_lanes"] < r["lanes"] for r in rows):
         raise SystemExit("elided parity: no case mixes hi-live and hi-dead lanes")
     return report_parity("elided_parity", rows)
+
+
+def compare_dp(label, net, state, steps, devices, elide=False):
+    """The data-parallel runner, its shards on `devices` (one per shard,
+    repeats allowed), against its plain version (core/fused.py::plain_run
+    per shard) and against the single whole-batch launch, all from the same
+    state: every field exact (the elided variant: hi-dead lanes' acc_hi /
+    bak_hi at their entry values).  Also checks that neither the state nor
+    its shards were touched, and that the runner launched once per shard
+    under fused.KERNEL_DP.  The plain version's time is host time around
+    work that ends in a synchronise of every card it ran on."""
+    import torch
+
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.core.state import clone_state, state_to_numpy
+    from misaka_tpu_torch.parallel.mesh import (
+        ShardedNetwork, gather_state, make_mesh, shard_state)
+
+    mesh = make_mesh(len(devices), list(devices))
+    sharded = ShardedNetwork(net, mesh)
+    run = sharded.fused_runner(steps, elide_dead_hi=elide)
+    entry = state_to_numpy(state)
+    shards = shard_state(state, mesh)
+    before = state_to_numpy(gather_state(shards))
+    n0 = fused.launch_counts[fused.KERNEL_DP]
+    got = state_to_numpy(gather_state(run(shards)))
+    launches = fused.launch_counts[fused.KERNEL_DP] - n0
+    whole = state_to_numpy(net.fused_runner(steps, elide_dead_hi=elide)(state))
+    cards = sorted({d.index for d in mesh.devices})
+    for i in cards:
+        torch.cuda.synchronize(i)
+    t = time.perf_counter()
+    plain = [n.run(clone_state(s), steps) for n, s in zip(sharded.nets, shards)]
+    for i in cards:
+        torch.cuda.synchronize(i)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    want = state_to_numpy(gather_state(plain))
+    dead = held_to_plain(net, want, entry, elide)
+    diverged = diverged_fields(got, want)
+    whole_diverged = diverged_fields(got, whole)
+    touched = diverged_fields(state_to_numpy(state), entry) + diverged_fields(
+        state_to_numpy(gather_state(shards)), before)
+    commits = (got["retired"] - entry["retired"]).astype(np.int64)
+    row = {"case": label, "batch": net.batch, "shards": len(devices), "cards": len(cards),
+           "devices": [str(d) for d in mesh.devices], "lanes": net.num_lanes,
+           "steps": steps, "elide": elide, "variant": run.variant, "dead_lanes": len(dead),
+           "launches": launches,
+           "exact": not diverged and not whole_diverged and not touched
+           and launches == len(devices),
+           "max_abs_err": max(max_abs_err(got, want), max_abs_err(got, whole)),
+           "out_wr_min": int(got["out_wr"].min()),
+           "stack_full": int((got["stack_top"] >= net.stack_cap).any(axis=1).sum()),
+           "commits": int(commits.sum()), "dead_commits": int(commits[:, dead].sum()),
+           "plain_ms": plain_ms}
+    if diverged:
+        row["diverged_from_plain"] = diverged
+    if whole_diverged:
+        row["diverged_from_whole_batch_launch"] = whole_diverged
+    if touched:
+        row["input_mutated"] = touched
+    return row
+
+
+def reverse_any_state(net, rng):
+    """reverse_any with a full input ring per instance (MAIN_CAPS' 128
+    values) and the 0 sentinel at a seeded position or nowhere, so that in
+    one 2048-tick chunk some instances fill the stack and park on it and
+    others dump and drain theirs."""
+    import torch
+
+    n = net.in_cap
+    vals = rng.integers(1, 1000, size=(net.batch, n)) * rng.choice([-1, 1], size=(net.batch, n))
+    sentinel = rng.integers(0, n + 1, size=net.batch)  # n: no sentinel in the stream
+    has = sentinel < n
+    vals[np.flatnonzero(has), sentinel[has]] = 0
+    s = net.init_state()
+    return s._replace(in_buf=torch.from_numpy(vals.astype(np.int32)).to(net.device),
+                      in_wr=torch.full_like(s.in_wr, n))
+
+
+def phase_dp_parity(batch=MAIN_BATCH, chunk=MAIN_CHUNK):
+    """The data-parallel runner (misaka_tpu/runtime/master.py:1438's port)
+    at the served shapes: two shards on cuda:0, and one shard per card when
+    the host has two or more, on add2, reverse_any (streams that fill its
+    stack) and a random network that mixes hi-live and hi-dead lanes, plus
+    add2 through the elided variant (HI_DEAD) on two shards."""
+    import torch
+
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    rng = np.random.default_rng(SEED + 4)
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        reverse_any = Topology.from_json(f.read(), **MAIN_CAPS)
+    mixed_seed = mixed_seeds(Topology, fused, 1)[0]
+    cards = torch.cuda.device_count()
+    layouts = [["cuda:0"] * 2] + ([[f"cuda:{i}" for i in range(cards)]] if cards >= 2 else [])
+    rows = []
+    for name, top in (("add2", networks.add2(**MAIN_CAPS)), ("reverse_any", reverse_any),
+                      (f"random_mixed/{mixed_seed}", random_topology(
+                          mixed_seed, Topology, lanes=(2, 9), **MAIN_CAPS))):
+        net = top.compile(batch=batch, device="cuda")
+        if name == "reverse_any":
+            state = reverse_any_state(net, rng)
+        else:
+            state = with_random_hi(seeded_inputs(net, rng, net.in_cap, -100, 100), rng)
+        for devices in layouts:
+            rows.append(compare_dp(f"{name}/{len(devices)}x{len(set(devices))}card",
+                                   net, state, chunk, devices))
+        if name == "add2":
+            rows.append(compare_dp("add2/elided/2x1card", net, state, chunk, layouts[0],
+                                   elide=True))
+        if name == "reverse_any" and not 0 < rows[-1]["stack_full"] < batch:
+            rows[-1]["exact"] = False
+            rows[-1]["why"] = f"{rows[-1]['stack_full']} of {batch} instances filled the stack"
+        del net, state
+    multi = "run" if cards >= 2 else "not run"
+    err = report_parity("dp_parity", rows, cards=cards, multi_card=multi,
+                        variants=sorted({r["variant"] for r in rows}),
+                        detail=[{k: r[k] for k in ("case", "variant", "launches", "stack_full",
+                                                   "commits", "plain_ms")} for r in rows])
+    return err, rows
 
 
 # --- the main path over HTTP ------------------------------------------------------
@@ -436,18 +587,26 @@ def check_raw(port, vals, query="", want=None):
 
 
 def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency=100,
-                    device=None):
+                    device=None, data_parallel=None):
     """Serve add2 on the default lane through the app entry point and check
-    every answer.  device="cpu" (with a small batch, chunk and n_raw)
-    rehearses this phase without a card, through the plain version."""
+    every answer.  data_parallel=D serves it on a mesh of D devices
+    (MISAKA_DATA_PARALLEL: on the card, D distinct cards), every chunk one
+    launch per shard under fused_superstep_dp.  device="cpu" (with a small
+    batch, chunk and n_raw) rehearses this phase without a card, through
+    the plain version."""
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt_dir = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.join(ROOT, "build"))
+    env = {"MISAKA_CHECKPOINT_DIR": ckpt_dir}
+    if data_parallel:
+        env["MISAKA_DATA_PARALLEL"] = str(data_parallel)
+    label = "dp" if data_parallel else "main"
     try:
-        with served_app("main", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
-                        device=device, MISAKA_CHECKPOINT_DIR=ckpt_dir) as (port, boot_s):
-            row = drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir)
+        with served_app(label, ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                        device=device, **env) as (port, boot_s):
+            row = drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir,
+                                  data_parallel)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     row["boot_s"] = boot_s
@@ -455,9 +614,12 @@ def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency
     return row
 
 
-def drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir):
+def drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir,
+                    data_parallel=None):
+    key = "fused_superstep_dp" if data_parallel else "fused_superstep"
+    per_iteration = data_parallel or 1  # launches per device-loop iteration
     st = status(port)
-    launches_at_ready = st["kernel_launches"]["fused_superstep"]
+    launches_at_ready = st["kernel_launches"][key]
     # sequential /compute on a quiet server: the latency samples (the first
     # one also pays the server's first-request warm-up)
     lat = []
@@ -501,7 +663,7 @@ def drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir):
     st = status(port)
     passes = st["serve_passes"] - passes0
     requests = st["requests_total"] - reqs0
-    small_iters = sum(st["kernel_launches"].values()) - iters0
+    small_iters = (sum(st["kernel_launches"].values()) - iters0) // per_iteration
     expect(0 < passes < requests == n_small * per_small,
            f"small requests did not coalesce: {passes} passes for {requests} requests")
 
@@ -551,11 +713,15 @@ def drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir):
     want_engine = "plain" if device == "cpu" else "fused"
     expect(st["engine"] == want_engine and st["device"].startswith(device or "cuda"),
            f"engine {st['engine']} on {st['device']}")
-    expect(device == "cpu" or (launches["fused_superstep"] > 0
-                               and launches["fused_superstep_elide_hi"] == 0),
+    expect(device == "cpu" or (launches[key] > 0
+                               and all(n == 0 for k, n in launches.items() if k != key)),
            f"main path launches: {launches}")
+    mesh = st.get("mesh")
+    expect(mesh == ({"data": data_parallel, "model": 1} if data_parallel else None),
+           f"/status mesh {mesh}")
     return {
-        "phase": "main_path", "batch": batch, "chunk_steps": chunk,
+        "phase": "dp_path" if data_parallel else "main_path", "mesh": mesh,
+        "batch": batch, "chunk_steps": chunk,
         **MAIN_CAPS, "engine": st["engine"], "device": st["device"],
         "kernel_launches": launches, "kernel_launches_at_ready": launches_at_ready,
         "compute_latency_samples": len(steady),
@@ -584,23 +750,14 @@ def reverse_any_parity(text, batch, chunk):
     to): one chunk from 128 queued values per instance, with the 0 sentinel
     at a seeded position or nowhere, so that some instances fill the stack
     and park on it and others dump and drain theirs."""
-    import torch
-
     from misaka_tpu_torch.runtime.topology import Topology
 
-    rng = np.random.default_rng(SEED + 3)
-    n = MAIN_CAPS["in_cap"]
-    vals = (rng.integers(1, 1000, size=(batch, n)) * rng.choice([-1, 1], size=(batch, n)))
-    sentinel = rng.integers(0, n + 1, size=batch)  # n: no sentinel in the stream
-    has = sentinel < n
-    vals[np.flatnonzero(has), sentinel[has]] = 0
     rows = []
     for cap in (16, 64):
         net = Topology.from_json(text, **dict(MAIN_CAPS, stack_cap=cap)).compile(
             batch=batch, device="cuda")
-        s = net.init_state()
-        state = s._replace(in_buf=torch.from_numpy(vals.astype(np.int32)).cuda(),
-                           in_wr=torch.full_like(s.in_wr, n))
+        # the same streams at both caps
+        state = reverse_any_state(net, np.random.default_rng(SEED + 3))
         row = compare(f"reverse_any/cap{cap}", net, state, chunk)
         if not 0 < row["stack_full"] < batch:
             row["exact"] = False
@@ -665,6 +822,98 @@ def phase_elided_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, device=
     row = {"phase": "elided_path", "batch": batch, "chunk_steps": chunk, "boot_s": boot_s,
            "compute_raw_values": int(vals.size), "compute_raw_s": raw_s,
            "kernel_launches": launches}
+    emit(row)
+    return row
+
+
+def phase_two_shards(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_values=100_000,
+                     devices=("cuda:0", "cuda:0")):
+    """Two shards served on one card, in process: `MasterNode(device=[card,
+    card], data_parallel=2)`.  A striped stream of n_values, all right; a
+    checkpoint saved at D=2 loads into a D=1 master and one saved there
+    loads back at D=2, every field equal after each load and the answers
+    right; reverse_any at stack_cap=16 grows to 64 under D=2 and answers
+    its reversal.  The launch counts are zeroed just before and read just
+    after.  devices=("cpu", "cpu") with small sizes rehearses it without a
+    card."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.core.state import state_to_numpy
+    from misaka_tpu_torch.runtime.master import MasterNode
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    def master(top, d):
+        return MasterNode(top, chunk_steps=chunk, batch=batch, device=list(devices[:d]),
+                          data_parallel=d)
+
+    def same_state(a, b, what):
+        sa, sb = state_to_numpy(a.snapshot()), state_to_numpy(b.snapshot())
+        bad = diverged_fields(sa, sb)
+        expect(not bad, f"{what}: fields {bad} differ after the load")
+
+    for k in fused.launch_counts:
+        fused.launch_counts[k] = 0
+    rng = np.random.default_rng(SEED + 5)
+    vals = rng.integers(-(2**31), 2**31, size=n_values, dtype=np.int64).astype(np.int32)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-dp-", dir=os.path.join(ROOT, "build"))
+    m2 = master(networks.add2(**MAIN_CAPS), 2)
+    m1 = master(networks.add2(**MAIN_CAPS), 1)
+    try:
+        m2.run()
+        t = time.perf_counter()
+        out = m2.compute_spread(vals, timeout=300, return_array=True)
+        spread_s = time.perf_counter() - t
+        expect(np.array_equal(out, wrap_i32(vals.astype(np.int64) + 2)),
+               "two shards: compute_spread answers differ")
+        m2.pause()
+        t = time.perf_counter()
+        m2.save_checkpoint(os.path.join(ckpt_dir, "d2.npz"))
+        m1.load_checkpoint(os.path.join(ckpt_dir, "d2.npz"))
+        d2_to_d1_s = time.perf_counter() - t
+        same_state(m1, m2, "D=2 -> D=1")
+        m1.run()
+        few = vals[:5000]
+        expect(np.array_equal(m1.compute_spread(few, timeout=300, return_array=True),
+                              wrap_i32(few.astype(np.int64) + 2)), "D=1 after the load")
+        m1.pause()
+        t = time.perf_counter()
+        m1.save_checkpoint(os.path.join(ckpt_dir, "d1.npz"))
+        m2.load_checkpoint(os.path.join(ckpt_dir, "d1.npz"))
+        d1_to_d2_s = time.perf_counter() - t
+        same_state(m2, m1, "D=1 -> D=2")
+        m2.run()
+        expect(m2.compute(41, timeout=300) == 43, "D=2 after the load")
+    finally:
+        m1.close()
+        m2.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del m1, m2
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        mr = master(Topology.from_json(f.read(), **MAIN_CAPS), 2)
+    try:
+        cap0 = mr.status()["stack_cap"]
+        mr.run()
+        t = time.perf_counter()
+        out = mr.compute_many(list(range(1, 41)) + [0], timeout=300)
+        grow_s = time.perf_counter() - t
+        expect(out == [0] + list(range(40, 0, -1)), f"two shards: reverse_any {out[:8]}")
+        st = mr.status()
+        expect(cap0 == 16 and st["stack_cap"] == 64, f"stack_cap {cap0} -> {st['stack_cap']}")
+    finally:
+        mr.close()
+    del mr
+    launches = dict(fused.launch_counts)
+    on_card = devices[0] != "cpu"
+    expect(not on_card or (launches[fused.KERNEL_DP] > 0 and all(
+        n == 0 for k, n in launches.items() if k != fused.KERNEL_DP)),
+        f"two-shard launches {launches}")
+    row = {"phase": "two_shards", "devices": list(devices), "batch": batch,
+           "chunk_steps": chunk, "mesh": st["mesh"], "spread_values": int(vals.size),
+           "spread_s": spread_s, "spread_values_per_s": vals.size / spread_s,
+           "checkpoint_d2_to_d1_s": d2_to_d1_s, "checkpoint_d1_to_d2_s": d1_to_d2_s,
+           "stack_cap_before": cap0, "stack_cap_after": st["stack_cap"],
+           "grow_request_s": grow_s, "kernel_launches": launches}
     emit(row)
     return row
 
@@ -737,12 +986,19 @@ def bound(net, state, check, steps):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_timings(smi):
+def phase_timings(smi, dp_check):
     """At the main path's shapes: the full kernel and the elided variant,
     each held against the plain version from the same input state, then
-    timed in turns (full, elided, elided, full) with their bounds; and the
-    full kernel at caps 1024, the big-capacity row."""
+    timed in turns (full, elided, elided, full) with their bounds; the
+    data-parallel runner with two shards on cuda:0 from the same state,
+    held to the whole-batch launch and timed in turns with it (whole, dp,
+    dp, whole), its bound the whole batch's over the one card it runs on
+    (`dp_check`: phase_dp_parity's add2 row at these shapes, for the plain
+    version's time); and the full kernel at caps 1024, the big-capacity
+    row."""
     from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core.state import state_to_numpy
+    from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
 
     rng = np.random.default_rng(SEED)
     net = networks.add2(**MAIN_CAPS).compile(batch=MAIN_BATCH, device="cuda")
@@ -763,6 +1019,17 @@ def phase_timings(smi):
     for which in ("full", "elided", "elided", "full"):
         fn = run_full if which == "full" else run_elided
         turns[which].append(cuda_time_ms(lambda: fn(state), 10))
+    mesh = make_mesh(2, ["cuda:0", "cuda:0"])
+    run_dp = ShardedNetwork(net, mesh).fused_runner(MAIN_CHUNK, elide_dead_hi=False)
+    shards = shard_state(state, mesh)
+    dp_diverged = diverged_fields(state_to_numpy(gather_state(run_dp(shards))),
+                                  state_to_numpy(run_full(state)))
+    if dp_diverged:
+        raise SystemExit(f"DP runner differs from the whole-batch launch in {dp_diverged}")
+    dp_turns = {"whole": [], "dp": []}
+    for which in ("whole", "dp", "dp", "whole"):
+        fn = (lambda: run_full(state)) if which == "whole" else (lambda: run_dp(shards))
+        dp_turns[which].append(cuda_time_ms(fn, 10))
     run_big = big_net.fused_runner(MAIN_CHUNK, elide_dead_hi=False)
     big_ms = cuda_time_ms(lambda: run_big(big_state), 5)
     row = {
@@ -781,6 +1048,16 @@ def phase_timings(smi):
                    "device_breakdown": device_breakdown_ms(lambda: run_elided(state))
                    or "not measured",
                    **bound(net, state, elided, MAIN_CHUNK)},
+        "dp": {"shards": 2, "cards": 1, "exact": True, "max_abs_err": 0,
+               "variant": run_dp.variant,
+               "ms": float(np.mean(dp_turns["dp"])), "ms_turns": dp_turns["dp"],
+               "whole_batch_ms": float(np.mean(dp_turns["whole"])),
+               "whole_batch_ms_turns": dp_turns["whole"],
+               "plain_ms": dp_check["plain_ms"],
+               "device_breakdown": device_breakdown_ms(lambda: run_dp(shards))
+               or "not measured",
+               # the whole batch's work on the one card both shards share
+               **bound(net, state, full, MAIN_CHUNK)},
         "cap1024": {"caps": 1024, "exact": big["exact"], "max_abs_err": big["max_abs_err"],
                     "ms": big_ms, "plain_ms": big["plain_ms"],
                     "device_breakdown": device_breakdown_ms(lambda: run_big(big_state), 2)
@@ -833,18 +1110,26 @@ def main() -> int:
 
     max_err = phase_parity()
     max_err_elided = phase_elided_parity()
+    max_err_dp, dp_rows = phase_dp_parity()
 
     # Each served phase runs in a fresh server process, whose launch counts
     # start at 0 when it boots; the counts are read from its /status at the
-    # end of the phase.
+    # end of the phase.  The in-process two-shard phase zeroes this
+    # process's counts just before it and reads them just after.
     for k in fused.launch_counts:
         fused.launch_counts[k] = 0
     main_row = phase_main_path()
     grow_row = phase_autogrow()
     elided_row = phase_elided_path()
+    dp_row = phase_main_path(data_parallel=count)
+    two_row = phase_two_shards()
+    emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
+          **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
+             for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
+                       "served_values_per_s", "small_requests_per_s")}})
 
-    timing = phase_timings(smi)
-    full, elided, big = timing["full"], timing["elided"], timing["cap1024"]
+    timing = phase_timings(smi, next(r for r in dp_rows if r["case"] == "add2/2x1card"))
+    full, elided, big, dp = timing["full"], timing["elided"], timing["cap1024"], timing["dp"]
     emit({"kernels": [
         {
             "name": fused.KERNEL, "route": "cuda",
@@ -869,6 +1154,20 @@ def main() -> int:
             "ms": elided["ms"], "plain_ms": elided["plain_ms"],
             "bound_ms": elided["bound_ms"], "bound_by": elided["bound_by"],
             "library_ms": None, "exact": True,
+        },
+        {
+            "name": fused.KERNEL_DP, "route": "cuda",
+            "source": "misaka_tpu_torch/csrc/fused_superstep.cu",
+            "wrapper": "misaka_tpu_torch/parallel/mesh.py",
+            "replaces": "misaka_tpu/runtime/master.py:1438",
+            "launches": dp_row["kernel_launches"][fused.KERNEL_DP]
+            + two_row["kernel_launches"][fused.KERNEL_DP],
+            "max_abs_err": max(max_err_dp, dp["max_abs_err"]),
+            "ms": dp["ms"], "plain_ms": dp["plain_ms"],
+            "bound_ms": dp["bound_ms"], "bound_by": dp["bound_by"],
+            "library_ms": None, "exact": True, "variant": dp["variant"],
+            "shards": dp["shards"], "cards": dp["cards"],
+            "whole_batch_ms": dp["whole_batch_ms"],
         },
     ]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})

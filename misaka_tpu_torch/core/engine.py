@@ -25,6 +25,19 @@ from misaka_tpu_torch.core.state import NetworkState, init_state
 from misaka_tpu_torch.device import resolve_device
 
 
+def counters_of(state: NetworkState) -> torch.Tensor:
+    """[in_rd, in_wr, out_rd, out_wr] of every instance: [B, 4], on the
+    state's device."""
+    return torch.stack([state.in_rd, state.in_wr, state.out_rd, state.out_wr], dim=1)
+
+
+def pack(state: NetworkState) -> tuple[NetworkState, torch.Tensor]:
+    """(state with its output rings drained, the [B, 4 + out_cap] packed
+    snapshot of counters and rings): the tail of a serve iteration."""
+    packed = torch.cat([counters_of(state), state.out_buf], dim=1)
+    return state._replace(out_rd=state.out_wr.clone()), packed
+
+
 @dataclass
 class CompiledNetwork:
     """A lowered network bound to the superstep engines, on one device.
@@ -70,11 +83,14 @@ class CompiledNetwork:
         """Advance `num_steps` supersteps with the plain torch tick loop."""
         return fused.plain_run(self._code_t, self._len_t, state, num_steps)
 
-    def fused_runner(self, num_steps: int, elide_dead_hi: bool | None = None):
+    def fused_runner(self, num_steps: int, elide_dead_hi: bool | None = None,
+                     count_as: str | None = None):
         """fn(state) -> state, `num_steps` ticks in ONE launch of the fused
         CUDA kernel (on a CUDA device; the plain version on the CPU).
         Raises ValueError naming the bound when the network exceeds the
-        kernel's; on the card it builds the kernel now.
+        kernel's; on the card it builds the kernel now.  `fn.variant` is
+        the launch-count key of the variant the kernel runs; the launches
+        are counted under `count_as` (None: that key).
 
         elide_dead_hi (None: MISAKA_FUSED_ELIDE_HI == "1", as the JAX
         engine reads it) launches the kernel's elided variant: lanes with
@@ -89,8 +105,9 @@ class CompiledNetwork:
         code, lens = self._code_t, self._len_t
 
         def run(state: NetworkState) -> NetworkState:
-            return fused.fused_superstep(code, lens, state, num_steps, hi_live)
+            return fused.fused_superstep(code, lens, state, num_steps, hi_live, count_as)
 
+        run.variant = fused.variant(hi_live, self.num_lanes)
         return run
 
     def make_batched_serve(self, runner, num_steps: int):
@@ -106,17 +123,12 @@ class CompiledNetwork:
         `runner` is the chunk fn of `num_steps` ticks (fused_runner).
         """
 
-        def ctrs_of(state):
-            return torch.stack([state.in_rd, state.in_wr, state.out_rd, state.out_wr], dim=1)
-
         def serve(state, values, counts):
-            state = runner(self.feed_batched(state, values, counts))
-            packed = torch.cat([ctrs_of(state), state.out_buf], dim=1)
-            return state._replace(out_rd=state.out_wr.clone()), packed
+            return pack(runner(self.feed_batched(state, values, counts)))
 
         def idle(state):
             state = runner(state)
-            return state, ctrs_of(state)
+            return state, counters_of(state)
 
         return serve, idle
 

@@ -38,13 +38,16 @@ from misaka_tpu_torch.tis import isa
 
 KERNEL = "fused_superstep"
 KERNEL_ELIDE = "fused_superstep_elide_hi"  # the same kernel, elided variant
+KERNEL_DP = "fused_superstep_dp"  # the same kernel, once per mesh shard (parallel/mesh.py)
 MAX_LANES = 32   # the kernel's compile-time lane bound (fused_superstep.cu)
 MAX_STACKS = 16
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block can use
 
 # Launches of each kernel by its wrapper, counted where the kernel is
-# launched and nowhere else.  chip_smoke.py zeroes and reads these.
-launch_counts = {KERNEL: 0, KERNEL_ELIDE: 0}
+# launched and nowhere else.  chip_smoke.py zeroes and reads these.  A
+# launch of the data-parallel runner counts under KERNEL_DP only, whichever
+# variant it runs.
+launch_counts = {KERNEL: 0, KERNEL_ELIDE: 0, KERNEL_DP: 0}
 
 # the kernel's state arguments, in order; "sc" is the [5, B] scalar block
 # (in_rd, in_wr, out_rd, out_wr, tick), every other name a state field the
@@ -147,11 +150,13 @@ def _from_rows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
                     state: NetworkState, num_steps: int,
-                    hi_live: int | None = None) -> NetworkState:
+                    hi_live: int | None = None,
+                    count_as: str | None = None) -> NetworkState:
     """Advance a batched state `num_steps` ticks: the kernel on a CUDA
     state, the plain version on a CPU state.  `hi_live` (a lane mask from
     `hi_live_mask`) launches the elided variant unless it covers every
-    lane; None the full kernel."""
+    lane; None the full kernel.  The launch is counted under `count_as`
+    (None: the key of the variant it runs)."""
     dev = state.pc.device
     if dev.type == "cpu":
         return plain_run(code, prog_len, state, num_steps)
@@ -196,7 +201,7 @@ def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
     with torch.cuda.device(dev):
         out = _launch(lib, code, prog_len, state, num_steps, mask,
                       torch.cuda.current_stream(dev).cuda_stream)
-    launch_counts[variant(hi_live, n_lanes)] += 1
+    launch_counts[count_as or variant(hi_live, n_lanes)] += 1
     return out
 
 

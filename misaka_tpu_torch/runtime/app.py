@@ -24,6 +24,13 @@ Environment:
                      named .npz snapshots (the JAX package's format) here
   MISAKA_FUSED_ELIDE_HI  "1" serves through the kernel's elided variant
                      (lanes with no 64-bit reader skip the hi plane)
+  MISAKA_DATA_PARALLEL   shard the batch over N devices, one kernel launch
+                     per shard per chunk (MISAKA_BATCH must divide by N): the
+                     first N cards, and the app refuses to start when the
+                     host has fewer; with MISAKA_DEVICE=cpu, N shards on the
+                     CPU.  /status then reports "mesh"
+  MISAKA_MODEL_PARALLEL  > 1 (lanes sharded across devices) is not ported:
+                     the app refuses to start
 """
 
 from __future__ import annotations
@@ -69,6 +76,8 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
         device=environ.get("MISAKA_DEVICE") or None,
         # intStack.go:9-45 is unbounded: capacity grows on a wedge
         stack_autogrow=environ.get("MISAKA_STACK_AUTOGROW", "1") != "0",
+        data_parallel=int(environ.get("MISAKA_DATA_PARALLEL", "0") or 0) or None,
+        model_parallel=int(environ.get("MISAKA_MODEL_PARALLEL", "0") or 0) or None,
     )
 
 

@@ -30,6 +30,17 @@ trace-span and fault-injection hooks (planes the port has not taken yet).
 One route per device: every chunk runs through the fused CUDA kernel (the
 plain variant, or the elided one under MISAKA_FUSED_ELIDE_HI=1) on a card,
 and through its plain torch version on an explicit CPU device.
+
+Data parallel (`data_parallel=D`, the reference's mesh master with a
+`data` axis only): the batch is cut into D contiguous shards, one per mesh
+device (parallel/mesh.py), and the network compiles to a `ShardedNetwork`
+whose serving members take the global feed and give global counters and
+slots, so the device loop, the slot locks and the scheduler are the same
+for one device and for D.  `self._state` is then the list of shard states;
+status sums over the shards on the host, and checkpoints, `snapshot` and
+`restore` carry the global [B, ...] arrays in shard order, as the JAX mesh
+master writes them, so a checkpoint moves between D=4, 2, 1 and the JAX
+package at the same B.
 """
 
 from __future__ import annotations
@@ -55,9 +66,11 @@ from misaka_tpu_torch.core import fused
 from misaka_tpu_torch.core.state import (
     NetworkState,
     clone_state,
+    init_state,
     state_from_numpy,
     state_to_numpy,
 )
+from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
 from misaka_tpu_torch.runtime import checkpoint as ckpt
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
@@ -414,13 +427,22 @@ class MasterNode:
         topology: Topology,
         chunk_steps: int = 128,
         batch: int = 1,
-        device: str | torch.device | None = None,
+        device: str | torch.device | list | None = None,
         stack_autogrow: bool = True,
         stack_grow_max_bytes: int = 256 * 1024 * 1024,
+        data_parallel: int | None = None,
+        model_parallel: int | None = None,
     ):
         """batch=B runs B independent instances in lockstep and hands
         concurrent requests to free instances, each instance's pairing
         strictly FIFO.  device=None serves on the card, which must exist.
+
+        data_parallel=D serves the batch in D contiguous shards, one per
+        device of a mesh (parallel/mesh.py): device=None the first D cards
+        (raises when the host has fewer), "cpu" D shards on the CPU, or a
+        list of D devices, which may repeat one card.  B must divide by D.
+        model_parallel > 1 (lanes sharded across devices) is not ported
+        and raises.
 
         stack_autogrow: double a full stack's capacity when a request
         stalls on it, while the stacks' bytes stay within
@@ -428,6 +450,16 @@ class MasterNode:
         intStack.go:9-45)."""
         if not isinstance(batch, int) or batch < 1:
             raise ValueError(f"batch must be an int >= 1, got {batch!r}")
+        if model_parallel is not None and int(model_parallel) > 1:
+            raise NotImplementedError(
+                f"model_parallel={model_parallel}: lane-sharded serving is not "
+                "ported yet (ROADMAP A.6)")
+        self._mesh = None
+        if data_parallel or model_parallel:
+            dp = int(data_parallel or 1)
+            if batch % dp:
+                raise ValueError(f"batch {batch} not divisible by data_parallel={dp}")
+            self._mesh = make_mesh(dp, device)
         self._topology = topology
         self._chunk = chunk_steps
         self._batch = batch
@@ -438,7 +470,7 @@ class MasterNode:
         # warn-once latch for a wedge growth cannot fix; cleared when
         # anything moves again or on reset/load
         self._grow_blocked = False
-        self._net = topology.compile(batch=batch, device=device)
+        self._net = self._compile(topology)
         self._state = self._net.init_state()
         self._batched_serve = self._make_serve(self._net)
         self._running = False
@@ -487,6 +519,25 @@ class MasterNode:
         self._batcher: ServeBatcher | None = None
         if os.environ.get("MISAKA_SERVE_BATCH", "1") != "0":
             self._batcher = ServeBatcher(self, n_slots, self._net.in_cap)
+
+    def _compile(self, topology: Topology):
+        """`topology` compiled for this master: a CompiledNetwork, or on a
+        mesh its sharded twin."""
+        if self._mesh is None:
+            return topology.compile(batch=self._batch, device=self._device)
+        return ShardedNetwork(
+            topology.compile(batch=self._batch, device=self._mesh.devices[0]), self._mesh)
+
+    def _shards(self) -> list[NetworkState]:
+        """The live state as a list of shard states (one off a mesh)."""
+        return self._state if self._mesh is not None else [self._state]
+
+    def _place(self, state: NetworkState):
+        """Owned copies of a whole-batch state where this master keeps it:
+        on its device, or cut into the mesh's shards."""
+        if self._mesh is not None:
+            return shard_state(state, self._mesh)
+        return NetworkState(*(t.to(self._net.device, copy=True) for t in state))
 
     def _make_serve(self, net):
         """The (serve_fn, idle_fn) pair of `net`: one kernel launch per chunk
@@ -552,7 +603,7 @@ class MasterNode:
         """
         with self._lifecycle_lock:
             new_topology = self._topology.with_program(target, program)  # validates target
-            new_net = new_topology.compile(batch=self._batch, device=self._device)
+            new_net = self._compile(new_topology)
             new_serve = self._make_serve(new_net)
             self.pause()
             with self._state_lock:
@@ -741,15 +792,16 @@ class MasterNode:
     def status(self) -> dict:
         """Live metrics: totals across instances (tick is lockstep-identical,
         instance 0's is reported), the engine, its kernel launches per
-        variant, and the serve scheduler's passes."""
+        variant, the serve scheduler's passes, and on a mesh its shape.
+        Each sum is taken per shard on its device and added on the host."""
         with self._state_lock:
-            state = self._state
+            shards = self._shards()
             topo = self._topology
-            tick = int(state.tick[0])
-            retired = state.retired.sum(dim=0).tolist()
-            stack_top = state.stack_top.sum(dim=0).tolist()
-            in_depth = int((state.in_wr - state.in_rd).sum())
-            out_depth = int((state.out_wr - state.out_rd).sum())
+            tick = int(shards[0].tick[0])
+            retired = sum(s.retired.sum(dim=0).cpu() for s in shards).tolist()
+            stack_top = sum(s.stack_top.sum(dim=0).cpu() for s in shards).tolist()
+            in_depth = sum(int((s.in_wr - s.in_rd).sum()) for s in shards)
+            out_depth = sum(int((s.out_wr - s.out_rd).sum()) for s in shards)
             stack_cap = self._net.stack_cap
         with self._submit_q.mutex:
             submitted = list(self._submit_q.queue)
@@ -764,7 +816,7 @@ class MasterNode:
                 host_out += sum(len(c) for c in q.queue)
         with self._waiters_lock:
             requests_total = self._requests_total
-        return {
+        status = {
             "running": self._running,
             "engine": self.engine_name,
             "device": str(self._net.device),
@@ -782,15 +834,20 @@ class MasterNode:
             "nodes": dict(topo.node_info),
             "batch": self._batch,
         }
+        if self._mesh is not None:
+            status["mesh"] = dict(self._mesh.shape)
+        return status
 
     # --- checkpoints, snapshot, restore -------------------------------------
 
     def save_checkpoint(self, path: str) -> None:
         """Whole-network state + topology to one .npz in the JAX package's
         format, durably (runtime/checkpoint.py).  The fields are read to the
-        host under the state lock."""
+        host under the state lock (on a mesh: the global arrays, in shard
+        order)."""
         with self._state_lock:
-            arrays = state_to_numpy(self._state)
+            state = self._state if self._mesh is None else gather_state(self._state)
+            arrays = state_to_numpy(state)
             topo = self._topology
         arrays[ckpt.TOPOLOGY_KEY] = ckpt.topology_blob({
             "nodes": topo.node_info,
@@ -807,7 +864,8 @@ class MasterNode:
 
         The durability gate runs first (CheckpointError for a torn or
         corrupt file), then the batch check, then the compile: nothing is
-        swapped until all three pass.  Capacities travel in the checkpoint.
+        swapped until all three pass.  Capacities travel in the checkpoint,
+        and the arrays are global: any mesh of the same batch loads them.
         Leaves the network paused, as the JAX master does."""
         meta, arrays = ckpt.read_checkpoint(path, NetworkState._fields)
         ckpt_batch = meta.get("batch")
@@ -825,10 +883,11 @@ class MasterNode:
         )
         with self._lifecycle_lock:
             self.pause()
-            new_net = new_topology.compile(batch=self._batch, device=self._device)
+            new_net = self._compile(new_topology)
             new_serve = self._make_serve(new_net)
-            state = state_from_numpy(arrays, device=new_net.device)  # owned copies
-            _check_shapes(state, new_net.init_state(), "checkpoint")
+            state = state_from_numpy(arrays)
+            _check_shapes(state, _shapes_of(new_net, self._batch), "checkpoint")
+            state = self._place(state)
             with self._state_lock:
                 self._topology = new_topology
                 self._net = new_net
@@ -840,15 +899,20 @@ class MasterNode:
         log.info("checkpoint restored from %s", path)
 
     def snapshot(self) -> NetworkState:
-        """Whole-network state, deep-copied (programs are not included)."""
+        """Whole-network state, deep-copied (programs are not included); on
+        a mesh the shards gathered, on the CPU."""
         with self._state_lock:
+            if self._mesh is not None:
+                return gather_state(self._state)
             return clone_state(self._state)
 
     def restore(self, state: NetworkState) -> None:
         """Reinstall a snapshot() state.  Programs do not roll back (use
         checkpoints for that).  A snapshot taken before a stack autogrow is
         zero-padded to the grown capacity; any other shape mismatch is
-        refused.  A running master is paused for the swap and resumed."""
+        refused.  The state is the whole batch's, on any device; on a mesh
+        it is cut into owned shards.  A running master is paused for the
+        swap and resumed."""
         with self._lifecycle_lock:
             resume = self._running
             if resume:
@@ -859,14 +923,13 @@ class MasterNode:
 
     def _restore_locked(self, state: NetworkState) -> None:
         with self._state_lock:
-            state = NetworkState(*(t.to(self._net.device).clone() for t in state))
             want_cap = self._net.stack_cap
             have_cap = state.stack_mem.shape[-1]
             if have_cap < want_cap:
                 state = state._replace(stack_mem=torch.nn.functional.pad(
                     state.stack_mem, (0, want_cap - have_cap)))
-            _check_shapes(state, self._net.init_state(), "snapshot")
-            self._state = state
+            _check_shapes(state, _shapes_of(self._net, self._batch), "snapshot")
+            self._state = self._place(state)
         # a request submitted against the pre-restore state must fail, and
         # the snapshot's in-flight values are flushed before new work
         self._drain_queues()
@@ -905,11 +968,11 @@ class MasterNode:
         and stack_mem zero-padded under it: slot indices and occupancy do
         not change.  The kernel takes stack_cap as a run-time argument, so
         growth rebuilds nothing on the card.  Bounded by
-        stack_grow_max_bytes: past it the wedge is logged once and left
-        parked."""
+        stack_grow_max_bytes over the whole batch (every shard of a mesh):
+        past it the wedge is logged once and left parked."""
         with self._state_lock:
             net = self._net
-            if not bool((self._state.stack_top >= net.stack_cap).any()):
+            if not any(bool((s.stack_top >= net.stack_cap).any()) for s in self._shards()):
                 return  # stalled for another reason (e.g. starvation)
         new_cap = net.stack_cap * 2
         new_bytes = self._batch * net.num_stacks * new_cap * 4
@@ -923,14 +986,15 @@ class MasterNode:
             return
         t0 = time.monotonic()
         new_topology = dataclasses.replace(self._topology, stack_cap=new_cap)
-        new_net = new_topology.compile(batch=self._batch, device=self._device)
+        new_net = self._compile(new_topology)
         new_serve = self._make_serve(new_net)
         with self._state_lock:
             if self._net is not net:  # a lifecycle swap got here first
                 return
             pad = new_cap - net.stack_cap
-            self._state = self._state._replace(
-                stack_mem=torch.nn.functional.pad(self._state.stack_mem, (0, pad)))
+            grown = [s._replace(stack_mem=torch.nn.functional.pad(s.stack_mem, (0, pad)))
+                     for s in self._shards()]
+            self._state = grown if self._mesh is not None else grown[0]
             self._topology = new_topology
             self._net = new_net
             self._batched_serve = new_serve
@@ -1078,6 +1142,12 @@ class MasterNode:
                 waiting = self._waiters
             if not waiting and self._submit_q.empty():
                 self._work_event.wait(0.05)
+
+
+def _shapes_of(net, batch: int) -> NetworkState:
+    """A whole-batch state of `net`'s shapes, allocated nowhere (meta)."""
+    return init_state(net.num_lanes, net.num_stacks, net.stack_cap, net.in_cap,
+                      net.out_cap, batch=batch, device="meta")
 
 
 def _check_shapes(state: NetworkState, ref: NetworkState, what: str) -> None:

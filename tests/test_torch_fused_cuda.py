@@ -169,3 +169,75 @@ def test_elided_call_on_an_all_live_network_counts_as_the_full_kernel(card):
     net.fused_runner(16, elide_dead_hi=True)(net.init_state())
     assert fused.launch_counts[fused.KERNEL] == before[fused.KERNEL] + 1
     assert fused.launch_counts[fused.KERNEL_ELIDE] == before[fused.KERNEL_ELIDE]
+
+
+# --- the data-parallel runner (misaka_tpu/runtime/master.py:1438's port) --------
+
+
+def dp_layouts():
+    """Two shards on one card, and one shard per card when there are two
+    or more (decided inside the test)."""
+    n = torch.cuda.device_count()
+    return [["cuda:0"] * 2] + ([[f"cuda:{i}" for i in range(n)]] if n >= 2 else [])
+
+
+def dp_network(name):
+    if name == "add2":
+        return networks.add2(in_cap=8, out_cap=8, stack_cap=8)
+    if name == "reverse_any":
+        with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+            return Topology.from_json(f.read(), in_cap=8, out_cap=8, stack_cap=4)
+    seed = chip_smoke.mixed_seeds(Topology, fused, 1)[0]
+    return chip_smoke.random_topology(seed, Topology, lanes=(2, 9))
+
+
+@pytest.mark.parametrize("name", ["add2", "reverse_any", "mixed"])
+def test_dp_runner_matches_plain_and_the_whole_batch_launch(card, name):
+    """Gathered shards equal the plain version per shard and one launch over
+    the whole batch, every field; the input state and its shards stay
+    untouched; one launch per shard under fused_superstep_dp."""
+    net = dp_network(name).compile(batch=1024, device=card)
+    rng = np.random.default_rng(7)
+    state = chip_smoke.with_random_hi(chip_smoke.seeded_inputs(net, rng, 8, -100, 100), rng)
+    for devices in dp_layouts():
+        check(chip_smoke.compare_dp(name, net, state, 96, devices))
+
+
+def test_dp_runner_elided_variant(card):
+    net = networks.add2(in_cap=8, out_cap=8, stack_cap=8).compile(batch=1024, device=card)
+    rng = np.random.default_rng(9)
+    state = chip_smoke.with_random_hi(chip_smoke.seeded_inputs(net, rng, 6, -(2**31), 2**31), rng)
+    for devices in dp_layouts():
+        row = chip_smoke.compare_dp("add2/elided", net, state, 128, devices, elide=True)
+        check(row)
+        assert row["variant"] == fused.KERNEL_ELIDE and row["dead_lanes"] == 2
+
+
+def test_dp_launches_count_shards_under_their_own_key(card):
+    from misaka_tpu_torch.parallel.mesh import ShardedNetwork, make_mesh, shard_state
+
+    net = networks.add2(in_cap=8, out_cap=8, stack_cap=8).compile(batch=256, device=card)
+    mesh = make_mesh(2, ["cuda:0", "cuda:0"])
+    run = ShardedNetwork(net, mesh).fused_runner(16, elide_dead_hi=True)
+    before = dict(fused.launch_counts)
+    run(shard_state(net.init_state(), mesh))
+    assert fused.launch_counts[fused.KERNEL_DP] == before[fused.KERNEL_DP] + 2
+    for key in (fused.KERNEL, fused.KERNEL_ELIDE):
+        assert fused.launch_counts[key] == before[key]
+    assert run.variant == fused.KERNEL_ELIDE
+
+
+def test_two_shards_on_one_card_serve(card):
+    from misaka_tpu_torch.runtime.master import MasterNode
+
+    m = MasterNode(networks.add2(in_cap=8, out_cap=8, stack_cap=8), chunk_steps=64,
+                   batch=256, device=["cuda:0", "cuda:0"], data_parallel=2)
+    m.run()
+    try:
+        vals = np.arange(-3000, 3000, dtype=np.int32)
+        assert np.array_equal(m.compute_spread(vals, timeout=120, return_array=True), vals + 2)
+        assert m.compute_coalesced([5], timeout=120) == [7]
+        st = m.status()
+        assert st["mesh"] == {"data": 2, "model": 1} and st["engine"] == "fused"
+    finally:
+        m.close()

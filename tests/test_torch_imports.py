@@ -40,7 +40,8 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for m in ("misaka_tpu_torch.core.fused", "misaka_tpu_torch.runtime.app",
-              "misaka_tpu_torch.csrc.build", "misaka_tpu_torch.utils.wire"):
+              "misaka_tpu_torch.csrc.build", "misaka_tpu_torch.utils.wire",
+              "misaka_tpu_torch.parallel.mesh"):
         assert m in report["modules"]
 
 
