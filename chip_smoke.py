@@ -938,7 +938,7 @@ def cuda_time_ms(fn, reps):
 
 def device_breakdown_ms(fn, reps=3):
     """Device time per call of `fn`, split into the fused kernel and the
-    rest (the [B, ...] <-> [rows, B] conversion and ring rebase), from
+    rest (the wrapper's clones of the fields the kernel writes), from
     torch.profiler; None where the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -960,7 +960,7 @@ def device_breakdown_ms(fn, reps=3):
             other += us
     if kernel == 0.0:
         return None
-    return {"kernel_ms": kernel / reps / 1e3, "conversion_ms": other / reps / 1e3}
+    return {"kernel_ms": kernel / reps / 1e3, "copy_ms": other / reps / 1e3}
 
 
 def bound(net, state, check, steps):
@@ -986,6 +986,45 @@ def bound(net, state, check, steps):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def geometry(net, hi_mode, batch):
+    """The launch geometry of the instantiation that runs `net` in
+    `hi_mode`, as the CUDA runtime reports it on card 0, and the waves
+    `batch` instances take: batch / (blocks per SM x block x SMs)."""
+    import torch
+
+    from misaka_tpu_torch.core import fused
+
+    blocks, threads = fused.occupancy(net.num_lanes, net.code.shape[1], hi_mode)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"hi_mode": hi_mode, "blocks_per_sm": blocks, "block": threads, "sms": sms,
+            "batch": batch, "waves": batch / (blocks * threads * sms)}
+
+
+def wide_timing(name, top, check_steps=128):
+    """The full kernel on a wider network at the main path's batch, caps and
+    chunk (the 8- and 32-lane builds, whose geometry differs from add2's):
+    held against the plain version over `check_steps` ticks, then timed over
+    the chunk, its bound counted from that chunk's commits."""
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.core.state import state_to_numpy
+
+    net = top.compile(batch=MAIN_BATCH, device="cuda")
+    state = seeded_inputs(net, np.random.default_rng(SEED), MAIN_CAPS["in_cap"])
+    check = compare(f"{name}/short", net, state, check_steps)
+    if not check["exact"]:
+        emit({"phase": "timings", "failed": [check]})
+        raise SystemExit(f"kernel disagrees with its plain version on {name}")
+    run = net.fused_runner(MAIN_CHUNK, elide_dead_hi=False)
+    out = state_to_numpy(run(state))
+    commits = int((out["retired"] - state_to_numpy(state)["retired"]).astype(np.int64).sum())
+    counted = {"commits": commits, "dead_commits": 0, "elide": False, "dead_lanes": 0}
+    return {"lanes": net.num_lanes, "exact": True, "max_abs_err": check["max_abs_err"],
+            "checked_steps": check_steps, "ms": cuda_time_ms(lambda: run(state), 3),
+            "geometry": geometry(net, fused.HI_FULL, MAIN_BATCH),
+            "device_breakdown": device_breakdown_ms(lambda: run(state), 2) or "not measured",
+            **bound(net, state, counted, MAIN_CHUNK)}
+
+
 def phase_timings(smi, dp_check):
     """At the main path's shapes: the full kernel and the elided variant,
     each held against the plain version from the same input state, then
@@ -994,9 +1033,10 @@ def phase_timings(smi, dp_check):
     held to the whole-batch launch and timed in turns with it (whole, dp,
     dp, whole), its bound the whole batch's over the one card it runs on
     (`dp_check`: phase_dp_parity's add2 row at these shapes, for the plain
-    version's time); and the full kernel at caps 1024, the big-capacity
-    row."""
+    version's time); the full kernel at caps 1024, the big-capacity row;
+    and the 8- and 32-lane builds (`wide_timing`)."""
     from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.core.state import state_to_numpy
     from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
 
@@ -1032,12 +1072,15 @@ def phase_timings(smi, dp_check):
         dp_turns[which].append(cuda_time_ms(fn, 10))
     run_big = big_net.fused_runner(MAIN_CHUNK, elide_dead_hi=False)
     big_ms = cuda_time_ms(lambda: run_big(big_state), 5)
+    wide = {name: wide_timing(name, top) for name, top in (
+        ("mesh8", networks.mesh8(**MAIN_CAPS)), ("pipeline32", networks.pipeline(32, **MAIN_CAPS)))}
     row = {
         "phase": "timings", "card": smi, "network": "add2", "batch": MAIN_BATCH,
         "ticks": MAIN_CHUNK, **MAIN_CAPS,
         "full": {"exact": full["exact"], "max_abs_err": full["max_abs_err"],
                  "ms": float(np.mean(turns["full"])), "ms_turns": turns["full"],
                  "plain_ms": full["plain_ms"],
+                 "geometry": geometry(net, fused.HI_FULL, MAIN_BATCH),
                  "device_breakdown": device_breakdown_ms(lambda: run_full(state))
                  or "not measured",
                  **bound(net, state, full, MAIN_CHUNK)},
@@ -1045,6 +1088,7 @@ def phase_timings(smi, dp_check):
                    "dead_lanes": elided["dead_lanes"],
                    "ms": float(np.mean(turns["elided"])), "ms_turns": turns["elided"],
                    "plain_ms": elided["plain_ms"],
+                   "geometry": geometry(net, fused.HI_DEAD, MAIN_BATCH),
                    "device_breakdown": device_breakdown_ms(lambda: run_elided(state))
                    or "not measured",
                    **bound(net, state, elided, MAIN_CHUNK)},
@@ -1054,6 +1098,7 @@ def phase_timings(smi, dp_check):
                "whole_batch_ms": float(np.mean(dp_turns["whole"])),
                "whole_batch_ms_turns": dp_turns["whole"],
                "plain_ms": dp_check["plain_ms"],
+               "geometry": geometry(net, fused.HI_FULL, MAIN_BATCH // 2),
                "device_breakdown": device_breakdown_ms(lambda: run_dp(shards))
                or "not measured",
                # the whole batch's work on the one card both shards share
@@ -1063,6 +1108,7 @@ def phase_timings(smi, dp_check):
                     "device_breakdown": device_breakdown_ms(lambda: run_big(big_state), 2)
                     or "not measured",
                     **bound(big_net, big_state, big, MAIN_CHUNK)},
+        "wide": wide,
         "library_ms": None,
     }
     emit(row)

@@ -95,17 +95,22 @@ class CompiledNetwork:
         elide_dead_hi (None: MISAKA_FUSED_ELIDE_HI == "1", as the JAX
         engine reads it) launches the kernel's elided variant: lanes with
         no 64-bit reader keep acc_hi/bak_hi at their entry values.  The
-        lane mask is computed here, from this network's programs."""
+        lane mask is computed here, from this network's programs, and so
+        are the kernel's line records (`fused.decode_lines`)."""
         fused.check_kernel_bounds(self.num_lanes, self.num_stacks, self.code.shape[1])
         if elide_dead_hi is None:
             elide_dead_hi = os.environ.get("MISAKA_FUSED_ELIDE_HI") == "1"
         hi_live = fused.hi_live_mask(self.code, self.prog_len) if elide_dead_hi else None
+        records = None
         if self.device.type == "cuda":
+            records = fused.line_records(self.code, self.prog_len, self.num_stacks,
+                                         self.device)
             fused.load_kernel()
         code, lens = self._code_t, self._len_t
 
         def run(state: NetworkState) -> NetworkState:
-            return fused.fused_superstep(code, lens, state, num_steps, hi_live, count_as)
+            return fused.fused_superstep(code, lens, state, num_steps, hi_live, count_as,
+                                         records=records)
 
         run.variant = fused.variant(hi_live, self.num_lanes)
         return run

@@ -7,22 +7,28 @@ launch); on a CPU tensor it runs `plain_run`, the torch tick loop over
 core/step.py, which is the kernel's plain version.  There is no other
 route: a CUDA state is run by the kernel or the call raises.
 
-Layout: the kernel works on a structure-of-arrays [rows, B] copy of the
-state (row r of instance b at r*B + b), so a warp reads 32 consecutive
-words -- the TPU kernel's batch-last layout kept for coalescing.  The
-wrapper converts the public [B, ...] `NetworkState` in and out once per
-chunk (`_to_rows` / `_from_rows`), as fused.py's to_rows/from_rows do, and
-rebases the rings after the ticks.  `in_buf`, `in_wr` and `out_rd` pass
-through untouched.
+Program tables: `decode_lines` turns `code` [N, L, NFIELDS] and `prog_len`
+into one 16-byte record per (line, lane), [L, N, 4] int32, with every
+per-line decision the kernel would otherwise take per tick made once on the
+host (which port a line consumes, the send destination checked against the
+network, the stack index clipped, the next line modulo the program
+length).  `CompiledNetwork.fused_runner` decodes once per runner.
+
+Layout: the kernel reads and writes the public [B, ...] `NetworkState`
+fields as they are.  The wrapper hands it an owned contiguous clone of
+every field it writes (the caller's state is never touched) and passes
+`in_buf`, which the kernel only reads, as it is: the returned state holds
+the caller's own `in_buf` tensor.  The kernel rebases the rings itself
+(core/state.py::rebase_rings), so it also writes `in_wr` and `out_rd`.
 
 The elided variant (fused.py:100-134's `elide_dead_hi`): given the
 `hi_live` lane mask (`hi_live_mask`), the kernel keeps only the 32-bit low
 words of lanes no 64-bit reader looks at, and leaves their `acc_hi`/`bak_hi`
 at the entry values.  A mask that covers every lane is the full kernel, and
-is launched and counted as such (`variant`).  On a CPU state the plain version runs either way: it
-computes the full 64-bit state, which is what the elided kernel is held
-against (every field exact but the dead lanes' hi planes, which must equal
-their entry values).
+is launched and counted as such (`variant`).  On a CPU state the plain
+version runs either way: it computes the full 64-bit state, which is what
+the elided kernel is held against (every field exact but the dead lanes' hi
+planes, which must equal their entry values).
 """
 
 from __future__ import annotations
@@ -42,6 +48,16 @@ KERNEL_DP = "fused_superstep_dp"  # the same kernel, once per mesh shard (parall
 MAX_LANES = 32   # the kernel's compile-time lane bound (fused_superstep.cu)
 MAX_STACKS = 16
 SMEM_LIMIT = 227 * 1024  # shared memory one H100 block can use
+HI_FULL, HI_MASK, HI_DEAD = 0, 1, 2  # the kernel's instantiations per lane bound
+
+# The line record shared with csrc/fused_superstep.cu: int32 words
+# (imm, ctl, arg, jumps).  ctl: bits 0-4 op, 5-6 source kind, 7 "writes
+# ACC", 24-31 the port index pass 1 consumes (NO_PORT: none).  jumps: bits
+# 0-15 the jump target (JMP..JLZ) or len-1, bits 16-31 (line + 1) % len.
+REC_WORDS = 4
+K_IMM, K_ACC, K_PORT, K_HOLD = 0, 1, 2, 3
+CTL_WRITES_ACC = 1 << 7
+NO_PORT = 0xFF
 
 # Launches of each kernel by its wrapper, counted where the kernel is
 # launched and nowhere else.  chip_smoke.py zeroes and reads these.  A
@@ -49,15 +65,8 @@ SMEM_LIMIT = 227 * 1024  # shared memory one H100 block can use
 # variant it runs.
 launch_counts = {KERNEL: 0, KERNEL_ELIDE: 0, KERNEL_DP: 0}
 
-# the kernel's state arguments, in order; "sc" is the [5, B] scalar block
-# (in_rd, in_wr, out_rd, out_wr, tick), every other name a state field the
-# kernel updates in place as [rows, B]
-_ARG_ORDER = (
-    "acc", "bak", "acc_hi", "bak_hi", "pc", "port_val", "port_full",
-    "hold_val", "holding", "stack_mem", "stack_top", "out_buf", "sc",
-    "retired",
-)
-_ROW_FIELDS = tuple(f for f in _ARG_ORDER if f != "sc")
+# every state field but in_buf: the kernel writes each (an owned clone)
+_WRITTEN = tuple(f for f in NetworkState._fields if f != "in_buf")
 _lib: ctypes.CDLL | None = None
 
 
@@ -89,6 +98,63 @@ def hi_live_mask(code: np.ndarray, prog_len: np.ndarray) -> int:
     return sum(1 << n for n, live in enumerate(hi_live_lanes(code, prog_len)) if live)
 
 
+def decode_lines(code: np.ndarray, prog_len: np.ndarray, n_stacks: int) -> np.ndarray:
+    """The kernel's line records, [L, N, REC_WORDS] int32 (line-major, so a
+    tick's lanes read neighbouring records): what core/phases.py and
+    core/step.py decide from a lane's line, decided once.
+
+    Raises ValueError on tables the records cannot hold: a program length
+    outside [1, L], or a jump target outside the table."""
+    code = np.asarray(code, dtype=np.int32)
+    prog_len = np.asarray(prog_len, dtype=np.int32)
+    n_lanes, max_len, _ = code.shape
+    if max_len > 0xFFFF:
+        raise ValueError(f"{max_len} lines per program; the line records hold 65535")
+    if ((prog_len < 1) | (prog_len > max_len)).any():
+        raise ValueError(f"program lengths {prog_len.tolist()} outside [1, {max_len}]")
+    f = {name: code[..., getattr(isa, f"F_{name.upper()}")]
+         for name in ("op", "src", "imm", "dst", "tgt", "port", "jmp")}
+    # an opcode outside the ISA reads nothing and changes nothing: a NOP
+    op = np.where((f["op"] >= 0) & (f["op"] < isa.NUM_OPS), f["op"], isa.OP_NOP)
+    src = f["src"]
+    reads = np.isin(op, isa.READS_SRC)
+    kind = np.select(
+        [~reads, src == isa.SRC_ACC, src >= isa.SRC_R0,
+         (src == isa.SRC_IMM) | (src == isa.SRC_NIL)],
+        [K_IMM, K_ACC, K_PORT, K_IMM], K_HOLD)  # K_HOLD: step.py's else-branch
+    imm = np.where(reads & (src == isa.SRC_IMM), f["imm"], 0)
+    lane = np.arange(n_lanes, dtype=np.int64)[:, None]
+    consumed = np.where(
+        kind == K_PORT, lane * isa.NUM_PORTS + np.clip(src - isa.SRC_R0, 0, isa.NUM_PORTS - 1),
+        NO_PORT)
+    ctl = (op.astype(np.int64) | (kind << 5) | ((f["dst"] == isa.DST_ACC) * CTL_WRITES_ACC)
+           | (consumed << 24))
+    with np.errstate(over="ignore"):  # step.py's int32 arithmetic wraps
+        dest = f["tgt"] * np.int32(isa.NUM_PORTS) + f["port"]
+    arg = np.where(
+        op == isa.OP_MOV_NET,
+        np.where((dest >= 0) & (dest < n_lanes * isa.NUM_PORTS), dest, -1),
+        np.where((op == isa.OP_PUSH) | (op == isa.OP_POP),
+                 np.clip(f["tgt"], 0, n_stacks - 1), 0))
+    is_jump = (op >= isa.OP_JMP) & (op <= isa.OP_JLZ)
+    bad = is_jump & ((f["jmp"] < 0) | (f["jmp"] >= max_len))
+    if bad.any():
+        n, line = map(int, np.argwhere(bad)[0])
+        raise ValueError(f"lane {n} line {line} jumps to {int(f['jmp'][n, line])}, "
+                         f"outside the {max_len}-line table")
+    low = np.where(is_jump, f["jmp"], prog_len[:, None] - 1).astype(np.int64)
+    nxt = (np.arange(1, max_len + 1, dtype=np.int64)[None, :] % prog_len[:, None])
+    words = np.stack([imm.astype(np.int64), ctl, arg.astype(np.int64), low | (nxt << 16)], -1)
+    return np.ascontiguousarray(
+        (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32).transpose(1, 0, 2))
+
+
+def line_records(code: np.ndarray, prog_len: np.ndarray, n_stacks: int,
+                 device) -> torch.Tensor:
+    """`decode_lines` as a tensor on `device`, the kernel's `records`."""
+    return torch.from_numpy(decode_lines(code, prog_len, n_stacks)).to(device)
+
+
 def check_kernel_bounds(n_lanes: int, n_stacks: int, max_len: int) -> None:
     """Raise ValueError naming the kernel bound a network exceeds."""
     if n_lanes > MAX_LANES:
@@ -101,16 +167,16 @@ def check_kernel_bounds(n_lanes: int, n_stacks: int, max_len: int) -> None:
             f"network has {n_stacks} stacks; the fused CUDA kernel takes at "
             f"most MAX_STACKS={MAX_STACKS}"
         )
-    smem = (n_lanes * max_len * isa.NFIELDS + n_lanes) * 4
+    smem = n_lanes * max_len * REC_WORDS * 4
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"program tables of {smem} bytes exceed the fused CUDA kernel's "
+            f"line records of {smem} bytes exceed the fused CUDA kernel's "
             f"shared-memory bound SMEM_LIMIT={SMEM_LIMIT}"
         )
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (first call) and bind the kernel's C entry; raises without nvcc."""
+    """Build (first call) and bind the kernel's C entries; raises without nvcc."""
     global _lib
     if _lib is None:
         from misaka_tpu_torch.csrc import build
@@ -118,11 +184,27 @@ def load_kernel() -> ctypes.CDLL:
         lib = build.load(KERNEL)
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.misaka_fused_superstep.argtypes = (
-            [ptr, ptr] + [i] * 8 + [ctypes.c_uint] + [ptr] * 15 + [ptr]
+            [ptr, ptr] + [i] * 8 + [ctypes.c_uint]
+            + [ptr] * len(NetworkState._fields) + [ptr]
         )
         lib.misaka_fused_superstep.restype = i
+        lib.misaka_fused_occupancy.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.misaka_fused_occupancy.restype = i
         _lib = lib
     return _lib
+
+
+def occupancy(n_lanes: int, max_len: int, hi_mode: int) -> tuple[int, int]:
+    """(resident blocks per SM, threads per block) of the instantiation that
+    runs `n_lanes` lanes of `max_len`-line tables in `hi_mode` (HI_FULL,
+    HI_MASK or HI_DEAD), with the shared memory its launch reserves for the
+    line records, as the CUDA runtime reports them for the current card."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = load_kernel().misaka_fused_occupancy(n_lanes, max_len, hi_mode,
+                                               ctypes.byref(blocks), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"misaka_fused_occupancy failed: cudaError {err}")
+    return blocks.value, threads.value
 
 
 def variant(hi_live: int | None, n_lanes: int) -> str:
@@ -132,31 +214,18 @@ def variant(hi_live: int | None, n_lanes: int) -> str:
     return KERNEL if hi_live in (None, (1 << n_lanes) - 1) else KERNEL_ELIDE
 
 
-def _to_rows(x: torch.Tensor, batch: int) -> torch.Tensor:
-    """[B, ...rest] -> an owned contiguous int32 [rows, B] copy.
-
-    Always a fresh buffer: for a one-row field ([B, 1]) the transpose is
-    already contiguous, and `.contiguous()` would hand the kernel the
-    caller's own storage to update in place."""
-    flat = x.reshape(batch, -1)
-    out = torch.empty((flat.shape[1], batch), dtype=torch.int32, device=x.device)
-    return out.copy_(flat.t())
-
-
-def _from_rows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """[rows, B] -> `like`'s [B, ...] shape and dtype."""
-    return y.t().reshape(like.shape).to(like.dtype)
-
-
 def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
                     state: NetworkState, num_steps: int,
                     hi_live: int | None = None,
-                    count_as: str | None = None) -> NetworkState:
+                    count_as: str | None = None, *,
+                    records: torch.Tensor | None) -> NetworkState:
     """Advance a batched state `num_steps` ticks: the kernel on a CUDA
     state, the plain version on a CPU state.  `hi_live` (a lane mask from
     `hi_live_mask`) launches the elided variant unless it covers every
     lane; None the full kernel.  The launch is counted under `count_as`
-    (None: the key of the variant it runs)."""
+    (None: the key of the variant it runs).  `records` are the kernel's
+    line records for these tables (`line_records`), which a CUDA state
+    needs; the plain version reads the tables themselves."""
     dev = state.pc.device
     if dev.type == "cpu":
         return plain_run(code, prog_len, state, num_steps)
@@ -169,9 +238,14 @@ def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
     if nfields != isa.NFIELDS or prog_len.shape != (n_lanes,):
         raise ValueError(f"bad program tables: code {tuple(code.shape)}, "
                          f"prog_len {tuple(prog_len.shape)}")
-    for name, t in (("code", code), ("prog_len", prog_len)):
+    if records is None:
+        raise ValueError("a CUDA state needs the kernel's line records (line_records)")
+    for name, t in (("code", code), ("prog_len", prog_len), ("records", records)):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on {dev}")
+    if tuple(records.shape) != (max_len, n_lanes, REC_WORDS):
+        raise ValueError(f"records {tuple(records.shape)} do not match code "
+                         f"{tuple(code.shape)}")
     lanes = (batch, n_lanes)
     shapes = dict(
         acc=lanes, bak=lanes, acc_hi=lanes, bak_hi=lanes, pc=lanes,
@@ -199,34 +273,29 @@ def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
     mask = (1 << n_lanes) - 1 if hi_live is None else hi_live
     lib = load_kernel()
     with torch.cuda.device(dev):
-        out = _launch(lib, code, prog_len, state, num_steps, mask,
+        out = _launch(lib, records, prog_len, state, num_steps, mask,
                       torch.cuda.current_stream(dev).cuda_stream)
     launch_counts[count_as or variant(hi_live, n_lanes)] += 1
     return out
 
 
-def _launch(lib, code: torch.Tensor, prog_len: torch.Tensor, state: NetworkState,
+def _launch(lib, records: torch.Tensor, prog_len: torch.Tensor, state: NetworkState,
             num_steps: int, hi_live: int, stream) -> NetworkState:
-    """One call of the C entry on [rows, B] copies of a checked state: the
-    layout conversion in and out, the launch (`hi_live`: the kernel's lane
-    mask), the ring rebase."""
-    n_lanes, max_len, _ = code.shape
+    """One call of the C entry on a checked state: an owned contiguous clone
+    of every field the kernel writes, `in_buf` read where it lies (`hi_live`:
+    the kernel's lane mask).  The ring rebase happens in the kernel."""
+    max_len, n_lanes, _ = records.shape
     batch, n_stacks, stack_cap = state.stack_mem.shape
-    rows = {f: _to_rows(getattr(state, f), batch) for f in _ROW_FIELDS}
-    rows["sc"] = torch.stack(
-        [state.in_rd, state.in_wr, state.out_rd, state.out_wr, state.tick]
-    ).contiguous()                                                  # [5, B]
-    in_rows = _to_rows(state.in_buf, batch)
+    out = {f: getattr(state, f).clone(memory_format=torch.contiguous_format)
+           for f in _WRITTEN}
+    in_buf = state.in_buf.contiguous()  # the caller's tensor when it already is
+    args = [in_buf if f == "in_buf" else out[f] for f in NetworkState._fields]
     err = lib.misaka_fused_superstep(
-        code.data_ptr(), prog_len.data_ptr(),
+        records.data_ptr(), prog_len.data_ptr(),
         n_lanes, max_len, n_stacks, stack_cap, state.in_buf.shape[-1],
         state.out_buf.shape[-1], batch, num_steps, hi_live,
-        *[rows[f].data_ptr() for f in _ARG_ORDER], in_rows.data_ptr(), stream,
+        *[t.data_ptr() for t in args], stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_superstep launch failed: cudaError {err}")
-    out = {f: _from_rows(rows[f], getattr(state, f)) for f in _ROW_FIELDS}
-    sc = rows["sc"]
-    return rebase_rings(state._replace(
-        in_rd=sc[0].clone(), out_wr=sc[3].clone(), tick=sc[4].clone(), **out
-    ))
+    return state._replace(**out)

@@ -58,7 +58,9 @@ def decode_and_consume(code: torch.Tensor, state: NetworkState) -> Decoded:
     n_lanes, max_len, _ = code.shape
     lane = torch.arange(n_lanes, device=code.device)
 
-    pc = state.pc.clamp(0, max_len - 1).long()          # XLA-clamped gather
+    # the reference's `code[lane, pc]`: a negative pc counts from the end of
+    # the table (jnp indexing), then the gather clamps (XLA)
+    pc = torch.where(state.pc < 0, state.pc + max_len, state.pc).clamp(0, max_len - 1).long()
     fields = code[lane[None, :], pc]                      # [B, N, NFIELDS]
     op = fields[..., isa.F_OP]
     src = fields[..., isa.F_SRC]

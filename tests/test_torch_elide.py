@@ -148,9 +148,9 @@ def test_env_switch_reaches_the_served_path(monkeypatch):
     seen = []
     real = fused.fused_superstep
 
-    def spy(code, prog_len, state, num_steps, hi_live=None, count_as=None):
+    def spy(code, prog_len, state, num_steps, hi_live=None, count_as=None, **kw):
         seen.append(hi_live)
-        return real(code, prog_len, state, num_steps, hi_live, count_as)
+        return real(code, prog_len, state, num_steps, hi_live, count_as, **kw)
 
     monkeypatch.setattr(fused, "fused_superstep", spy)
     monkeypatch.setenv("MISAKA_FUSED_ELIDE_HI", "1")

@@ -149,7 +149,8 @@ def test_fused_wrapper_refuses_other_devices():
     t = tnet.add2(**CAPS).compile(batch=2, device="cpu")
     meta = type(t.init_state())(*(x.to("meta") for x in t.init_state()))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fused.fused_superstep(t._code_t.to("meta"), t._len_t.to("meta"), meta, 4)
+        fused.fused_superstep(t._code_t.to("meta"), t._len_t.to("meta"), meta, 4,
+                              records=None)
 
 
 def test_kernel_bounds_raise_naming_the_bound():

@@ -154,8 +154,12 @@ def test_elided_launches_counted_under_their_own_key(card):
     net.fused_runner(16, elide_dead_hi=True)(net.init_state())
     assert fused.launch_counts[fused.KERNEL_ELIDE] == before[fused.KERNEL_ELIDE] + 1
     assert fused.launch_counts[fused.KERNEL] == before[fused.KERNEL]
+    records = fused.line_records(net.code, net.prog_len, net.num_stacks, net.device)
     with pytest.raises(ValueError, match="hi_live mask"):
-        fused.fused_superstep(net._code_t, net._len_t, net.init_state(), 4, hi_live=1 << 5)
+        fused.fused_superstep(net._code_t, net._len_t, net.init_state(), 4, hi_live=1 << 5,
+                              records=records)
+    with pytest.raises(ValueError, match="line records"):
+        fused.fused_superstep(net._code_t, net._len_t, net.init_state(), 4, records=None)
 
 
 def test_elided_call_on_an_all_live_network_counts_as_the_full_kernel(card):
@@ -241,3 +245,51 @@ def test_two_shards_on_one_card_serve(card):
         assert st["mesh"] == {"data": 2, "model": 1} and st["engine"] == "fused"
     finally:
         m.close()
+
+
+# --- the wrapper contract of the redesigned kernel --------------------------------
+
+
+def test_ring_counters_near_the_rebase_threshold_match_plain(card):
+    """Counters just below 2^30 before the chunk: the kernel's own rebase
+    gives plain_run's rebased in_rd/in_wr/out_rd/out_wr (and every other
+    field)."""
+    from misaka_tpu_torch.core.state import REBASE_THRESHOLD
+
+    net = networks.add2(in_cap=6, out_cap=5, stack_cap=4).compile(batch=512, device=card)
+    rng = np.random.default_rng(11)
+    state = chip_smoke.seeded_inputs(net, rng, 6)
+    base = torch.full_like(state.in_rd, REBASE_THRESHOLD - 3) + torch.from_numpy(
+        rng.integers(0, 3, size=512).astype(np.int32)).to(card)
+    state = state._replace(in_rd=base, in_wr=base + 6, out_rd=base + 4, out_wr=base + 4)
+    row = chip_smoke.compare("add2/near_rebase", net, state, 200)
+    check(row)
+    out = net.fused_runner(200)(state)
+    assert (out.in_rd <= REBASE_THRESHOLD).all() and (out.out_rd <= REBASE_THRESHOLD).all()
+    assert not torch.equal(out.out_rd, state.out_rd)  # the out ring was rebased too
+
+
+def test_in_buf_passes_through_and_the_input_state_is_untouched(card):
+    from misaka_tpu_torch.core.state import clone_state
+
+    net = networks.mesh8(in_cap=8, out_cap=8, stack_cap=8).compile(batch=256, device=card)
+    state = chip_smoke.seeded_inputs(net, np.random.default_rng(5), 6)
+    before = clone_state(state)
+    out = net.fused_runner(64)(state)
+    assert out.in_buf is state.in_buf
+    for f in state._fields:
+        assert torch.equal(getattr(state, f), getattr(before, f)), f
+        if f != "in_buf":
+            assert getattr(out, f).data_ptr() != getattr(state, f).data_ptr(), f
+
+
+@pytest.mark.parametrize("hi_mode", [fused.HI_FULL, fused.HI_MASK, fused.HI_DEAD])
+def test_occupancy_is_at_least_one_block_per_sm(card, hi_mode):
+    """Every lane bound and hi mode, with small tables and with 128 KB of
+    line records, past the default 48 KB of shared memory, which the
+    occupancy counts as the launch does."""
+    for n_lanes in (1, 2, 3, 4, 8, 16, 32):
+        small, threads = fused.occupancy(n_lanes, 8, hi_mode)
+        big, _ = fused.occupancy(n_lanes, 8192 // n_lanes, hi_mode)
+        assert 1 <= big <= small and threads >= 32, (n_lanes, hi_mode, small, big, threads)
+        assert big == 1, (n_lanes, hi_mode, big)  # 128 KB of records: one block per SM
