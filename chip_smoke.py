@@ -26,8 +26,20 @@ and in process, two shards on cuda:0 (`MasterNode(device=["cuda:0",
 "cuda:0"], data_parallel=2)`): a striped stream, checkpoints D=2 -> D=1 ->
 D=2, and reverse_any's stack grown 16 -> 64.
 
+The unbatched lane (one instance, each chunk one launch of the full kernel
+on the batch-of-one view) is held against the plain loop on 17 networks
+(128-tick chunks, and 2048 on add2 and reverse_any), also under
+MISAKA_FUSED_ELIDE_HI=1; the app is booted with the reference README's env
+(no MISAKA_BATCH) and drives /compute, 32 clients, /compute_raw,
+/compute_batch, a checkpoint round trip, /load and /reset, with the
+kernel's launches counted per iteration, and reverse_any unbatched grows
+its stack; two traced servers (unbatched, and MISAKA_BATCH=4096 with
+MISAKA_TRACE_INSTANCE=7) answer /debug/isa_trace, and the traced loop on
+the card equals the CPU's.
+
 Last it times the kernel and its variants at the served shapes and at
-caps 1024, and the data-parallel runner against the whole-batch launch.
+caps 1024, the data-parallel runner against the whole-batch launch, and
+the B=1 chunk (kernel, plain loop, traced loop).
 Each phase prints one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -470,6 +482,125 @@ def phase_dp_parity(batch=MAIN_BATCH, chunk=MAIN_CHUNK):
     return err, rows
 
 
+# --- unbatched serving: the kernel on the batch-of-one view ---------------------------
+
+
+def compare_unbatched(label, net, state, values, count, steps):
+    """An unbatched `serve_chunk` through the kernel (engine="auto" on the
+    card: one launch of the full fused_superstep on the batch-of-one view)
+    against `serve_chunk(engine="scan")`, the plain loop on the same card,
+    from the same state with the same feed: the packed snapshot and every
+    NetworkState field exact (shapes included), the input state untouched,
+    and exactly one launch, counted under fused_superstep.  Returns the row
+    and the kernel's state (to chain chunks).  The plain version's time is
+    CUDA events around its one call."""
+    import torch
+
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.core.state import clone_state, state_to_numpy
+
+    before = clone_state(state)
+    n0 = dict(fused.launch_counts)
+    got, got_packed = net.serve_chunk(state, values, count, steps)
+    torch.cuda.synchronize()
+    launched = {k: fused.launch_counts[k] - n0[k] for k in n0}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want, want_packed = net.serve_chunk(state, values, count, steps, engine="scan")
+    end.record()
+    torch.cuda.synchronize()
+    g, w = state_to_numpy(got), state_to_numpy(want)
+    g["packed"], w["packed"] = got_packed.cpu().numpy(), want_packed.cpu().numpy()
+    a0, b0 = state_to_numpy(state), state_to_numpy(before)
+    same_shape = [f for f in g if g[f].shape == w[f].shape]
+    diverged = [f for f in g if f not in same_shape or not np.array_equal(g[f], w[f])]
+    touched = diverged_fields(a0, b0)
+    one_full = launched == {k: int(k == fused.KERNEL) for k in n0}
+    row = {"case": label, "lanes": net.num_lanes, "steps": steps, "fed": int(count),
+           "exact": not diverged and not touched and one_full,
+           "max_abs_err": max_abs_err({f: g[f] for f in same_shape},
+                                      {f: w[f] for f in same_shape}),
+           "out_wr": int(g["out_wr"]), "stack_full": int((g["stack_top"] >= net.stack_cap).any()),
+           "commits": int((g["retired"] - a0["retired"]).astype(np.int64).sum()),
+           "launches": launched, "plain_ms": start.elapsed_time(end)}
+    if diverged:
+        row["diverged"] = diverged
+    if touched:
+        row["input_mutated"] = touched
+    return row, got
+
+
+def unbatched_networks():
+    """name -> Topology for the unbatched parity: add2, reverse_any at
+    stack_cap=4 (streams fill its stack), overflow64 (64-bit registers),
+    mesh8 and pipeline32 (the 8- and 32-lane builds) and 12 seeded random
+    networks over every opcode."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    caps = dict(in_cap=16, out_cap=16, stack_cap=8)
+    tops = {"add2": networks.add2(**caps)}
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        tops["reverse_any/stack4"] = Topology.from_json(f.read(), **dict(caps, stack_cap=4))
+    with open(os.path.join(EXAMPLES, "overflow64.json")) as f:
+        tops["overflow64"] = Topology.from_json(f.read(), **caps)
+    tops["mesh8"] = networks.mesh8(**caps)
+    tops["pipeline32"] = networks.pipeline(32, **caps)
+    for seed in range(300, 312):
+        tops[f"random/{seed}"] = random_topology(seed, Topology, lanes=(1, 9))
+    return tops
+
+
+LONG_CHUNK_NETWORKS = ("add2", "reverse_any/stack4")
+
+
+def phase_unbatched_parity(chunks=(128, 2048)):
+    """Unbatched serve_chunk on the card (the kernel) against
+    serve_chunk(engine="scan") (the plain loop), chunk after chunk from the
+    same states, each chunk with a seeded feed: every network a 128-tick
+    chunk, then those of LONG_CHUNK_NETWORKS a 2048-tick one (the plain
+    loop at B=1 costs about 3.5 ms a tick on the card, so the long chunk is
+    cut to those two).  Then a 128-tick chunk of every network again
+    under MISAKA_FUSED_ELIDE_HI=1, from states with random hi planes, where
+    the unbatched path must still launch the full kernel (the reference's
+    unbatched path has no elided variant) and every hi plane must follow
+    the plain version."""
+    from misaka_tpu_torch.core import fused
+
+    rng = np.random.default_rng(SEED + 6)
+    rows = []
+    saved = os.environ.get("MISAKA_FUSED_ELIDE_HI")
+    try:
+        for elide in (False, True):
+            if elide:
+                os.environ["MISAKA_FUSED_ELIDE_HI"] = "1"
+            for name, top in unbatched_networks().items():
+                net = top.compile(device="cuda")
+                state = net.init_state()
+                if elide:
+                    state = with_random_hi(state, rng)
+                long = not elide and name in LONG_CHUNK_NETWORKS
+                for steps in chunks if long else chunks[:1]:
+                    vals = rng.integers(-(2**31), 2**31, size=net.in_cap,
+                                        dtype=np.int64).astype(np.int32)
+                    free = net.in_cap - int(state.in_wr - state.in_rd)
+                    row, state = compare_unbatched(
+                        f"{name}/{steps}" + ("/elide_env" if elide else ""), net, state,
+                        vals, int(rng.integers(1, free + 1)) if free else 0, steps)
+                    rows.append(dict(row, elide_env=elide,
+                                     dead_lanes=net.num_lanes - sum(
+                                         fused.hi_live_lanes(net.code, net.prog_len))))
+    finally:
+        if saved is None:
+            os.environ.pop("MISAKA_FUSED_ELIDE_HI", None)
+        else:
+            os.environ["MISAKA_FUSED_ELIDE_HI"] = saved
+    if not any(r["elide_env"] and r["dead_lanes"] for r in rows):
+        raise SystemExit("unbatched parity: no hi-dead lane under MISAKA_FUSED_ELIDE_HI=1")
+    return report_parity("unbatched_parity", rows, batch=None, chunks=list(chunks),
+                         plain_ms={r["case"]: r["plain_ms"] for r in rows})
+
+
 # --- the main path over HTTP ------------------------------------------------------
 
 
@@ -510,20 +641,25 @@ ADD2_NODES = {"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
 
 
 @contextlib.contextmanager
-def served_app(label, node_info, programs, batch, chunk, caps, device=None, **env_extra):
-    """Boot `python -m misaka_tpu_torch.runtime.app`, wait until it runs,
-    yield (port, boot seconds); stop it on the way out."""
+def served_app(label, node_info, programs, batch, chunk, caps, device=None, autorun=True,
+               **env_extra):
+    """Boot `python -m misaka_tpu_torch.runtime.app`, wait until it runs
+    (autorun=False: until it answers, paused), yield (port, boot seconds);
+    stop it on the way out.  batch, chunk or caps None leave the variable
+    unset, as the reference README's quickstart does."""
     port = free_port()
-    env = dict(os.environ)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
     env.update(
         NODE_INFO=json.dumps(node_info), MISAKA_PROGRAMS=json.dumps(programs),
-        MISAKA_PORT=str(port), MISAKA_BATCH=str(batch), MISAKA_CHUNK_STEPS=str(chunk),
-        MISAKA_IN_CAP=str(caps["in_cap"]), MISAKA_OUT_CAP=str(caps["out_cap"]),
-        MISAKA_STACK_CAP=str(caps["stack_cap"]), MISAKA_AUTORUN="1",
-        PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""),
+        MISAKA_PORT=str(port), PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""),
         **env_extra,
     )
-    env.pop("MISAKA_DEVICE", None)
+    for name, value in (("MISAKA_BATCH", batch), ("MISAKA_CHUNK_STEPS", chunk),
+                        *(((f"MISAKA_{k.upper()}", v) for k, v in caps.items()) if caps else ())):
+        if value is not None:
+            env[name] = str(value)
+    if autorun:
+        env["MISAKA_AUTORUN"] = "1"
     if device is not None:
         env["MISAKA_DEVICE"] = device
     log_path = os.path.join(ROOT, "build", f"chip_smoke_{label}.log")
@@ -539,7 +675,7 @@ def served_app(label, node_info, programs, batch, chunk, caps, device=None, **en
         while True:
             expect(proc.poll() is None, f"{label}: server exited early (rc {proc.returncode})")
             try:
-                if status(port)["running"]:
+                if status(port)["running"] or not autorun:
                     break
             except (urllib.error.URLError, ConnectionError, OSError):
                 pass
@@ -826,6 +962,235 @@ def phase_elided_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, device=
     return row
 
 
+def readme_programs():
+    """The reference README's add2 programs (README.md:178-185): the
+    compose file's, without the trailing newline."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    return {k: v.rstrip("\n") for k, v in ADD2_PROGRAMS.items()}
+
+
+def paused_window(port):
+    """/pause, then /status: a reading no chunk can straddle."""
+    expect(post_form(port, "/pause") == (200, b"Success"), "/pause")
+    return status(port)
+
+
+def phase_unbatched_path(n_latency=100, n_clients=32, per_client=10, n_raw=10_000,
+                         device=None):
+    """Boot the app with the reference README's add2 env only (no
+    MISAKA_BATCH: one instance; default chunk 128 and caps 1024), /run and
+    serve: /compute, 99 sequential /compute (p50, p90), 32 clients x 10
+    /compute, /compute_raw and /compute_batch, a checkpoint saved and
+    restored, /load and /reset, every answer checked.  /status must say
+    engine "fused" with no `batch`, and between two paused readings the
+    kernel's launches must rise by one per 128-tick iteration.  Then
+    reverse_any unbatched at stack_cap=4 must grow its stack to answer an
+    11-value request.  device="cpu" rehearses it through the plain
+    version (engine "plain", no launches)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-u-", dir=os.path.join(ROOT, "build"))
+    key = "fused_superstep"
+    rng = np.random.default_rng(SEED + 7)
+    try:
+        with served_app("unbatched", ADD2_NODES, readme_programs(), None, None, None,
+                        device=device, autorun=False,
+                        MISAKA_CHECKPOINT_DIR=ckpt_dir) as (port, boot_s):
+            st = status(port)
+            expect("batch" not in st and not st["running"], f"README boot status {st}")
+            expect(post_form(port, "/run") == (200, b"Success"), "/run")
+            code, body = post_form(port, "/compute", value="5")
+            expect(code == 200 and json.loads(body) == {"value": 7}, f"/compute 5: {body!r}")
+            s0 = paused_window(port)
+            expect(post_form(port, "/run")[0] == 200, "/run")
+            lat = []
+            for v in list(range(-49, 50))[: n_latency - 1]:
+                t = time.perf_counter()
+                code, body = post_form(port, "/compute", value=str(v))
+                lat.append(time.perf_counter() - t)
+                expect(code == 200 and json.loads(body) == {"value": v + 2},
+                       f"/compute {v} -> {code} {body!r}")
+            steady = np.sort(np.asarray(lat))
+
+            def client(i):
+                for j in range(per_client):
+                    v = i * 1000 + j
+                    c, b = post_form(port, "/compute", value=str(v))
+                    if c != 200 or json.loads(b) != {"value": v + 2}:
+                        raise RuntimeError(f"/compute {v} -> {c} {b!r}")
+
+            errors, clients_s = run_clients(n_clients, client)
+            expect(not errors, f"unbatched clients: {errors[:4]}")
+            s1 = paused_window(port)
+            iterations = (s1["tick"] - s0["tick"]) // 128
+            launched = s1["kernel_launches"][key] - s0["kernel_launches"][key]
+            expect(device == "cpu" or launched == iterations > 0,
+                   f"{launched} launches for {iterations} iterations")
+            expect(post_form(port, "/run")[0] == 200, "/run")
+            vals = rng.integers(-(2**31), 2**31, size=n_raw, dtype=np.int64).astype(np.int32)
+            raw_s = check_raw(port, vals)
+            batch_vals = rng.integers(-10**6, 10**6, size=1000).astype(np.int32)
+            for spread in ("0", "1"):
+                code, body = post_form(port, "/compute_batch",
+                                       values=",".join(map(str, batch_vals.tolist())),
+                                       spread=spread)
+                expect(code == 200 and json.loads(body)["values"] == (batch_vals + 2).tolist(),
+                       f"/compute_batch spread={spread}")
+            # checkpoint, more traffic, restore: the answers continue
+            expect(post_form(port, "/checkpoint", name="u1") == (200, b"Success"), "/checkpoint")
+            with np.load(os.path.join(ckpt_dir, "u1.npz")) as data:
+                meta = json.loads(bytes(data["__topology__"]).decode())
+                expect(meta["batch"] is None and data["pc"].shape == (2,),
+                       f"unbatched checkpoint: batch {meta['batch']}, pc {data['pc'].shape}")
+            check_raw(port, np.arange(-100, 100, dtype=np.int32))
+            expect(post_form(port, "/restore", name="u1") == (200, b"Success"), "/restore")
+            expect(post_form(port, "/run")[0] == 200, "/run after /restore")
+            code, body = post_form(port, "/compute", value="41")
+            expect(json.loads(body) == {"value": 43}, f"after /restore: {body!r}")
+            new_prog = "IN ACC\nADD 10\nMOV ACC, misaka2:R0\nMOV R0, ACC\nOUT ACC"
+            code, body = post_form(port, "/load", targetURI="misaka1", program=new_prog)
+            expect(code == 200 and body == b"Success", f"/load -> {code} {body!r}")
+            expect(post_form(port, "/run")[0] == 200, "/run after /load")
+            code, body = post_form(port, "/compute", value="5")
+            expect(json.loads(body) == {"value": 16}, f"after /load: {body!r}")
+            expect(post_form(port, "/reset") == (200, b"Success"), "/reset")
+            expect(status(port)["tick"] == 0, "tick after /reset")
+            expect(post_form(port, "/run")[0] == 200, "/run after /reset")
+            code, body = post_form(port, "/compute", value="-7")
+            expect(json.loads(body) == {"value": 4}, f"after /reset: {body!r}")
+            st = status(port)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    want_engine = "plain" if device == "cpu" else "fused"
+    launches = st["kernel_launches"]
+    expect(st["engine"] == want_engine and "batch" not in st, f"status {st}")
+    expect(device == "cpu" or (launches[key] > 0 and all(
+        n == 0 for k, n in launches.items() if k != key)), f"unbatched launches {launches}")
+    # reverse_any, unbatched, stack_cap=4: the stack must grow to answer
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        spec = json.load(f)
+    nodes = {name: {"type": kind} for name, kind in spec["nodes"].items()}
+    with served_app("unbatched_autogrow", nodes, spec["programs"], None, None,
+                    {"stack_cap": 4}, device=device) as (gport, _):
+        block = list(range(1, 11)) + [0]
+        t = time.perf_counter()
+        code, body = post_form(gport, "/compute_batch", values=",".join(map(str, block)))
+        grow_s = time.perf_counter() - t
+        expect(code == 200 and json.loads(body)["values"] == [0] + list(range(10, 0, -1)),
+               f"unbatched reverse_any: {code} {body[:200]!r}")
+        gst = status(gport)
+        expect(gst["stack_cap"] == 16 and "batch" not in gst, f"grown status {gst}")
+    expect(device == "cpu" or gst["kernel_launches"][key] > 0, f"grow launches {gst}")
+    row = {"phase": "unbatched_path", "env": "README.md:178-185 (no MISAKA_BATCH)",
+           "engine": st["engine"], "device": st["device"], "chunk_steps": 128,
+           "kernel_launches": launches, "boot_s": boot_s,
+           "window_iterations": iterations, "window_launches": launched,
+           "compute_latency_samples": len(steady),
+           "compute_latency_p50_s": float(np.percentile(steady, 50)),
+           "compute_latency_p90_s": float(np.percentile(steady, 90)),
+           "compute_latency_max_s": float(steady[-1]),
+           "clients": n_clients, "client_requests": n_clients * per_client,
+           "clients_s": clients_s, "client_requests_per_s": n_clients * per_client / clients_s,
+           "compute_raw_values": n_raw, "compute_raw_s": raw_s,
+           "compute_raw_values_per_s": n_raw / raw_s,
+           "autogrow": {"stack_cap_before": 4, "stack_cap_after": gst["stack_cap"],
+                        "request_s": grow_s, "kernel_launches": gst["kernel_launches"]}}
+    emit(row)
+    return row
+
+
+def check_isa_trace(port, programs, last=16):
+    """GET /debug/isa_trace?last=N: N ticks, oldest first, every lane in
+    order within a tick, and each entry's text the program line at its pc.
+    /trace answers the same with its Deprecation and Link headers."""
+    code, body = http(port, f"/debug/isa_trace?last={last}")
+    entries = json.loads(body)["entries"]
+    lanes = list(programs)
+    expect(code == 200 and len(entries) == last * len(lanes), f"{len(entries)} entries")
+    ticks = [e["tick"] for e in entries]
+    first = ticks[0]
+    expect(ticks == [first + i // len(lanes) for i in range(len(entries))]
+           and [e["name"] for e in entries] == lanes * last, "trace not tick-ordered")
+    for e in entries:
+        line = programs[e["name"]].split("\n")[e["pc"]]
+        expect(e["text"] == line, f"trace text {e['text']!r} is not line {e['pc']} ({line!r})")
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/trace?last=2")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        expect(r.headers.get("Deprecation") == "true"
+               and "/debug/isa_trace" in (r.headers.get("Link") or ""), "/trace headers")
+        expect(len(json.loads(r.read())["entries"]) == 2 * len(lanes), "/trace body")
+    return entries
+
+
+def compare_traced(label, top, batch, steps, rng, instance=7):
+    """`run_traced` on the card against the same call on the CPU, from the
+    same state (8 seeded values queued per instance): the ring, its write
+    counter and every NetworkState field equal.  A batched network records
+    instance `instance`."""
+    from misaka_tpu_torch.core.state import state_from_numpy, state_to_numpy
+
+    nets = {d: top.compile(batch=batch, device=d) for d in ("cuda", "cpu")}
+    host = nets["cpu"]
+    entry = state_to_numpy(seeded_inputs(host, rng, 8) if batch else
+                           host.feed(host.init_state(), rng.integers(-100, 100, 8))[0])
+    out = {}
+    for d, net in nets.items():
+        kw = {"instance": instance} if batch else {}
+        state, ring = net.run_traced(state_from_numpy(entry, d), net.init_trace(64), steps, **kw)
+        out[d] = (state_to_numpy(state), ring.buf.cpu().numpy(), int(ring.wr))
+    (gs, gb, gw), (ws, wb, ww) = out["cuda"], out["cpu"]
+    bad = diverged_fields(gs, ws) + (["buf"] if not np.array_equal(gb, wb) else []) + (
+        ["wr"] if gw != ww else [])
+    return {"case": label, "batch": batch, "steps": steps, "exact": not bad,
+            **({"diverged": bad} if bad else {})}
+
+
+def phase_traced(traced_batch=4096, device=None):
+    """Tracing: a server with MISAKA_TRACE_CAP=256, unbatched, and one with
+    MISAKA_BATCH=`traced_batch` and MISAKA_TRACE_INSTANCE=7; each serves
+    through the plain version recording (engine "plain-traced", no kernel
+    launch), and its /debug/isa_trace is tick-ordered with the programs'
+    own lines.  Then in process, `run_traced` on the card against the same
+    call on the CPU from the same state: the ring, its counter and every
+    field equal (skipped in a CPU rehearsal)."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    programs = readme_programs()
+    rows = {}
+    for label, batch, extra in (("unbatched", None, {}),
+                                ("batched", traced_batch, {"MISAKA_TRACE_INSTANCE": "7"})):
+        with served_app(f"traced_{label}", ADD2_NODES, programs, batch, None, None,
+                        device=device, MISAKA_TRACE_CAP="256", **extra) as (port, boot_s):
+            t = time.perf_counter()
+            for v in (5, -3, 1000):
+                code, body = post_form(port, "/compute", value=str(v))
+                expect(code == 200 and json.loads(body) == {"value": v + 2},
+                       f"traced {label} /compute {v}: {body!r}")
+            compute_s = (time.perf_counter() - t) / 3
+            check_raw(port, np.arange(-32, 32, dtype=np.int32))
+            entries = check_isa_trace(port, programs)
+            st = status(port)
+        expect(st["engine"] == "plain-traced" and ("batch" in st) == (batch is not None)
+               and sum(st["kernel_launches"].values()) == 0, f"traced {label} status {st}")
+        rows[label] = {"batch": batch, "boot_s": boot_s, "compute_s": compute_s,
+                       "last_tick": entries[-1]["tick"]}
+    parity = []
+    if device != "cpu":
+        rng = np.random.default_rng(SEED + 8)
+        add2 = networks.add2(in_cap=16, out_cap=16, stack_cap=8)
+        cases = [("add2", add2, None, 256), ("add2/batch64/instance7", add2, 64, 128)]
+        cases += [(f"random/{seed}", random_topology(seed, Topology), None, 128)
+                  for seed in (300, 301)]
+        parity = [compare_traced(name, top, batch, steps, rng)
+                  for name, top, batch, steps in cases]
+    row = {"phase": "traced", "servers": rows, "card_vs_cpu": parity}
+    emit(row)
+    if not all(p["exact"] for p in parity):
+        raise SystemExit("traced: run_traced on the card differs from the CPU")
+    return row
+
+
 def phase_two_shards(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_values=100_000,
                      devices=("cuda:0", "cuda:0")):
     """Two shards served on one card, in process: `MasterNode(device=[card,
@@ -969,12 +1334,14 @@ def bound(net, state, check, steps):
     rate.  Bytes: every field read once, every field but the pass-through
     ones written once; the elided variant leaves out the hi rows of hi-dead
     lanes.  Operations: OPS_PER_LANE_TICK on every lane-tick, plus each
-    committed instruction's update (cheaper on a hi-dead lane)."""
+    committed instruction's update (cheaper on a hi-dead lane).  `state`
+    is batched (an unbatched one as its batch-of-one view)."""
+    batch = state.pc.shape[0]
     nbytes = {f: t.numel() * t.element_size() for f, t in zip(state._fields, state)}
     bytes_moved = 2 * sum(nbytes.values()) - sum(
         nbytes[f] for f in ("in_buf", "in_wr", "out_rd"))
-    bytes_moved -= 2 * 2 * check["dead_lanes"] * net.batch * 4  # acc_hi, bak_hi rows
-    lane_ticks = net.batch * steps * net.num_lanes
+    bytes_moved -= 2 * 2 * check["dead_lanes"] * batch * 4  # acc_hi, bak_hi rows
+    lane_ticks = batch * steps * net.num_lanes
     dead = check["dead_commits"] if check["elide"] else 0
     ops = (lane_ticks * OPS_PER_LANE_TICK + (check["commits"] - dead) * OPS_PER_COMMIT
            + dead * OPS_PER_DEAD_COMMIT)
@@ -1115,6 +1482,50 @@ def phase_timings(smi, dp_check):
     return row
 
 
+def phase_unbatched_timings(smi, steps_list=(128, 2048)):
+    """add2 at B=1 with the README server's default caps (1024), a chunk of
+    128 ticks (the served one) and of 2048, each with an 8-value feed: held
+    kernel against plain first, then the card's own times (CUDA events,
+    many calls from the same input state) of serve_chunk through the
+    kernel, with the kernel alone from torch.profiler; of serve_chunk under
+    engine="scan" (the plain loop on the card: the one call of the check,
+    CUDA events); and of one traced 128-tick chunk (run_traced, ring of
+    256).  The bound counts this run's operations; at one thread a chunk is
+    bound by the latency of its serial ticks, which the bound does not
+    see."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core.engine import as_batch
+
+    net = networks.add2().compile(device="cuda")
+    rng = np.random.default_rng(SEED + 9)
+    vals = rng.integers(-1000, 1000, size=net.in_cap).astype(np.int32)
+    rows = {}
+    for steps in steps_list:
+        state = net.init_state()
+        check, _ = compare_unbatched(f"add2/B=1/{steps}", net, state, vals, 8, steps)
+        if not check["exact"]:
+            emit({"phase": "unbatched_timings", "failed": [check]})
+            raise SystemExit(f"unbatched kernel disagrees with its plain version at {steps}")
+        rows[steps] = {
+            "exact": True, "max_abs_err": check["max_abs_err"], "commits": check["commits"],
+            "ms": cuda_time_ms(lambda: net.serve_chunk(state, vals, 8, steps), 20),
+            "device_breakdown": device_breakdown_ms(
+                lambda: net.serve_chunk(state, vals, 8, steps), 5) or "not measured",
+            "plain_ms": check["plain_ms"],
+            **bound(net, as_batch(state), dict(check, dead_lanes=0, elide=False,
+                                               dead_commits=0), steps),
+        }
+    fed, _ = net.feed(net.init_state(), vals[:8])
+    trace = net.init_trace(256)
+    rows[steps_list[0]]["traced_ms"] = cuda_time_ms(
+        lambda: net.run_traced(fed, trace, steps_list[0]), 1)
+    row = {"phase": "unbatched_timings", "card": smi, "network": "add2", "batch": None,
+           "caps": 1024, "fed": 8, "chunks": rows,
+           "note": "one thread: the chunk is bound by the latency of its serial ticks"}
+    emit(row)
+    return row
+
+
 def ptxas_summary(report: str):
     """Registers, spills, stack and shared memory per kernel instantiation
     (max lanes, hi mode: 0 full, 1 mask, 2 all lanes hi-dead)."""
@@ -1157,6 +1568,7 @@ def main() -> int:
     max_err = phase_parity()
     max_err_elided = phase_elided_parity()
     max_err_dp, dp_rows = phase_dp_parity()
+    max_err_unbatched = phase_unbatched_parity()
 
     # Each served phase runs in a fresh server process, whose launch counts
     # start at 0 when it boots; the counts are read from its /status at the
@@ -1169,6 +1581,8 @@ def main() -> int:
     elided_row = phase_elided_path()
     dp_row = phase_main_path(data_parallel=count)
     two_row = phase_two_shards()
+    unbatched_row = phase_unbatched_path()
+    phase_traced()
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -1176,6 +1590,7 @@ def main() -> int:
 
     timing = phase_timings(smi, next(r for r in dp_rows if r["case"] == "add2/2x1card"))
     full, elided, big, dp = timing["full"], timing["elided"], timing["cap1024"], timing["dp"]
+    one = phase_unbatched_timings(smi)["chunks"][128]
     emit({"kernels": [
         {
             "name": fused.KERNEL, "route": "cuda",
@@ -1190,6 +1605,12 @@ def main() -> int:
             "library_ms": None, "exact": True,
             "big_capacity": {"caps": 1024, "ms": big["ms"], "plain_ms": big["plain_ms"],
                              "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
+            # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
+            "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
+                          "ms": one["ms"], "plain_ms": one["plain_ms"],
+                          "max_abs_err": max(max_err_unbatched, one["max_abs_err"]),
+                          "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+                          "ticks": 128, "caps": 1024},
         },
         {
             "name": fused.KERNEL_ELIDE, "route": "cuda",

@@ -1,0 +1,189 @@
+"""Command-line interface: python -m misaka_tpu_torch <command>.
+
+The port's twin of misaka_tpu/__main__.py:
+
+  serve                      run the master (same env contract as
+                             `python -m misaka_tpu_torch.runtime.app`)
+  check    <topology>        compile a topology, report per-node code sizes
+  disasm   <topology>        compile then disassemble every program node
+  debug    <topology>        interactive single-step debugger
+                             (misaka_tpu_torch.debug), on the card unless
+                             --device cpu (or MISAKA_DEVICE=cpu)
+
+<topology> is a baseline config name (add2, acc_loop, ring4, sorter,
+mesh8 -- misaka_tpu_torch/networks.py) or a path to a declarative JSON file
+({"nodes": {...}, "programs": {...}} -- runtime/topology.py).
+
+Not ported yet, each exits with status 2 and names its ROADMAP item:
+`compute` (it needs client.py), `bench`, `replay` and `usage-report`
+(unported planes), and docker-compose .yml topologies (runtime/compose.py
+and PyYAML).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+# command -> why it is missing: each answers with status 2
+NOT_PORTED = {
+    "compute": "needs client.py (ROADMAP A.7)",
+    "bench": "needs the benchmark harness (ROADMAP A.7)",
+    "replay": "needs the traffic capture plane and tools/replay.py (ROADMAP A.7)",
+    "usage-report": "needs the usage ledger plane (ROADMAP A.7)",
+}
+NOT_PORTED_STATUS = 2
+
+
+class NotPorted(Exception):
+    """A request the port cannot serve yet (exit status 2)."""
+
+
+def _load_topology(spec: str):
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    if spec in networks.BASELINE_CONFIGS:
+        return networks.BASELINE_CONFIGS[spec]()
+    if spec.endswith((".yml", ".yaml")):
+        raise NotPorted(f"docker-compose topologies ({spec}) need runtime/compose.py "
+                        "and PyYAML (ROADMAP A.7)")
+    with open(spec) as f:
+        return Topology.from_json(f.read())
+
+
+def cmd_check(args) -> int:
+    try:
+        top = _load_topology(args.topology)
+        net = top.compile(device="cpu")  # the tables only: no card needed
+    except NotPorted:
+        raise
+    except Exception as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    lanes = top.lane_ids()
+    print(f"ok: {len(lanes)} program node(s), {len(top.stack_ids())} stack node(s)")
+    for name, i in lanes.items():
+        print(f"  {name}: {int(net.prog_len[i])} line(s)")
+    return 0
+
+
+def cmd_disasm(args) -> int:
+    from misaka_tpu_torch.tis.disasm import disassemble_network
+
+    top = _load_topology(args.topology)
+    net = top.compile(device="cpu")
+    texts = disassemble_network(
+        net.code, net.prog_len, list(top.lane_ids()), list(top.stack_ids())
+    )
+    for name, text in texts.items():
+        print(f"# --- {name} ---")
+        print(text)
+    return 0
+
+
+def cmd_debug(args) -> int:
+    from misaka_tpu_torch.debug import Debugger
+
+    top = _load_topology(args.topology)
+    dbg = Debugger(top, device=args.device)
+    lanes = list(top.lane_ids())
+    print(f"misaka_tpu_torch debugger — lanes: {', '.join(lanes)} (type 'help')")
+    while True:
+        try:
+            line = input("(mdb) ").strip()
+        except EOFError:
+            return 0
+        if not line:
+            continue
+        cmd, *rest = line.split()
+        try:
+            if cmd in ("q", "quit", "exit"):
+                return 0
+            elif cmd == "help":
+                print(
+                    "step [n]         advance n ticks (default 1)\n"
+                    "run [n]          run until breakpoint (budget n, default 10000)\n"
+                    "break LANE LINE  set a breakpoint\n"
+                    "clear            clear all breakpoints\n"
+                    "feed V [V...]    queue input values\n"
+                    "out              drain outputs\n"
+                    "print LANE       show a lane's registers/ports\n"
+                    "stacks           show stack contents\n"
+                    "list LANE        disassembly with pc cursor\n"
+                    "trace [n]        recent execution history\n"
+                    "reset            reset all state\n"
+                    "quit             exit"
+                )
+            elif cmd == "step":
+                hits = dbg.step(int(rest[0]) if rest else 1)
+                print(f"tick={dbg.tick}" + (f" BREAK {hits}" if hits else ""))
+            elif cmd == "run":
+                hits = dbg.run(int(rest[0]) if rest else 10_000)
+                print(f"tick={dbg.tick}" + (f" BREAK {hits}" if hits else " (no hit)"))
+            elif cmd == "break":
+                dbg.add_breakpoint(rest[0], int(rest[1]))
+                print(f"breakpoint at {rest[0]}:{rest[1]}")
+            elif cmd == "clear":
+                dbg.clear_breakpoints()
+            elif cmd == "feed":
+                took = dbg.feed([int(v) for v in rest])
+                print(f"queued {took}")
+            elif cmd == "out":
+                print(dbg.outputs())
+            elif cmd == "print":
+                print(json.dumps(dbg.inspect(rest[0]), indent=2))
+            elif cmd == "stacks":
+                print(json.dumps(dbg.stacks()))
+            elif cmd == "list":
+                print(dbg.listing(rest[0]))
+            elif cmd == "trace":
+                print(dbg.history(int(rest[0]) if rest else 16))
+            elif cmd == "reset":
+                dbg.reset()
+                print("reset")
+            else:
+                print(f"unknown command '{cmd}' (try 'help')")
+        except (KeyError, ValueError, IndexError) as e:
+            print(f"error: {e}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="misaka_tpu_torch", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("serve", help="run the master from env vars")
+    p = sub.add_parser("check", help="compile a topology")
+    p.add_argument("topology")
+    p = sub.add_parser("disasm", help="disassemble a topology's programs")
+    p.add_argument("topology")
+    p = sub.add_parser("debug", help="interactive debugger")
+    p.add_argument("topology")
+    p.add_argument("--device", default=os.environ.get("MISAKA_DEVICE") or None,
+                   help="cuda (default) or cpu")
+    for name, why in NOT_PORTED.items():
+        sub.add_parser(name, help=f"not ported: {why}")
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED:  # whatever its arguments
+        print(f"error: '{argv[0]}' is not ported to misaka_tpu_torch yet: "
+              f"{NOT_PORTED[argv[0]]}", file=sys.stderr)
+        return NOT_PORTED_STATUS
+    args = parser.parse_args(argv)
+    if args.command == "serve":
+        from misaka_tpu_torch.runtime.app import main as serve_main
+
+        serve_main()
+        return 0
+    try:
+        return {"check": cmd_check, "disasm": cmd_disasm, "debug": cmd_debug}[args.command](args)
+    except NotPorted as e:
+        print(f"error: {e}", file=sys.stderr)
+        return NOT_PORTED_STATUS
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,20 @@
 """Execution engine: chunk runner + host-side I/O for a compiled network.
 
-The port's twin of misaka_tpu/core/engine.py, batched only in this slice:
-B independent network instances advance in lockstep, and the host touches
-device state only at chunk boundaries (refill the input rings, drain the
-output rings).  The feed and pack steps around the chunk are torch ops; the
-chunk itself is the fused CUDA kernel on the card (`fused_runner`) or the
-plain torch tick loop (`run`).
+The port's twin of misaka_tpu/core/engine.py.  `batch=None` runs one
+network instance whose state fields carry no leading axis (the JAX
+package's unbatched shapes); an integer B runs B independent instances in
+lockstep.  The host touches device state only at chunk boundaries (refill
+the input rings, drain the output rings).  The feed and pack steps around
+the chunk are torch ops; the chunk itself is the fused CUDA kernel on the
+card (`fused_runner`, `serve_chunk`) or the plain torch tick loop (`run`).
+The plain step and the kernel are batched, so an unbatched state runs as a
+batch of one: `as_batch` in (views, no copy), `first` out.
 
-Every member keeps the JAX signature and, for `make_batched_serve`, the
-packed per-instance layout [in_rd, in_wr, out_rd, out_wr, out_buf...] that
-the master's device loop parses (`read_packed`).
+Every member keeps the JAX signature and its refusals: the batched-only
+members raise on an unbatched network and the single-instance ones on a
+batched network, with the JAX messages.  `make_batched_serve` and
+`serve_chunk` keep the packed layout [in_rd, in_wr, out_rd, out_wr,
+out_buf...] that the master's device loop parses.
 """
 
 from __future__ import annotations
@@ -21,8 +26,24 @@ import numpy as np
 import torch
 
 from misaka_tpu_torch.core import fused
-from misaka_tpu_torch.core.state import NetworkState, init_state
+from misaka_tpu_torch.core import trace as trace_mod
+from misaka_tpu_torch.core.state import NetworkState, init_state, rebase_rings
 from misaka_tpu_torch.device import resolve_device
+
+_SINGLE_ONLY = ("feed/drain/compute_stream drive a single network instance; "
+                "for batch mode write the I/O rings directly (see bench.py)")
+
+
+def as_batch(state: NetworkState) -> NetworkState:
+    """An unbatched state as a batch of one: views of its tensors, no copy.
+    The engines write no field in place (the kernel's wrapper clones every
+    field it writes), so the caller's state stays as it was."""
+    return NetworkState(*(t.unsqueeze(0) for t in state))
+
+
+def first(state: NetworkState) -> NetworkState:
+    """Instance 0 of a batched state (views)."""
+    return NetworkState(*(t[0] for t in state))
 
 
 def counters_of(state: NetworkState) -> torch.Tensor:
@@ -53,21 +74,23 @@ class CompiledNetwork:
     stack_cap: int = 1024     # bounded here; a full stack parks the pusher
     in_cap: int = 1024
     out_cap: int = 1024
-    batch: int = 1
+    batch: int | None = None
     device: torch.device | str | None = None
     _code_t: torch.Tensor = field(init=False, repr=False)
     _len_t: torch.Tensor = field(init=False, repr=False)
+    _serve_fns: dict = field(init=False, repr=False)
 
     def __post_init__(self):
         # At least one (possibly phantom) stack keeps kernel shapes nonempty.
         self.num_stacks = max(1, self.num_stacks)
-        if not isinstance(self.batch, int) or self.batch < 1:
-            raise ValueError(f"batch must be an int >= 1, got {self.batch!r}")
+        if self.batch is not None and (not isinstance(self.batch, int) or self.batch < 1):
+            raise ValueError(f"batch must be None or an int >= 1, got {self.batch!r}")
         self.device = resolve_device(self.device)
         self.code = np.ascontiguousarray(self.code, dtype=np.int32)
         self.prog_len = np.ascontiguousarray(self.prog_len, dtype=np.int32)
         self._code_t = torch.from_numpy(self.code.copy()).to(self.device)
         self._len_t = torch.from_numpy(self.prog_len.copy()).to(self.device)
+        self._serve_fns = {}
 
     @property
     def num_lanes(self) -> int:
@@ -81,12 +104,35 @@ class CompiledNetwork:
 
     def run(self, state: NetworkState, num_steps: int) -> NetworkState:
         """Advance `num_steps` supersteps with the plain torch tick loop."""
+        if self.batch is None:
+            return first(fused.plain_run(self._code_t, self._len_t, as_batch(state), num_steps))
         return fused.plain_run(self._code_t, self._len_t, state, num_steps)
+
+    def init_trace(self, cap: int = 256) -> trace_mod.TraceRing:
+        """A fresh per-lane trace ring on this network's device (core/trace.py)."""
+        return trace_mod.init_trace(self.num_lanes, cap, self.device)
+
+    def run_traced(self, state: NetworkState, trace: trace_mod.TraceRing, num_steps: int,
+                   instance: int = 0):
+        """Like `run`, but records fetch/commit/acc into `trace`; returns
+        (state, trace).  Unbatched networks record every lane; batched
+        networks record the lanes of instance `instance` (instances are
+        independent, so its history is exact while all B advance)."""
+        if self.batch is None:
+            state, trace = trace_mod.run_traced(self._code_t, self._len_t, as_batch(state),
+                                                trace, num_steps)
+            return first(rebase_rings(state)), trace
+        if not (0 <= instance < self.batch):
+            raise ValueError(f"instance {instance} out of range [0, {self.batch})")
+        state, trace = trace_mod.run_traced(self._code_t, self._len_t, state, trace,
+                                            num_steps, instance)
+        return rebase_rings(state), trace
 
     def fused_runner(self, num_steps: int, elide_dead_hi: bool | None = None,
                      count_as: str | None = None):
         """fn(state) -> state, `num_steps` ticks in ONE launch of the fused
-        CUDA kernel (on a CUDA device; the plain version on the CPU).
+        CUDA kernel (on a CUDA device; the plain version on the CPU), for a
+        batched network (the unbatched chunk is `make_serve`'s).
         Raises ValueError naming the bound when the network exceeds the
         kernel's; on the card it builds the kernel now.  `fn.variant` is
         the launch-count key of the variant the kernel runs; the launches
@@ -97,10 +143,18 @@ class CompiledNetwork:
         no 64-bit reader keep acc_hi/bak_hi at their entry values.  The
         lane mask is computed here, from this network's programs, and so
         are the kernel's line records (`fused.decode_lines`)."""
-        fused.check_kernel_bounds(self.num_lanes, self.num_stacks, self.code.shape[1])
+        if self.batch is None:
+            raise ValueError("fused_runner requires a batched network")
         if elide_dead_hi is None:
             elide_dead_hi = os.environ.get("MISAKA_FUSED_ELIDE_HI") == "1"
         hi_live = fused.hi_live_mask(self.code, self.prog_len) if elide_dead_hi else None
+        return self._kernel_runner(num_steps, hi_live, count_as)
+
+    def _kernel_runner(self, num_steps: int, hi_live: int | None = None,
+                       count_as: str | None = None):
+        """fn(batched state) -> state through the kernel (see fused_runner):
+        bounds checked, records decoded and the kernel built, once."""
+        fused.check_kernel_bounds(self.num_lanes, self.num_stacks, self.code.shape[1])
         records = None
         if self.device.type == "cuda":
             records = fused.line_records(self.code, self.prog_len, self.num_stacks,
@@ -127,6 +181,8 @@ class CompiledNetwork:
         out_wr).  idle_fn skips the feed and the ring: [B, 4] counters only.
         `runner` is the chunk fn of `num_steps` ticks (fused_runner).
         """
+        if self.batch is None:
+            raise ValueError("make_batched_serve requires a batched network")
 
         def serve(state, values, counts):
             return pack(runner(self.feed_batched(state, values, counts)))
@@ -137,7 +193,125 @@ class CompiledNetwork:
 
         return serve, idle
 
+    def make_serve(self, num_steps: int, engine: str = "auto"):
+        """The unbatched one-call serve iteration, built once:
+
+          serve(state, values [in_cap], count) -> (state, packed [4 + out_cap])
+
+        feeds the `count` leading entries of `values`, advances `num_steps`
+        ticks and packs [in_rd, in_wr, out_rd, out_wr, out_buf...] into ONE
+        device tensor, with the returned state's output ring already
+        drained (out_rd = out_wr): the caller reads `packed` once.
+
+        engine="auto" runs the chunk as one launch of the full fused kernel
+        on the batch-of-one view on a card (counted under
+        fused.launch_counts["fused_superstep"]; the reference's unbatched
+        path has no elided variant, so MISAKA_FUSED_ELIDE_HI does not apply)
+        and the plain tick loop on the CPU; engine="scan" the plain tick
+        loop on any device.  Raises ValueError naming the bound when a
+        network exceeds the kernel's (on a card, with engine="auto")."""
+        if self.batch is not None:
+            raise ValueError("serve_chunk drives a single network instance")
+        if engine not in ("auto", "scan"):
+            raise ValueError(f"engine must be auto|scan, got {engine!r}")
+        if engine == "auto" and self.device.type == "cuda":
+            advance = self._kernel_runner(num_steps)
+        else:
+            code, lens = self._code_t, self._len_t
+
+            def advance(state):
+                return fused.plain_run(code, lens, state, num_steps)
+
+        def serve(state, values, count):
+            one = advance(self._feed_one(as_batch(state), values, count))
+            packed = torch.cat([counters_of(one)[0], one.out_buf[0]])
+            return first(one._replace(out_rd=one.out_wr.clone())), packed
+
+        return serve
+
+    def serve_chunk(self, state: NetworkState, values, count, num_steps: int,
+                    engine: str = "auto"):
+        """One-call serve iteration (unbatched device loop): `make_serve`'s
+        fn for (num_steps, engine), built on first use and kept."""
+        key = (num_steps, engine)
+        fn = self._serve_fns.get(key)
+        if fn is None:
+            fn = self._serve_fns[key] = self.make_serve(num_steps, engine)
+        return fn(state, values, count)
+
     # --- host-side I/O (chunk-boundary only) -------------------------------
+
+    def _feed_one(self, state: NetworkState, values, count) -> NetworkState:
+        """Append the `count` leading entries of `values` to the input ring
+        of a batch-of-one state (caller guarantees count <= free space);
+        nothing is uploaded for count 0."""
+        count = int(count)
+        if count <= 0:
+            return state
+        vals = torch.from_numpy(np.ascontiguousarray(values[:count], dtype=np.int32)).to(
+            self.device)
+        idx = ((state.in_wr + torch.arange(count, device=self.device, dtype=torch.int32))
+               % self.in_cap).long()
+        return state._replace(in_buf=state.in_buf.index_put((idx.new_zeros(count), idx), vals),
+                              in_wr=state.in_wr + count)
+
+    def feed(self, state: NetworkState, values) -> tuple[NetworkState, int]:
+        """Enqueue up to len(values) inputs of an unbatched network;
+        returns (state, accepted_count)."""
+        if self.batch is not None:
+            raise ValueError(_SINGLE_ONLY)
+        values = np.asarray(values, dtype=np.int32)
+        c = self.counters(state)
+        k = min(len(values), self.in_cap - int(c[1] - c[0]))
+        if k == 0:
+            return state, 0
+        return first(self._feed_one(as_batch(state), values, k)), k
+
+    def drain(self, state: NetworkState) -> tuple[NetworkState, list[int]]:
+        """Collect all pending outputs of an unbatched network in order;
+        advances out_rd."""
+        if self.batch is not None:
+            raise ValueError(_SINGLE_ONLY)
+        c = self.counters(state)
+        rd, wr = int(c[2]), int(c[3])
+        if wr == rd:
+            return state, []
+        buf = state.out_buf.cpu().numpy()
+        vals = [int(buf[i % self.out_cap]) for i in range(rd, wr)]
+        return state._replace(out_rd=state.out_wr.clone()), vals
+
+    def compute_stream(
+        self,
+        state: NetworkState,
+        values,
+        chunk: int = 64,
+        max_steps: int = 1_000_000,
+        expected: int | None = None,
+    ) -> tuple[NetworkState, list[int]]:
+        """Feed a value stream and run until `expected` outputs arrive
+        (default: one output per input): the reference's /compute called
+        sequentially (master.go:197-224), where pairing is unambiguous.
+        Pass `expected` for networks whose output count differs from the
+        input count (e.g. examples/multiply.json: 2 inputs -> 1)."""
+        pending = list(values)
+        outputs: list[int] = []
+        if expected is None:
+            expected = len(pending)
+        steps = 0
+        while len(outputs) < expected:
+            if steps >= max_steps:
+                raise RuntimeError(
+                    f"network made no full progress after {steps} supersteps "
+                    f"({len(outputs)}/{expected} outputs) — deadlock or starvation"
+                )
+            if pending:
+                state, took = self.feed(state, pending)
+                pending = pending[took:]
+            state = self.run(state, chunk)
+            steps += chunk
+            state, got = self.drain(state)
+            outputs.extend(got)
+        return state, outputs
 
     def feed_batched(self, state: NetworkState, values, counts) -> NetworkState:
         """Append per-instance inputs: values [B, in_cap] int32, counts [B].
@@ -145,6 +319,8 @@ class CompiledNetwork:
         Caller guarantees counts[b] <= free space of instance b.  Only the
         rows with counts > 0 are uploaded; the rest keep their rings.
         """
+        if self.batch is None:
+            raise ValueError("feed_batched requires a batched network")
         values = np.ascontiguousarray(values, dtype=np.int32)
         counts = np.ascontiguousarray(counts, dtype=np.int32)
         if values.shape != (self.batch, self.in_cap) or counts.shape != (self.batch,):
@@ -170,7 +346,8 @@ class CompiledNetwork:
         )
 
     def counters(self, state: NetworkState) -> np.ndarray:
-        """[in_rd, in_wr, out_rd, out_wr] as ONE host read: [4, B]."""
+        """[in_rd, in_wr, out_rd, out_wr] as ONE host read: [4] unbatched,
+        [4, B] batched."""
         return torch.stack(
             [state.in_rd, state.in_wr, state.out_rd, state.out_wr]
         ).cpu().numpy()
@@ -210,6 +387,8 @@ class CompiledNetwork:
     def drain_batched(self, state: NetworkState, rd=None, wr=None):
         """Collect pending outputs per instance, in order; advances out_rd.
         Returns (state, [(slot, values)]) for instances that produced any."""
+        if self.batch is None:
+            raise ValueError("drain_batched requires a batched network")
         if rd is None or wr is None:
             c = self.counters(state)
             rd, wr = c[2], c[3]

@@ -52,16 +52,19 @@ def _reads_src(op: torch.Tensor) -> torch.Tensor:
     return hit
 
 
+def fetch_line(pc: torch.Tensor, max_len: int) -> torch.Tensor:
+    """The table row the reference's `code[lane, pc]` reads, as an int64
+    index: a negative pc counts from the end of the table (jnp indexing),
+    then the gather clamps (XLA)."""
+    return torch.where(pc < 0, pc + max_len, pc).clamp(0, max_len - 1).long()
+
+
 def decode_and_consume(code: torch.Tensor, state: NetworkState) -> Decoded:
     """Fetch/decode at each lane's PC + phase A (consume ready port sources
     into the hold latch, resolve the source operand)."""
     n_lanes, max_len, _ = code.shape
     lane = torch.arange(n_lanes, device=code.device)
-
-    # the reference's `code[lane, pc]`: a negative pc counts from the end of
-    # the table (jnp indexing), then the gather clamps (XLA)
-    pc = torch.where(state.pc < 0, state.pc + max_len, state.pc).clamp(0, max_len - 1).long()
-    fields = code[lane[None, :], pc]                      # [B, N, NFIELDS]
+    fields = code[lane[None, :], fetch_line(state.pc, max_len)]  # [B, N, NFIELDS]
     op = fields[..., isa.F_OP]
     src = fields[..., isa.F_SRC]
     imm = fields[..., isa.F_IMM]

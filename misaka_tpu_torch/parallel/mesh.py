@@ -180,7 +180,7 @@ def make_dp_fused_runner(nets: list[CompiledNetwork], num_steps: int,
 class ShardedNetwork:
     """A network compiled for a mesh: one CompiledNetwork of B/D instances
     per mesh device, with CompiledNetwork's serving members (init_state,
-    fused_runner, make_batched_serve, counters, read_packed,
+    run, fused_runner, make_batched_serve, counters, read_packed,
     drain_batched) over the global batch of B.  States are lists of shard
     states; counters, feeds and slot numbers are global."""
 
@@ -207,6 +207,10 @@ class ShardedNetwork:
 
     def fused_runner(self, num_steps: int, elide_dead_hi: bool | None = None):
         return make_dp_fused_runner(self.nets, num_steps, elide_dead_hi)
+
+    def run(self, shards: list[NetworkState], num_steps: int) -> list[NetworkState]:
+        """`num_steps` ticks of every shard through the plain tick loop."""
+        return [net.run(s, num_steps) for net, s in zip(self.nets, shards)]
 
     def make_batched_serve(self, runner, num_steps: int):
         """CompiledNetwork.make_batched_serve over the shards:

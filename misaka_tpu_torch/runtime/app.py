@@ -1,4 +1,4 @@
-"""Process entrypoint: serve one batched network over HTTP.
+"""Process entrypoint: serve one network over HTTP.
 
     python -m misaka_tpu_torch.runtime.app
 
@@ -8,8 +8,21 @@ Environment:
   NODE_INFO          {"name": {"type": "program"|"stack"}, ...} (app.go:30-35)
   MISAKA_PROGRAMS    {"name": "<TIS source>", ...} per program node
   MISAKA_PORT        HTTP port (default 8000)
-  MISAKA_BATCH       instances served in lockstep (required, >= 1)
+  MISAKA_BATCH       run N independent instances in lockstep and serve
+                     concurrent requests across them (default, or 0: one
+                     instance, every /compute strictly FIFO)
   MISAKA_CHUNK_STEPS ticks per device-loop chunk (default 128)
+  MISAKA_ENGINE      auto (default: the fused kernel on the card, its plain
+                     version on the CPU) | scan (the plain version) | fused
+                     (require the kernel: batched and untraced); native
+                     (the reference's host C++ tier, ROADMAP A.5) and
+                     fused-interpret refuse to start, gather needs model
+                     parallel
+  MISAKA_TRACE_CAP   N > 0 records every tick of one instance in an N-tick
+                     ring: GET /debug/isa_trace?last=N (the plain version
+                     serves, recording; 409 on that route without it)
+  MISAKA_TRACE_INSTANCE  which instance a batched traced server records
+                     (default 0; out of range refuses to start)
   MISAKA_STACK_CAP / MISAKA_IN_CAP / MISAKA_OUT_CAP   stack and ring depths
   MISAKA_AUTORUN     "1" starts the network at boot
   MISAKA_DEVICE      cuda (default) | cpu -- with no card and no
@@ -66,13 +79,13 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
     node_type = environ.get("NODE_TYPE", "master")
     if node_type != "master":
         raise SystemExit(f"'{node_type}' not a valid node type for this server")
-    batch = int(environ.get("MISAKA_BATCH", "0") or 0)
-    if batch < 1:
-        raise SystemExit("set MISAKA_BATCH >= 1 (instances served in lockstep)")
     return MasterNode(
         build_topology_from_env(environ),
         chunk_steps=int(environ.get("MISAKA_CHUNK_STEPS", "0") or 0) or 128,
-        batch=batch,
+        trace_cap=int(environ.get("MISAKA_TRACE_CAP", "0") or 0) or None,
+        batch=int(environ.get("MISAKA_BATCH", "0") or 0) or None,
+        engine=environ.get("MISAKA_ENGINE", "auto"),
+        trace_instance=int(environ.get("MISAKA_TRACE_INSTANCE", "0") or 0),
         device=environ.get("MISAKA_DEVICE") or None,
         # intStack.go:9-45 is unbounded: capacity grows on a wedge
         stack_autogrow=environ.get("MISAKA_STACK_AUTOGROW", "1") != "0",

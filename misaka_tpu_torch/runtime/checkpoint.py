@@ -7,7 +7,8 @@ checkpointing (`CheckpointError`, `_fsync_dir`, `manifest_path`,
 
 - `<name>.npz`: one member per `NetworkState` field with its dtype (int32,
   bool for `port_full`/`holding`) and `__topology__`, the uint8 bytes of a
-  JSON object {nodes, programs, stack_cap, in_cap, out_cap, batch}.  The
+  JSON object {nodes, programs, stack_cap, in_cap, out_cap, batch}; an
+  unbatched network writes `"batch": null` and arrays without the B axis.  The
   port never writes `__tsdb__` (the reference's metric history; its TSDB is
   not ported) and ignores it when reading.
 - `<name>.npz.manifest`: JSON {format: 1, sha256, size, saved_unix, batch}.
@@ -127,7 +128,7 @@ def topology_blob(meta: dict) -> np.ndarray:
     return np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
 
 
-def write_checkpoint(path: str, arrays: dict[str, np.ndarray], batch: int) -> None:
+def write_checkpoint(path: str, arrays: dict[str, np.ndarray], batch: int | None) -> None:
     """Write `arrays` (field name -> array, `__topology__` included) to
     `path` durably, with its manifest."""
     pid = os.getpid()

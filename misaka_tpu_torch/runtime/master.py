@@ -1,10 +1,12 @@
-"""Master node: the batched serving loop and the HTTP control surface.
+"""Master node: the serving loop and the HTTP control surface.
 
-The port's twin of misaka_tpu/runtime/master.py, batched only.  One
-`MasterNode` serves B independent instances of one network.  A device-loop
+The port's twin of misaka_tpu/runtime/master.py.  One `MasterNode` serves
+one network instance (batch=None, the reference's default: strict FIFO on
+one instance) or B independent instances in lockstep.  A device-loop
 thread cuts the pending values into each instance's input ring, runs one
-chunk through the batched serve pair (core/engine.py::make_batched_serve)
-and hands every instance's outputs back to its waiting caller.
+chunk through the serve call (core/engine.py::make_serve unbatched,
+make_batched_serve batched: feed, chunk and pack, one host read) and
+hands every instance's outputs back to its waiting caller.
 
 Kept from the JAX master, with the same behaviour:
 
@@ -20,16 +22,22 @@ Kept from the JAX master, with the same behaviour:
   capacity, up to a byte budget (the reference's stacks are unbounded);
 - `.npz` checkpoints in the reference's format (runtime/checkpoint.py),
   snapshot / restore, and the restore flush that keeps a resurrected
-  in-flight value from pairing with a new request.
+  in-flight value from pairing with a new request;
+- the instruction trace ring (`trace_cap`, core/trace.py): the debug path
+  records every tick of one instance and `trace()` decodes it.
 
 `make_http_server` keeps POST /run /pause /reset /load /compute
-/compute_batch /compute_raw /checkpoint /restore and GET /status with the
-JAX server's bodies and status codes.  Left out: the metrics, usage,
-trace-span and fault-injection hooks (planes the port has not taken yet).
+/compute_batch /compute_raw /checkpoint /restore and GET /status,
+/debug/isa_trace and /trace (its deprecated alias) with the JAX server's
+bodies and status codes.  Left out: the metrics, usage, trace-span and
+fault-injection hooks (planes the port has not taken yet, ROADMAP A.0).
 
-One route per device: every chunk runs through the fused CUDA kernel (the
-plain variant, or the elided one under MISAKA_FUSED_ELIDE_HI=1) on a card,
-and through its plain torch version on an explicit CPU device.
+Engines (`engine=`): "auto" runs every untraced chunk through the fused
+CUDA kernel on a card (the full kernel unbatched; batched, the elided
+variant under MISAKA_FUSED_ELIDE_HI=1) and through its plain torch version
+on the CPU; "scan" runs the plain version on any device; "fused" requires
+the kernel.  A traced master runs the plain version with recording, as the
+reference's traced masters run its scan engine.
 
 Data parallel (`data_parallel=D`, the reference's mesh master with a
 `data` axis only): the batch is cut into D contiguous shards, one per mesh
@@ -70,6 +78,7 @@ from misaka_tpu_torch.core.state import (
     state_from_numpy,
     state_to_numpy,
 )
+from misaka_tpu_torch.core.trace import TraceRing, decode_trace
 from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
 from misaka_tpu_torch.runtime import checkpoint as ckpt
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
@@ -87,6 +96,8 @@ class ComputeTimeout(RuntimeError):
 
 # wakes collectors parked on a wiped queue (reset/load); never a real output
 _WIPED = np.empty((0,), np.int32)
+# an unbatched iteration with nothing to feed
+_NO_VALUES = np.empty((0,), np.int32)
 
 
 # --- the serve scheduler ------------------------------------------------------
@@ -419,23 +430,41 @@ class ServeBatcher:
 # --- the master ---------------------------------------------------------------
 
 
+_ENGINES = ("auto", "scan", "fused", "fused-interpret", "gather", "native")
+
+
 class MasterNode:
-    """Control plane + I/O gateway for one batched network."""
+    """Control plane + I/O gateway for one network."""
 
     def __init__(
         self,
         topology: Topology,
         chunk_steps: int = 128,
-        batch: int = 1,
+        trace_cap: int | None = None,
+        batch: int | None = None,
+        engine: str = "auto",
+        trace_instance: int = 0,
         device: str | torch.device | list | None = None,
         stack_autogrow: bool = True,
         stack_grow_max_bytes: int = 256 * 1024 * 1024,
         data_parallel: int | None = None,
         model_parallel: int | None = None,
     ):
-        """batch=B runs B independent instances in lockstep and hands
+        """batch=None serves one network instance (every /compute strictly
+        FIFO).  batch=B runs B independent instances in lockstep and hands
         concurrent requests to free instances, each instance's pairing
         strictly FIFO.  device=None serves on the card, which must exist.
+
+        engine: "auto" (the fused kernel on a card for every untraced
+        path, the plain version on the CPU), "scan" (the plain torch loop
+        on the given device) or "fused" (require the kernel: batched,
+        untraced, on a card).  "native" (the reference's host C++ tier) is
+        not ported and raises NotImplementedError; "fused-interpret" and
+        "gather" raise as the reference's refusals do.
+
+        trace_cap=N records every tick of one instance (`trace_instance`
+        when batched) in an N-tick ring, decoded by `trace()`; a traced
+        master runs the plain version with recording (the debug path).
 
         data_parallel=D serves the batch in D contiguous shards, one per
         device of a mesh (parallel/mesh.py): device=None the first D cards
@@ -448,21 +477,44 @@ class MasterNode:
         stalls on it, while the stacks' bytes stay within
         stack_grow_max_bytes (the reference's stacks are unbounded,
         intStack.go:9-45)."""
-        if not isinstance(batch, int) or batch < 1:
-            raise ValueError(f"batch must be an int >= 1, got {batch!r}")
+        if batch is not None and (not isinstance(batch, int) or batch < 1):
+            raise ValueError(f"batch must be None or an int >= 1, got {batch!r}")
+        if engine not in _ENGINES:
+            raise ValueError(f"engine must be {'|'.join(_ENGINES)}, got {engine!r}")
+        if engine == "native":
+            raise NotImplementedError(
+                "engine='native': the host C++ interpreter tier is not ported yet "
+                "(ROADMAP A.5)")
+        if engine == "fused-interpret":
+            raise ValueError(
+                "engine='fused-interpret': the port has no kernel interpreter; the "
+                "kernel's plain version is engine='scan'")
+        if engine == "gather" and not (model_parallel and model_parallel > 1):
+            raise ValueError("engine='gather' requires model_parallel > 1")
         if model_parallel is not None and int(model_parallel) > 1:
             raise NotImplementedError(
                 f"model_parallel={model_parallel}: lane-sharded serving is not "
                 "ported yet (ROADMAP A.6)")
+        if trace_cap and not (0 <= trace_instance < (batch or 1)):
+            raise ValueError(
+                f"trace_instance {trace_instance} out of range [0, {batch or 1})")
         self._mesh = None
         if data_parallel or model_parallel:
+            if batch is None:
+                raise ValueError("mesh serving requires batch=N")
             dp = int(data_parallel or 1)
             if batch % dp:
                 raise ValueError(f"batch {batch} not divisible by data_parallel={dp}")
+            if trace_cap:
+                raise ValueError("tracing is single-chip-only (the debug path)")
             self._mesh = make_mesh(dp, device)
+        if engine == "fused" and (trace_cap or batch is None):
+            raise ValueError("fused engine requires batch=N and no trace_cap "
+                             "(tracing runs the scan engine)")
         self._topology = topology
         self._chunk = chunk_steps
         self._batch = batch
+        self._engine = engine
         self._device = device
         self._grow = bool(stack_autogrow)
         self._grow_max_bytes = int(stack_grow_max_bytes)
@@ -471,13 +523,20 @@ class MasterNode:
         # anything moves again or on reset/load
         self._grow_blocked = False
         self._net = self._compile(topology)
+        if engine == "fused" and self._net.device.type != "cuda":
+            raise ValueError("engine='fused' needs a CUDA device: on the CPU the "
+                             "kernel's plain version serves (engine='auto' or 'scan')")
         self._state = self._net.init_state()
-        self._batched_serve = self._make_serve(self._net)
+        # the instruction trace ring (core/trace.py): one instance's history
+        self._trace_cap = trace_cap
+        self._trace_instance = trace_instance
+        self._trace = self._net.init_trace(trace_cap) if trace_cap else None
+        self._serve = self._make_serve(self._net)
         self._running = False
         self._loop: threading.Thread | None = None
         self._state_lock = threading.Lock()      # guards _state/_net swaps
         self._lifecycle_lock = threading.RLock() # serializes run/pause/reset/load
-        n_slots = batch
+        n_slots = batch or 1
         self._n_slots = n_slots
         self._compute_locks = [threading.Lock() for _ in range(n_slots)]
         # ONE submission queue for all slots (payload: a list of (slot,
@@ -540,15 +599,30 @@ class MasterNode:
         return NetworkState(*(t.to(self._net.device, copy=True) for t in state))
 
     def _make_serve(self, net):
-        """The (serve_fn, idle_fn) pair of `net`: one kernel launch per chunk
-        on a card (the elided variant under MISAKA_FUSED_ELIDE_HI=1, its
-        lane mask computed from `net`'s programs), the plain version on the
-        CPU."""
+        """What the device loop calls per chunk of `net`: unbatched, the
+        one-call serve fn (core/engine.py::make_serve); batched, the
+        (serve_fn, idle_fn) pair; traced, None (the piecewise loop).  One
+        kernel launch per chunk on a card (batched: the elided variant under
+        MISAKA_FUSED_ELIDE_HI=1, its lane mask computed from `net`'s
+        programs), the plain version on the CPU or under engine="scan"."""
+        if self._trace_cap:
+            return None
+        if self._batch is None:
+            return net.make_serve(self._chunk, "scan" if self._engine == "scan" else "auto")
+        if self._engine == "scan":
+            chunk = self._chunk
+            return net.make_batched_serve(lambda s: net.run(s, chunk), chunk)
         return net.make_batched_serve(net.fused_runner(self._chunk), self._chunk)
 
     @property
     def engine_name(self) -> str:
-        return "fused" if self._net.device.type == "cuda" else "plain"
+        """What runs the chunks: "fused" (the kernel), "plain" (its plain
+        torch version) or "plain-traced" (the plain version recording)."""
+        if self._trace_cap:
+            return "plain-traced"
+        if self._engine == "scan" or self._net.device.type != "cuda":
+            return "plain"
+        return "fused"
 
     # --- lifecycle (the broadcastCommand surface, master.go:269-351) -------
 
@@ -591,6 +665,8 @@ class MasterNode:
             self.pause()
             with self._state_lock:
                 self._state = self._net.init_state()
+                if self._trace_cap:
+                    self._trace = self._net.init_trace(self._trace_cap)
             self._drain_queues()
             log.info("network was reset")
 
@@ -610,7 +686,9 @@ class MasterNode:
                 self._topology = new_topology
                 self._net = new_net
                 self._state = new_net.init_state()
-                self._batched_serve = new_serve
+                if self._trace_cap:
+                    self._trace = new_net.init_trace(self._trace_cap)
+                self._serve = new_serve
             self._drain_queues()
             log.info("successfully loaded program")
 
@@ -792,14 +870,19 @@ class MasterNode:
     def status(self) -> dict:
         """Live metrics: totals across instances (tick is lockstep-identical,
         instance 0's is reported), the engine, its kernel launches per
-        variant, the serve scheduler's passes, and on a mesh its shape.
-        Each sum is taken per shard on its device and added on the host."""
+        variant, the serve scheduler's passes, `batch` when batched and on
+        a mesh its shape.  Each sum is taken per shard on its device and
+        added on the host."""
+
+        def per_lane(t):  # [N] (or [S]) of one instance or summed over B
+            return t if self._batch is None else t.sum(dim=0)
+
         with self._state_lock:
             shards = self._shards()
             topo = self._topology
-            tick = int(shards[0].tick[0])
-            retired = sum(s.retired.sum(dim=0).cpu() for s in shards).tolist()
-            stack_top = sum(s.stack_top.sum(dim=0).cpu() for s in shards).tolist()
+            tick = int(shards[0].tick.reshape(-1)[0])
+            retired = sum(per_lane(s.retired).cpu() for s in shards).tolist()
+            stack_top = sum(per_lane(s.stack_top).cpu() for s in shards).tolist()
             in_depth = sum(int((s.in_wr - s.in_rd).sum()) for s in shards)
             out_depth = sum(int((s.out_wr - s.out_rd).sum()) for s in shards)
             stack_cap = self._net.stack_cap
@@ -819,6 +902,7 @@ class MasterNode:
         status = {
             "running": self._running,
             "engine": self.engine_name,
+            "served_engine": self.engine_name,
             "device": str(self._net.device),
             "kernel_launches": dict(fused.launch_counts),
             "serve_passes": self._batcher.passes if self._batcher is not None else 0,
@@ -832,11 +916,24 @@ class MasterNode:
             "in_queue": host_in + in_depth,
             "out_queue": host_out + out_depth,
             "nodes": dict(topo.node_info),
-            "batch": self._batch,
         }
+        if self._batch is not None:
+            status["batch"] = self._batch
         if self._mesh is not None:
             status["mesh"] = dict(self._mesh.shape)
         return status
+
+    def trace(self, last: int | None = None) -> list[dict]:
+        """Decoded instruction history, oldest first (requires trace_cap):
+        core/trace.py::decode_trace of the ring as it stands."""
+        if self._trace is None:
+            raise RuntimeError("tracing disabled (construct MasterNode with trace_cap)")
+        with self._state_lock:
+            ring = TraceRing(buf=self._trace.buf.cpu(), wr=self._trace.wr.cpu())
+            net = self._net
+            topo = self._topology
+        return decode_trace(ring, net.code, net.prog_len, lane_names=list(topo.lane_ids()),
+                            stack_names=list(topo.stack_ids()), last=last)
 
     # --- checkpoints, snapshot, restore -------------------------------------
 
@@ -892,7 +989,9 @@ class MasterNode:
                 self._topology = new_topology
                 self._net = new_net
                 self._state = state
-                self._batched_serve = new_serve
+                if self._trace_cap:
+                    self._trace = new_net.init_trace(self._trace_cap)
+                self._serve = new_serve
             self._drain_queues()
             self._flush_iters = self._flush_quiet = 0
             self._restore_flush = True
@@ -975,7 +1074,7 @@ class MasterNode:
             if not any(bool((s.stack_top >= net.stack_cap).any()) for s in self._shards()):
                 return  # stalled for another reason (e.g. starvation)
         new_cap = net.stack_cap * 2
-        new_bytes = self._batch * net.num_stacks * new_cap * 4
+        new_bytes = (self._batch or 1) * net.num_stacks * new_cap * 4
         if new_bytes > self._grow_max_bytes:
             log.warning(
                 "stack at capacity %d but growing to %d would use %d bytes "
@@ -997,7 +1096,7 @@ class MasterNode:
             self._state = grown if self._mesh is not None else grown[0]
             self._topology = new_topology
             self._net = new_net
-            self._batched_serve = new_serve
+            self._serve = new_serve
         log.info("grew stack capacity %d -> %d in %.3fs",
                  net.stack_cap, new_cap, time.monotonic() - t0)
 
@@ -1069,44 +1168,92 @@ class MasterNode:
                 counts[b] = len(got)
         return vals, counts
 
+    def _serve_unbatched(self, state, ctrs):
+        """One unbatched iteration: feed, chunk and pack in one call, ONE
+        host read (the reference's one-dispatch branch, master.py:2663-2691).
+        Returns (state, counters [4], [(0, outputs)] or [], fed)."""
+        got = self._cut_pending(0, self._net.in_cap - int(ctrs[1] - ctrs[0]))
+        vals = _NO_VALUES if got is None else got
+        state, packed = self._serve(state, vals, vals.size)
+        self._mark_ticks()
+        p = packed.cpu().numpy()  # the single host read
+        rd, wr = int(p[2]), int(p[3])
+        per_slot = []
+        if wr > rd:
+            per_slot = [(0, p[4:][(rd + np.arange(wr - rd)) % self._net.out_cap])]
+        return state, p[:4], per_slot, got is not None
+
+    def _serve_batched(self, state, ctrs):
+        """One batched iteration: the (serve_fn, idle_fn) pair, one host
+        read of the packed snapshot (or of the counters when idle).
+        Returns (state, counters [4, B], [(slot, outputs)], fed)."""
+        serve_fn, idle_fn = self._serve
+        fed = False
+        if self._active:
+            vals, counts = self._build_feed(ctrs)
+            fed = bool(counts.any())
+        if fed:
+            # feed + chunk + per-instance counter/ring snapshot
+            state, packed = serve_fn(state, vals, counts)
+            self._mark_ticks()
+            ctrs, per_slot = self._net.read_packed(packed)
+            return state, ctrs, per_slot, True
+        # counters only; the ring is read only if outputs appeared
+        state, c = idle_fn(state)
+        self._mark_ticks()
+        p = c.cpu().numpy()
+        per_slot = []
+        if (p[:, 3] > p[:, 2]).any():
+            state, per_slot = self._net.drain_batched(state, rd=p[:, 2], wr=p[:, 3])
+        return state, p.T, per_slot, False
+
+    def _serve_traced(self, state, ctrs):
+        """One traced iteration, piecewise (the reference's traced branch,
+        master.py:2768-2810): feed, `run_traced` (of `trace_instance` when
+        batched), counters, drain."""
+        fed = False
+        if self._batch is None:
+            got = self._cut_pending(0, self._net.in_cap - int(ctrs[1] - ctrs[0]))
+            if got is not None:
+                state, _ = self._net.feed(state, got)
+                fed = True
+        elif self._active:
+            vals, counts = self._build_feed(ctrs)
+            if counts.any():
+                state = self._net.feed_batched(state, vals, counts)
+                fed = True
+        state, self._trace = self._net.run_traced(
+            state, self._trace, self._chunk,
+            **({} if self._batch is None else {"instance": self._trace_instance}))
+        self._mark_ticks()
+        ctrs = self._net.counters(state)  # post-run, exact
+        if self._batch is not None:
+            state, per_slot = self._net.drain_batched(state, rd=ctrs[2], wr=ctrs[3])
+        elif ctrs[3] > ctrs[2]:
+            state, outs = self._net.drain(state)
+            per_slot = [(0, np.asarray(outs, np.int32))]
+        else:
+            per_slot = []
+        return state, ctrs, per_slot, fed
+
     def _device_loop_inner(self) -> None:
         # One counter read per iteration (post-run), reused for the next
         # iteration's feed decisions: between chunks nothing on the device
         # moves, so post-run counters are exact.
         with self._state_lock:
-            ctrs = self._net.counters(self._state)  # [4, B]
+            ctrs = self._net.counters(self._state)  # [4] or [4, B]
+        iteration = (self._serve_traced if self._trace_cap
+                     else self._serve_unbatched if self._batch is None
+                     else self._serve_batched)
         while self._running:
-            busy = False
             # After a restore: run without ingesting new work and discard
             # what the network emits until it goes quiet, so a resurrected
             # in-flight value never pairs with a post-restore request.
             flushing = self._restore_flush
             with self._state_lock:
-                state = self._state
                 if not flushing:
                     self._ingest_submissions()
-                serve_fn, idle_fn = self._batched_serve
-                fed = False
-                if self._active:
-                    vals, counts = self._build_feed(ctrs)
-                    fed = bool(counts.any())
-                if fed:
-                    # feed + chunk + per-instance counter/ring snapshot
-                    state, packed = serve_fn(state, vals, counts)
-                    self._mark_ticks()
-                    ctrs, per_slot = self._net.read_packed(packed)
-                    busy = True
-                else:
-                    # counters only; the ring is read only if outputs appeared
-                    state, c = idle_fn(state)
-                    self._mark_ticks()
-                    p = c.cpu().numpy()
-                    ctrs = p.T
-                    if (p[:, 3] > p[:, 2]).any():
-                        state, per_slot = self._net.drain_batched(state, rd=p[:, 2], wr=p[:, 3])
-                    else:
-                        per_slot = []
-                self._state = state
+                self._state, ctrs, per_slot, busy = iteration(self._state, ctrs)
             for slot, outs in per_slot:
                 busy = True
                 if not flushing:  # a flush discards orphan outputs
@@ -1144,7 +1291,7 @@ class MasterNode:
                 self._work_event.wait(0.05)
 
 
-def _shapes_of(net, batch: int) -> NetworkState:
+def _shapes_of(net, batch: int | None) -> NetworkState:
     """A whole-batch state of `net`'s shapes, allocated nowhere (meta)."""
     return init_state(net.num_lanes, net.num_stacks, net.stack_cap, net.in_cap,
                       net.out_cap, batch=batch, device="meta")
@@ -1166,7 +1313,8 @@ _NAME_RE = re.compile(r"^[A-Za-z0-9._-]{1,128}$")
 def make_http_server(master: MasterNode, port: int = 8000,
                      checkpoint_dir: str | None = None) -> ThreadingHTTPServer:
     """The reference's client routes (master.go:90-224) plus /compute_batch,
-    /compute_raw, /checkpoint, /restore and GET /status, with the JAX
+    /compute_raw, /checkpoint, /restore, GET /status and GET
+    /debug/isa_trace (with /trace, its deprecated alias), with the JAX
     server's bodies and status codes.  /checkpoint and /restore answer 403
     unless `checkpoint_dir` is set; clients name a checkpoint, never a
     path."""
@@ -1190,6 +1338,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
+            for k, v in self._extra_headers:  # queued by the route
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
@@ -1202,16 +1352,44 @@ def make_http_server(master: MasterNode, port: int = 8000,
             return {k: v[0] for k, v in parse_qs(raw, keep_blank_values=True).items()}
 
         def do_GET(self):
+            self._extra_headers = []  # per request: keep-alive reuses the handler
             try:
-                if urlparse(self.path).path == "/status":
+                parsed = urlparse(self.path)
+                if parsed.path == "/status":
                     self._json(master.status())
+                    return
+                if parsed.path in ("/trace", "/debug/isa_trace"):
+                    self._isa_trace(parsed)
                     return
                 self._text(405, "method GET not allowed")
             except Exception as e:  # a handler crash must not kill the server
                 log.exception("handler error")
                 self._text(500, f"internal error: {e}")
 
+        def _isa_trace(self, parsed) -> None:
+            """The instruction history (core/trace.py).  /trace is the old
+            name: the same body plus a Deprecation header."""
+            if parsed.path == "/trace":
+                self._extra_headers += [
+                    ("Deprecation", "true"),
+                    ("Link", '</debug/isa_trace>; rel="successor-version"')]
+            q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+            try:
+                last = int(q["last"]) if "last" in q else None
+            except ValueError:
+                self._text(400, "cannot parse last")
+                return
+            try:
+                entries = master.trace(last=last)
+            except RuntimeError as e:
+                # 409 (state conflict): tracing is a server configuration
+                self._text(409, f"{e} (start the server with MISAKA_TRACE_CAP=N "
+                                f"to enable tracing)")
+                return
+            self._json({"entries": entries})
+
         def do_POST(self):
+            self._extra_headers = []
             try:
                 self._post(self.path.split("?", 1)[0])
             except Exception as e:  # a handler crash must not kill the server

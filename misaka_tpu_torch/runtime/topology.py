@@ -101,9 +101,11 @@ class Topology:
             out_cap=self.out_cap,
         )
 
-    def compile(self, batch: int, device: str | torch.device | None = None) -> CompiledNetwork:
-        """Lower every node's program and bind the engine for `batch`
-        instances on `device` (None: the card, which must exist)."""
+    def compile(self, batch: int | None = None,
+                device: str | torch.device | None = None) -> CompiledNetwork:
+        """Lower every node's program and bind the engine for one instance
+        (batch=None) or `batch` instances in lockstep, on `device` (None:
+        the card, which must exist)."""
         lane_ids = self.lane_ids()
         if not lane_ids:
             raise TopologyError("network has no program nodes")

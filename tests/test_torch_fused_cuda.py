@@ -15,6 +15,11 @@ The elided variant (elide_dead_hi) is held to its contract from states with
 random hi planes: every field exact, except acc_hi/bak_hi of hi-dead lanes,
 which must keep their entry values; on the baselines, overflow64 and
 running_total, and random networks that mix hi-live and hi-dead lanes.
+
+The unbatched lane: B=1 `serve_chunk` through the kernel against the plain
+loop (chip_smoke.compare_unbatched), also under MISAKA_FUSED_ELIDE_HI=1,
+where it must stay the full kernel; the traced loop on the card against
+the CPU; an unbatched master's launches, one per iteration.
 """
 
 import os
@@ -293,3 +298,77 @@ def test_occupancy_is_at_least_one_block_per_sm(card, hi_mode):
         big, _ = fused.occupancy(n_lanes, 8192 // n_lanes, hi_mode)
         assert 1 <= big <= small and threads >= 32, (n_lanes, hi_mode, small, big, threads)
         assert big == 1, (n_lanes, hi_mode, big)  # 128 KB of records: one block per SM
+
+
+# --- unbatched serving: the full kernel on the batch-of-one view ---------------------
+
+
+@pytest.mark.parametrize("name", ["add2", "reverse_any/stack4", "overflow64", "mesh8",
+                                  "pipeline32", "random/300", "random/305"])
+def test_unbatched_kernel_matches_plain_input_untouched(card, name):
+    """B=1 serve_chunk through the kernel against serve_chunk(engine="scan")
+    from the same unbatched states, chunk after chunk with a feed: the
+    packed snapshot and every field exact, the input untouched, one launch
+    of the full kernel per chunk (chip_smoke.compare_unbatched)."""
+    net = chip_smoke.unbatched_networks()[name].compile(device=card)
+    rng = np.random.default_rng(4)
+    state = net.init_state()
+    for steps in (64, 300):
+        vals = rng.integers(-(2**31), 2**31, size=net.in_cap, dtype=np.int64).astype(np.int32)
+        free = net.in_cap - int(state.in_wr - state.in_rd)
+        row, state = chip_smoke.compare_unbatched(name, net, state, vals, min(free, 5), steps)
+        check(row)
+    assert tuple(state.pc.shape) == (net.num_lanes,) and state.tick.dim() == 0
+
+
+def test_unbatched_runs_the_full_kernel_under_elide_env(card, monkeypatch):
+    """The reference's unbatched path has no elided variant: under
+    MISAKA_FUSED_ELIDE_HI=1 add2's hi planes (random at entry) still follow
+    the plain version, and the launch counts as the full kernel."""
+    monkeypatch.setenv("MISAKA_FUSED_ELIDE_HI", "1")
+    net = networks.add2(in_cap=16, out_cap=16, stack_cap=8).compile(device=card)
+    rng = np.random.default_rng(6)
+    state = chip_smoke.with_random_hi(net.init_state(), rng)
+    vals = rng.integers(-(2**31), 2**31, size=16, dtype=np.int64).astype(np.int32)
+    row, out = chip_smoke.compare_unbatched("add2/elide_env", net, state, vals, 6, 128)
+    check(row)
+    assert not torch.equal(out.acc_hi, state.acc_hi)  # IN rewrote the hi words
+
+
+@pytest.mark.parametrize("batch", [None, 64])
+def test_traced_loop_on_card_matches_cpu(card, batch):
+    row = chip_smoke.compare_traced("add2", networks.add2(in_cap=16, out_cap=16, stack_cap=8),
+                                    batch, 200, np.random.default_rng(8))
+    check(row)
+
+
+def test_unbatched_master_serves_through_the_kernel(card):
+    from misaka_tpu_torch.runtime.master import MasterNode
+
+    m = MasterNode(networks.add2(in_cap=16, out_cap=16, stack_cap=8), chunk_steps=64,
+                   device=card)
+    m.run()
+    try:
+        assert m.compute(5, timeout=60) == 7
+        m.pause()
+        s0, n0 = m.status(), dict(fused.launch_counts)
+        m.run()
+        vals = np.arange(-200, 200, dtype=np.int32)
+        assert np.array_equal(m.compute_coalesced(vals, timeout=120, return_array=True), vals + 2)
+        m.pause()
+        s1 = m.status()
+        assert s1["engine"] == "fused" and "batch" not in s1
+        assert fused.launch_counts[fused.KERNEL] - n0[fused.KERNEL] == \
+            (s1["tick"] - s0["tick"]) // 64 > 0
+        assert fused.launch_counts[fused.KERNEL_ELIDE] == n0[fused.KERNEL_ELIDE]
+    finally:
+        m.close()
+
+
+def test_unbatched_master_refuses_networks_beyond_the_kernel(card):
+    from misaka_tpu_torch.runtime.master import MasterNode
+
+    wide = networks.pipeline(33, in_cap=8, out_cap=8, stack_cap=8)
+    with pytest.raises(ValueError, match="MAX_LANES=32"):
+        MasterNode(wide, device=card)
+    MasterNode(wide, device=card, engine="scan").close()  # the plain loop takes any width

@@ -41,7 +41,9 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
     assert report["bad"] == []
     for m in ("misaka_tpu_torch.core.fused", "misaka_tpu_torch.runtime.app",
               "misaka_tpu_torch.csrc.build", "misaka_tpu_torch.utils.wire",
-              "misaka_tpu_torch.parallel.mesh"):
+              "misaka_tpu_torch.parallel.mesh", "misaka_tpu_torch.core.trace",
+              "misaka_tpu_torch.tis.disasm", "misaka_tpu_torch.debug",
+              "misaka_tpu_torch.__main__"):
         assert m in report["modules"]
 
 

@@ -290,15 +290,23 @@ ADD2_ENV = {
 @pytest.mark.parametrize(
     "env,match",
     [
-        ({}, "MISAKA_BATCH"),
-        ({"MISAKA_BATCH": "0"}, "MISAKA_BATCH"),
+        ({}, None),
+        ({"MISAKA_BATCH": "0"}, None),
         ({"MISAKA_BATCH": "2", "NODE_TYPE": "stack"}, "not a valid node type"),
     ],
     ids=["no_batch", "zero_batch", "node_type"],
 )
 def test_app_env_errors(env, match):
+    """MISAKA_BATCH unset or 0 is one instance, as the JAX app reads it
+    (misaka_tpu/runtime/app.py:838): no error, no `batch` in /status."""
+    env = {**ADD2_ENV, **env, "MISAKA_DEVICE": "cpu"}
+    if match is None:
+        m = app.build_master_from_env(env)
+        assert m._batch is None and "batch" not in m.status()
+        m.close()
+        return
     with pytest.raises(SystemExit, match=match):
-        app.build_master_from_env({**ADD2_ENV, **env, "MISAKA_DEVICE": "cpu"})
+        app.build_master_from_env(env)
 
 
 def test_app_env_builds_the_master():

@@ -207,7 +207,9 @@ def test_mesh_checkpoint_roundtrip(tmp_path):
 
 def test_mesh_requires_divisibility_and_refuses_model_parallel():
     with pytest.raises(ValueError, match="not divisible by data_parallel=8"):
-        MasterNode(networks.add2(), device="cpu", data_parallel=8)  # batch 1
+        MasterNode(networks.add2(), batch=1, device="cpu", data_parallel=8)
+    with pytest.raises(ValueError, match="mesh serving requires batch=N"):
+        MasterNode(networks.add2(), device="cpu", data_parallel=8)  # unbatched
     with pytest.raises(ValueError, match="batch 3 not divisible by data_parallel=2"):
         MasterNode(networks.add2(), batch=3, device="cpu", data_parallel=2)
     with pytest.raises(NotImplementedError, match="model_parallel=2.*A.6"):
