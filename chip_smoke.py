@@ -37,6 +37,16 @@ its stack; two traced servers (unbatched, and MISAKA_BATCH=4096 with
 MISAKA_TRACE_INSTANCE=7) answer /debug/isa_trace, and the traced loop on
 the card equals the CPU's.
 
+The observability hooks are read on the card: add2 at B=262144 under 32 x
+40 small requests through the /metrics delta (device-loop iterations,
+which must equal the kernel's launches, chunk seconds, serve queue delay,
+HTTP latency) and /debug/perfetto (time per tier), a /profile window that
+must hold the kernel's CUDA events and the device loop's CPU ops and
+splits an iteration into kernel, copy and host time, the same load with
+MISAKA_TRACE_REQUESTS=0 (the tracing overhead); and the README env's B=1
+serve call split into feed upload, checks and clones, kernel and packed
+read, with the Server-Timing phases of quiet /compute.
+
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
 the B=1 chunk (kernel, plain loop, traced loop).
@@ -51,6 +61,7 @@ and misaka_tpu_torch only.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -1286,6 +1297,314 @@ def phase_two_shards(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_values=100_000,
 # --- timings at the served shapes -------------------------------------------------
 
 
+# --- the observability hooks on the card -------------------------------------------
+
+
+def http_full(port, path, data=None, headers=None, timeout=300):
+    """(status, headers, body) of one request."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers=headers or {})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def scrape(port):
+    from misaka_tpu_torch.utils import metrics
+
+    return metrics.parse_text(http(port, "/metrics", timeout=60)[1].decode())
+
+
+def histogram_delta(before, after, name, **labels):
+    """(uppers, per-bucket counts, sum, count) of one histogram's movement
+    between two scrapes."""
+    import math
+
+    from misaka_tpu_torch.utils import metrics
+
+    cum = []
+    for series, v in after.items():
+        n, lbl = metrics.parse_series(series)
+        if n != name + "_bucket" or any(lbl.get(k) != v2 for k, v2 in labels.items()):
+            continue
+        le = math.inf if lbl["le"] == "+Inf" else float(lbl["le"])
+        cum.append((le, v - before.get(series, 0.0)))
+    cum.sort()
+    counts = [int(round(c - (cum[i - 1][1] if i else 0.0))) for i, (_, c) in enumerate(cum)]
+    key = metrics.parse_series
+    total = sum(v - before.get(k, 0.0) for k, v in after.items()
+                if key(k)[0] == name + "_sum" and all(key(k)[1].get(a) == b
+                                                      for a, b in labels.items()))
+    return tuple(u for u, _ in cum[:-1]), counts, total, sum(counts)
+
+
+def histogram_summary(before, after, name, **labels):
+    """p50, p90 (quantile_from_buckets) and mean of a histogram's movement,
+    in ms."""
+    from misaka_tpu_torch.utils import metrics
+
+    uppers, counts, total, n = histogram_delta(before, after, name, **labels)
+    if not n:
+        return {"count": 0}
+    return {"count": n, "mean_ms": total / n * 1e3,
+            "p50_ms": metrics.quantile_from_buckets(uppers, counts, 0.5) * 1e3,
+            "p90_ms": metrics.quantile_from_buckets(uppers, counts, 0.9) * 1e3}
+
+
+def small_requests(port, n_clients, per_client, base=0):
+    """n_clients threads x per_client one-value /compute, every answer
+    checked; returns (requests, seconds)."""
+
+    def client(i):
+        for j in range(per_client):
+            v = base + i * 10_000 + j
+            c, b = post_form(port, "/compute", value=str(v))
+            if c != 200 or json.loads(b) != {"value": v + 2}:
+                raise RuntimeError(f"/compute {v} -> {c} {b!r}")
+
+    errors, secs = run_clients(n_clients, client)
+    expect(not errors, f"small-request clients: {errors[:4]}")
+    return n_clients * per_client, secs
+
+
+def perfetto_tiers(port):
+    """Total span time per tier (ms) in the flight recorder's window."""
+    doc = json.loads(http(port, "/debug/perfetto", timeout=60)[1])
+    names = {e["pid"]: e["args"]["name"].split(": ", 1)[-1] for e in doc["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    out: dict = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X":
+            t = names.get(e["pid"], str(e["pid"]))
+            out[t] = out.get(t, 0.0) + e.get("dur", 0.0) / 1e3
+    return out
+
+
+def _overlap(a0, a1, spans):
+    """Length of the union of `spans` ([(t0, t1)], sorted) clipped to [a0, a1]."""
+    total, cur0, cur1 = 0.0, None, None
+    for t0, t1 in spans:
+        t0, t1 = max(t0, a0), min(t1, a1)
+        if t1 <= t0:
+            continue
+        if cur1 is None or t0 > cur1:
+            if cur1 is not None:
+                total += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    if cur1 is not None:
+        total += cur1 - cur0
+    return total
+
+
+SERVE_PARTS = ("misaka.feed", "misaka.checks_clones", "misaka.kernel_launch", "misaka.pack",
+               "misaka.read")
+
+
+def profile_split(trace_path, kernel_symbol="fused_superstep_kernel"):
+    """Read one /profile capture (a torch.profiler Chrome trace): the device
+    loop's thread is the one that records `misaka.iteration`.  Per
+    iteration: kernel ms and copy ms (device events inside it), host ms
+    (iteration minus device busy); the host ops with the most self time on
+    the loop thread; and each serve-call part's host ms per iteration
+    (utils/profiling.py's marks)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    iters = sorted((e for e in events if e["name"] == "misaka.iteration"),
+                   key=lambda e: e["ts"])
+    expect(iters, "the profile holds no device-loop iteration (misaka.iteration)")
+    tids = collections.Counter(e["tid"] for e in iters)
+    loop_tid = tids.most_common(1)[0][0]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel" and kernel_symbol in e["name"])
+    other_kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                           if e.get("cat") == "kernel" and kernel_symbol not in e["name"])
+    copies = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("gpu_memcpy", "gpu_memset"))
+    expect(kernels, f"no CUDA kernel event named {kernel_symbol} in the profile")
+    loop = sorted((e for e in events if e.get("tid") == loop_tid), key=lambda e: (e["ts"], -e["dur"]))
+    loop_ops = {e["name"] for e in loop}
+    expect("misaka.kernel_launch" in loop_ops and any(n.startswith("aten::") for n in loop_ops),
+           f"the device loop's CPU ops are missing: {sorted(loop_ops)[:20]}")
+    rows = []
+    for it in iters:
+        if it["tid"] != loop_tid:
+            continue
+        a0, a1 = it["ts"], it["ts"] + it["dur"]
+        k = _overlap(a0, a1, kernels)
+        c = _overlap(a0, a1, copies) + _overlap(a0, a1, other_kernels)
+        busy = _overlap(a0, a1, sorted(kernels + copies + other_kernels))
+        rows.append((it["dur"] / 1e3, k / 1e3, c / 1e3, (it["dur"] - busy) / 1e3))
+    # self time per op name on the loop thread (nesting by containment)
+    self_us: dict = collections.defaultdict(float)
+    stack: list = []
+    for e in loop:
+        while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+            stack.pop()
+        if stack:
+            self_us[stack[-1]["name"]] -= e["dur"]
+        self_us[e["name"]] += e["dur"]
+        stack.append(e)
+    host_ops = sorted(((n, us) for n, us in self_us.items()
+                       if n != "misaka.iteration" and not n.startswith("cuda")),
+                      key=lambda kv: -kv[1])
+    n_it = len(rows)
+    arr = np.asarray(rows)
+    parts = {p: sum(e["dur"] for e in loop if e["name"] == p) / 1e3 / n_it
+             for p in SERVE_PARTS}
+    return {
+        "iterations": n_it,
+        "iteration_ms": float(arr[:, 0].mean()), "kernel_ms": float(arr[:, 1].mean()),
+        "copy_ms": float(arr[:, 2].mean()), "host_ms": float(arr[:, 3].mean()),
+        "iteration_ms_p50": float(np.median(arr[:, 0])),
+        "host_ms_p50": float(np.median(arr[:, 3])),
+        "largest_host_ops_ms_per_iteration": [[n, us / 1e3 / n_it] for n, us in host_ops[:3]],
+        "parts_ms_per_iteration": parts,
+        "kernel_events": len(kernels),
+    }
+
+
+def take_profile(port, name, load):
+    """/profile/start, run load(), /profile/stop: returns the trace path."""
+    expect(post_form(port, "/profile/start", name=name) == (200, b"Success"),
+           "/profile/start")
+    load()
+    code, body = post_form(port, "/profile/stop")
+    expect(code == 200, f"/profile/stop -> {code} {body!r}")
+    return os.path.join(body.decode(), "trace.json")
+
+
+def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client=40,
+                        profile_per_client=10, device=None, card=None):
+    """The batched main path (add2, the full kernel) under the new hooks:
+    32 x 40 one-value /compute, every answer checked, read back through
+    the /metrics delta (iterations, chunk seconds, serve queue delay, HTTP
+    latency of /compute) and /debug/perfetto (time per tier); the
+    iterations counter must equal the kernel launches between two paused
+    readings.  A /profile window over 32 x 10 more requests must hold the
+    kernel's CUDA events and the device loop's CPU ops, and gives the
+    by-phase split of an iteration; a second window over one client's 20
+    requests gives the same split without concurrent handlers.  The same load again with
+    MISAKA_TRACE_REQUESTS=0 gives the tracing overhead.  device="cpu"
+    rehearses it (no kernel: the profile checks are skipped)."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    prof_dir = tempfile.mkdtemp(prefix="prof-", dir=os.path.join(ROOT, "build"))
+    row = {"phase": "observability", "card": card, "batch": batch, "chunk_steps": chunk,
+           **MAIN_CAPS}
+    try:
+        with served_app("obs", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                        device=device, MISAKA_PROFILE_DIR=prof_dir,
+                        MISAKA_TRACE_REQUESTS="1") as (port, _):
+            expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
+            s0, m0 = paused_window(port), scrape(port)
+            expect(post_form(port, "/run")[0] == 200, "/run")
+            n, secs = small_requests(port, n_clients, per_client)
+            s1, m1 = paused_window(port), scrape(port)
+            expect(post_form(port, "/run")[0] == 200, "/run")
+            serve = m1['misaka_device_loop_iterations_total{kind="serve"}'] - m0.get(
+                'misaka_device_loop_iterations_total{kind="serve"}', 0.0)
+            idle = m1['misaka_device_loop_iterations_total{kind="idle"}'] - m0.get(
+                'misaka_device_loop_iterations_total{kind="idle"}', 0.0)
+            launched = (sum(s1["kernel_launches"].values())
+                        - sum(s0["kernel_launches"].values()))
+            expect(device == "cpu" or serve + idle == launched > 0,
+                   f"iterations {serve} + {idle} != {launched} kernel launches")
+            chunk_h = histogram_summary(m0, m1, "misaka_device_loop_chunk_seconds")
+            expect(chunk_h["count"] == serve + idle, f"chunk histogram {chunk_h}")
+            tiers = perfetto_tiers(port)
+            st, hd, _ = http_full(port, "/compute", b"value=7")
+            timing = hd.get("Server-Timing", "")
+            expect(st == 200 and "pass" in timing and hd.get("X-Misaka-Trace"),
+                   f"trace headers {hd}")
+            row.update({
+                "small_requests": n, "small_s": secs, "small_requests_per_s": n / secs,
+                "iterations_serve": serve, "iterations_idle": idle,
+                "kernel_launches": launched,
+                "chunk_seconds": chunk_h,
+                "serve_queue_delay": histogram_summary(
+                    m0, m1, "misaka_serve_queue_delay_seconds"),
+                "http_compute_latency": histogram_summary(
+                    m0, m1, "misaka_http_request_duration_seconds", route="/compute"),
+                "serve_passes": m1["misaka_serve_passes_total"] - m0["misaka_serve_passes_total"],
+                "perfetto_tier_ms": tiers,
+            })
+            if device != "cpu":
+                trace = take_profile(port, "obs", lambda: small_requests(
+                    port, n_clients, profile_per_client, base=5_000_000))
+                row["profile"] = profile_split(trace)
+                # the same iteration with one client: no handler threads
+                # contend with the loop for the interpreter
+                trace = take_profile(port, "obs_quiet", lambda: small_requests(
+                    port, 1, 20, base=6_000_000))
+                row["profile_one_client"] = profile_split(trace)
+        with served_app("obs_untraced", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                        device=device, MISAKA_TRACE_REQUESTS="0") as (port, _):
+            expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
+            n2, secs2 = small_requests(port, n_clients, per_client)
+            _, hd, _ = http_full(port, "/compute", b"value=7")
+            expect("X-Misaka-Trace" not in hd, "tracing off still answers a trace ID")
+        row.update({"untraced_small_requests_per_s": n2 / secs2,
+                    "tracing_rate_ratio": (n / secs) / (n2 / secs2)})
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    emit(row)
+    return row
+
+
+def phase_unbatched_observability(n_quiet=99, profile_requests=40, device=None, card=None):
+    """The README env (no MISAKA_BATCH, chunk 128, caps 1024): 99 quiet
+    /compute, every answer checked, with the medians of their
+    Server-Timing phases; then a /profile window over quiet /compute that
+    splits the B=1 serve call into the feed upload, fused_superstep's
+    checks and clones, the kernel and the packed read."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    prof_dir = tempfile.mkdtemp(prefix="prof-u-", dir=os.path.join(ROOT, "build"))
+    from misaka_tpu_torch.utils import tracespan
+
+    try:
+        with served_app("obs_unbatched", ADD2_NODES, readme_programs(), None, None, None,
+                        device=device, MISAKA_PROFILE_DIR=prof_dir) as (port, _):
+            expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
+            phases: dict = collections.defaultdict(list)
+            lat = []
+            for v in list(range(-49, 50))[:n_quiet]:
+                t = time.perf_counter()
+                code, hd, body = http_full(port, "/compute", f"value={v}".encode())
+                lat.append(time.perf_counter() - t)
+                expect(code == 200 and json.loads(body) == {"value": v + 2},
+                       f"/compute {v} -> {code} {body!r}")
+                for k, ms in tracespan.parse_server_timing(hd.get("Server-Timing", "")).items():
+                    phases[k].append(ms)
+            row = {"phase": "unbatched_observability", "card": card, "env": "README.md:178-185",
+                   "chunk_steps": 128, "caps": 1024, "requests": len(lat),
+                   "compute_latency_p50_ms": float(np.median(lat)) * 1e3,
+                   "server_timing_p50_ms": {k: float(np.median(v)) for k, v in phases.items()}}
+            if device != "cpu":
+
+                def quiet():
+                    for v in range(profile_requests):
+                        code, body = post_form(port, "/compute", value=str(v))
+                        expect(json.loads(body) == {"value": v + 2}, f"/compute {v}")
+
+                split = profile_split(take_profile(port, "obs_unbatched", quiet))
+                parts = split["parts_ms_per_iteration"]
+                row["profile"] = split
+                row["serve_call_split_ms"] = {
+                    "feed_upload": parts["misaka.feed"],
+                    "checks_and_clones": parts["misaka.checks_clones"],
+                    "kernel_launch_host": parts["misaka.kernel_launch"],
+                    "kernel_device": split["kernel_ms"],
+                    "pack": parts["misaka.pack"],
+                    "packed_read": parts["misaka.read"],
+                }
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    emit(row)
+    return row
+
+
 def cuda_time_ms(fn, reps):
     """Mean device time per call of `fn` after one warm-up call."""
     import torch
@@ -1583,6 +1902,8 @@ def main() -> int:
     two_row = phase_two_shards()
     unbatched_row = phase_unbatched_path()
     phase_traced()
+    obs_row = phase_observability(card=smi)
+    obs_unbatched_row = phase_unbatched_observability(card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -1605,8 +1926,12 @@ def main() -> int:
             "library_ms": None, "exact": True,
             "big_capacity": {"caps": 1024, "ms": big["ms"], "plain_ms": big["plain_ms"],
                              "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
+            # launches between two paused readings of the observability phase
+            "observability_window_launches": obs_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
+                          "observability_profile_iterations":
+                          obs_unbatched_row["profile"]["iterations"],
                           "ms": one["ms"], "plain_ms": one["plain_ms"],
                           "max_abs_err": max(max_err_unbatched, one["max_abs_err"]),
                           "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],

@@ -29,6 +29,7 @@ from misaka_tpu_torch.core import fused
 from misaka_tpu_torch.core import trace as trace_mod
 from misaka_tpu_torch.core.state import NetworkState, init_state, rebase_rings
 from misaka_tpu_torch.device import resolve_device
+from misaka_tpu_torch.utils import profiling
 
 _SINGLE_ONLY = ("feed/drain/compute_stream drive a single network instance; "
                 "for batch mode write the I/O rings directly (see bench.py)")
@@ -185,7 +186,11 @@ class CompiledNetwork:
             raise ValueError("make_batched_serve requires a batched network")
 
         def serve(state, values, counts):
-            return pack(runner(self.feed_batched(state, values, counts)))
+            with profiling.mark("misaka.feed"):
+                fed = self.feed_batched(state, values, counts)
+            out = runner(fed)
+            with profiling.mark("misaka.pack"):
+                return pack(out)
 
         def idle(state):
             state = runner(state)
@@ -223,9 +228,12 @@ class CompiledNetwork:
                 return fused.plain_run(code, lens, state, num_steps)
 
         def serve(state, values, count):
-            one = advance(self._feed_one(as_batch(state), values, count))
-            packed = torch.cat([counters_of(one)[0], one.out_buf[0]])
-            return first(one._replace(out_rd=one.out_wr.clone())), packed
+            with profiling.mark("misaka.feed"):
+                fed = self._feed_one(as_batch(state), values, count)
+            one = advance(fed)
+            with profiling.mark("misaka.pack"):
+                packed = torch.cat([counters_of(one)[0], one.out_buf[0]])
+                return first(one._replace(out_rd=one.out_wr.clone())), packed
 
         return serve
 

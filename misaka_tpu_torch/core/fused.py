@@ -41,6 +41,7 @@ import torch
 from misaka_tpu_torch.core.state import BOOL_FIELDS, NetworkState, rebase_rings
 from misaka_tpu_torch.core.step import step
 from misaka_tpu_torch.tis import isa
+from misaka_tpu_torch.utils import profiling
 
 KERNEL = "fused_superstep"
 KERNEL_ELIDE = "fused_superstep_elide_hi"  # the same kernel, elided variant
@@ -231,6 +232,27 @@ def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
         return plain_run(code, prog_len, state, num_steps)
     if dev.type != "cuda":
         raise ValueError(f"fused_superstep runs on cuda or cpu tensors, not {dev}")
+    # the host work around the launch, as ranges of a capture that records
+    # this thread (utils/profiling.py::mark)
+    with profiling.mark("misaka.checks_clones"):
+        _check_args(code, prog_len, state, num_steps, hi_live, records)
+        n_lanes = code.shape[0]
+        mask = (1 << n_lanes) - 1 if hi_live is None else hi_live
+        lib = load_kernel()
+        out = {f: getattr(state, f).clone(memory_format=torch.contiguous_format)
+               for f in _WRITTEN}
+    with torch.cuda.device(dev), profiling.mark("misaka.kernel_launch"):
+        out = _launch(lib, records, prog_len, state, out, num_steps, mask,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts[count_as or variant(hi_live, n_lanes)] += 1
+    return out
+
+
+def _check_args(code, prog_len, state, num_steps, hi_live, records) -> None:
+    """Raise ValueError unless the tables, records and every state field
+    are what the kernel reads: contiguous int32 (bool) tensors of the
+    network's shapes on the state's device, within the kernel's bounds."""
+    dev = state.pc.device
     n_lanes, max_len, nfields = code.shape
     batch, n_stacks, stack_cap = state.stack_mem.shape
     in_cap = state.in_buf.shape[-1]
@@ -270,24 +292,15 @@ def fused_superstep(code: torch.Tensor, prog_len: torch.Tensor,
         raise ValueError(f"hi_live mask {hi_live:#x} names lanes beyond the "
                          f"network's {n_lanes}")
 
-    mask = (1 << n_lanes) - 1 if hi_live is None else hi_live
-    lib = load_kernel()
-    with torch.cuda.device(dev):
-        out = _launch(lib, records, prog_len, state, num_steps, mask,
-                      torch.cuda.current_stream(dev).cuda_stream)
-    launch_counts[count_as or variant(hi_live, n_lanes)] += 1
-    return out
-
 
 def _launch(lib, records: torch.Tensor, prog_len: torch.Tensor, state: NetworkState,
-            num_steps: int, hi_live: int, stream) -> NetworkState:
-    """One call of the C entry on a checked state: an owned contiguous clone
-    of every field the kernel writes, `in_buf` read where it lies (`hi_live`:
-    the kernel's lane mask).  The ring rebase happens in the kernel."""
+            out: dict, num_steps: int, hi_live: int, stream) -> NetworkState:
+    """One call of the C entry on a checked state: `out` holds an owned
+    contiguous clone of every field the kernel writes, `in_buf` is read
+    where it lies (`hi_live`: the kernel's lane mask).  The ring rebase
+    happens in the kernel."""
     max_len, n_lanes, _ = records.shape
     batch, n_stacks, stack_cap = state.stack_mem.shape
-    out = {f: getattr(state, f).clone(memory_format=torch.contiguous_format)
-           for f in _WRITTEN}
     in_buf = state.in_buf.contiguous()  # the caller's tensor when it already is
     args = [in_buf if f == "in_buf" else out[f] for f in NetworkState._fields]
     err = lib.misaka_fused_superstep(

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_loaded_keys: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -77,6 +78,15 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            _loaded_keys[name] = path.parent.name.rsplit("-", 1)[1]  # the content key
         return lib
+
+
+def loaded_keys() -> dict[str, str]:
+    """{kernel name: build key} of every library this process has loaded
+    ({} before the first build)."""
+    with _lock:
+        return dict(_loaded_keys)

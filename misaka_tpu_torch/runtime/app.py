@@ -44,18 +44,74 @@ Environment:
                      CPU.  /status then reports "mesh"
   MISAKA_MODEL_PARALLEL  > 1 (lanes sharded across devices) is not ported:
                      the app refuses to start
+  MISAKA_TOPOLOGY    a declarative topology JSON file (Topology.from_json),
+                     in place of NODE_INFO/MISAKA_PROGRAMS; a compose .yml
+                     refuses to start (ROADMAP A.10)
+  MISAKA_TLS_CERT / MISAKA_TLS_KEY  serve HTTPS (both or neither)
+  MISAKA_AUTOCKPT    N seconds: snapshot the live state into
+                     MISAKA_CHECKPOINT_DIR (required) as auto-<seq>.npz and
+                     restore the newest valid one at boot;
+                     MISAKA_AUTOCKPT_KEEP snapshots kept (default 4)
+  MISAKA_PROFILE_DIR enables POST /profile/start|stop (torch.profiler
+                     Chrome traces under <dir>/<name>/)
+  MISAKA_LOG_JSON    "1": one JSON object per log line, with the trace ID
+  MISAKA_SLOW_REQ_MS log a warning for each request slower than this
+  MISAKA_FAST_HTTP   "0" keeps the stdlib request parser
+  MISAKA_TRACE_REQUESTS / _SAMPLE / _RING / _SLOWEST  the request tracer
+                     (utils/tracespan.py): kill switch, sampling, recorder
+  MISAKA_PIDFILE     pidfile path ("0"/"off": none; default under the
+                     temp dir), removed at exit
+  MISAKA_TTL_S / MISAKA_ORPHAN_OK  lifecycle guards (runtime/lifecycle.py)
+
+Refused at boot, naming the ROADMAP item that ports them (the reference
+serves them; the port would otherwise ignore them without a word):
+MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), an API keyfile
+(MISAKA_API_KEYS or <MISAKA_PROGRAMS_DIR>/api_keys.json; A.2),
+MISAKA_PROGRAMS_DIR (A.3), MISAKA_HTTP_WORKERS > 1 (A.1), MISAKA_FLEET
+(A.6) and MISAKA_COORDINATOR (A.7).  MISAKA_FAULTS and MISAKA_SLO log one
+warning each and change nothing (A.4).
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import logging
 import os
+import sys
+import tempfile
 
-from misaka_tpu_torch.runtime.master import MasterNode, make_http_server
+if __name__ == "__main__":
+    # provisional handlers for the boot window, before the torch imports
+    # (exec path only: a library import must not touch the signal table)
+    from misaka_tpu_torch.runtime.lifecycle import arm_boot_handlers
+
+    arm_boot_handlers()
+
+from misaka_tpu_torch import PPID_AT_IMPORT as _PPID_AT_START
+from misaka_tpu_torch.runtime import edge
+from misaka_tpu_torch.runtime.lifecycle import install_guards
+from misaka_tpu_torch.runtime.master import AutoCheckpointer, MasterNode, make_http_server
 from misaka_tpu_torch.runtime.topology import Topology
 
 log = logging.getLogger("misaka_tpu_torch.app")
+
+
+class BootRefusal(SystemExit):
+    """What the env asks for is not ported: exit status 2, the reason on
+    stderr (and as the exception's text)."""
+
+    def __init__(self, msg: str):
+        super().__init__(2)
+        self.msg = msg
+
+    def __str__(self) -> str:
+        return self.msg
+
+
+def _refuse(msg: str):
+    print(f"misaka_tpu_torch.app: {msg}", file=sys.stderr, flush=True)
+    raise BootRefusal(msg)
 
 
 def build_topology_from_env(environ=os.environ) -> Topology:
@@ -68,17 +124,57 @@ def build_topology_from_env(environ=os.environ) -> Topology:
         v = environ.get(env_name)
         if v:
             caps[field] = int(v)
+    path = environ.get("MISAKA_TOPOLOGY")
+    if path:
+        if path.endswith((".yml", ".yaml")):
+            _refuse(f"MISAKA_TOPOLOGY={path}: compose .yml topologies are not ported "
+                    "yet (ROADMAP A.10); give a topology .json")
+        with open(path) as f:
+            return Topology.from_json(f.read(), **caps)
     node_info = environ.get("NODE_INFO")
     if not node_info:
-        raise SystemExit("set NODE_INFO (reference JSON shape)")
+        raise SystemExit("set NODE_INFO (reference JSON shape) or MISAKA_TOPOLOGY (file path)")
     programs = json.loads(environ.get("MISAKA_PROGRAMS", "{}"))
     return Topology.from_node_info_json(node_info, programs, **caps)
 
 
-def build_master_from_env(environ=os.environ) -> MasterNode:
+def check_env(environ=os.environ) -> None:
+    """Refuse at boot what the reference serves and the port does not yet
+    (each names its ROADMAP item); warn once for what changes nothing."""
     node_type = environ.get("NODE_TYPE", "master")
+    if node_type in ("program", "stack"):
+        _refuse(f"'{node_type}' not a valid node type for this server: the "
+                "per-process node servers (NODE_TYPE=program|stack) are not "
+                "ported yet (ROADMAP A.5)")
     if node_type != "master":
         raise SystemExit(f"'{node_type}' not a valid node type for this server")
+    if environ.get("MISAKA_MODE") == "distributed":
+        _refuse("MISAKA_MODE=distributed: the distributed master (programs in "
+                "per-process peers) is not ported yet (ROADMAP A.5)")
+    keyfile = edge.keyfile_path(environ)
+    if keyfile:
+        _refuse(f"API keys ({keyfile}): the edge's authentication is not ported yet "
+                "(ROADMAP A.2); an open server would be worse than none")
+    if environ.get("MISAKA_PROGRAMS_DIR"):
+        _refuse("MISAKA_PROGRAMS_DIR: the program registry is not ported yet "
+                "(ROADMAP A.3)")
+    if int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0) > 1:
+        _refuse("MISAKA_HTTP_WORKERS > 1: the frontend worker tier is not ported "
+                "yet (ROADMAP A.1)")
+    if int(environ.get("MISAKA_FLEET", "0") or 0) >= 1:
+        _refuse("MISAKA_FLEET: the replicated engine fleet is not ported yet "
+                "(ROADMAP A.6)")
+    if environ.get("MISAKA_COORDINATOR"):
+        _refuse("MISAKA_COORDINATOR: multi-host serving is not ported yet "
+                "(ROADMAP A.7)")
+    for name in ("MISAKA_FAULTS", "MISAKA_SLO"):
+        if environ.get(name):
+            log.warning("%s is set but ignored: its plane is not ported yet "
+                        "(ROADMAP A.4)", name)
+
+
+def build_master_from_env(environ=os.environ) -> MasterNode:
+    check_env(environ)
     return MasterNode(
         build_topology_from_env(environ),
         chunk_steps=int(environ.get("MISAKA_CHUNK_STEPS", "0") or 0) or 128,
@@ -94,19 +190,94 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
     )
 
 
+def arm_autockpt(master: MasterNode, environ=os.environ) -> AutoCheckpointer | None:
+    """MISAKA_AUTOCKPT: restore the newest valid auto snapshot, then keep
+    snapshotting on the interval (None when unset)."""
+    interval = float(environ.get("MISAKA_AUTOCKPT", "0") or 0)
+    if interval <= 0:
+        return None
+    checkpoint_dir = environ.get("MISAKA_CHECKPOINT_DIR")
+    if not checkpoint_dir:
+        raise SystemExit("MISAKA_AUTOCKPT requires MISAKA_CHECKPOINT_DIR (snapshots "
+                         "need a directory to rotate in)")
+    restored = AutoCheckpointer.restore_latest(master, checkpoint_dir)
+    if restored:
+        log.info("auto-restored checkpoint %s", restored)
+    else:
+        log.info("no valid auto checkpoint under %s; fresh state", checkpoint_dir)
+    return AutoCheckpointer(master, checkpoint_dir, interval,
+                            keep=int(environ.get("MISAKA_AUTOCKPT_KEEP", "4")))
+
+
+def _write_pidfile(environ=os.environ) -> str | None:
+    """This server's pidfile: MISAKA_PIDFILE ("0"/"off": none), by default
+    under the temp dir, never the working directory; removed at exit.  An
+    unwritable path logs and serves on."""
+    spec = environ.get("MISAKA_PIDFILE", "")
+    if spec in ("0", "off"):
+        return None
+    path = spec or os.path.join(tempfile.gettempdir(), f"misaka-torch-app-{os.getpid()}.pid")
+    try:
+        with open(path, "w") as f:
+            f.write(f"{os.getpid()}\n")
+    except OSError as e:
+        log.warning("pidfile %s unwritable (%s); serving without one", path, e)
+        return None
+
+    atexit.register(_remove, path)
+    return path
+
+
+def _remove(path: str) -> None:
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+
+
 def main() -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     environ = os.environ
+    if environ.get("MISAKA_LOG_JSON") == "1":
+        from misaka_tpu_torch.utils.jsonlog import install
+
+        install(level=logging.INFO)
+    else:
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     master = build_master_from_env(environ)
+    autockpt = httpd = pidfile = None
+
+    def stop() -> None:
+        # the device loop ends first (no launch after it), then the socket;
+        # a signal exits through os._exit, past atexit: drop the pidfile
+        # here, even when a signal that lands mid-/run makes the close raise
+        try:
+            if autockpt is not None:
+                autockpt.close()
+            master.close()
+            if httpd is not None:
+                httpd.server_close()
+        finally:
+            if pidfile:
+                _remove(pidfile)
+
+    install_guards(stop, environ, start_ppid=_PPID_AT_START)
+    autockpt = arm_autockpt(master, environ)
     port = int(environ.get("MISAKA_PORT", "8000"))
     httpd = make_http_server(master, port=port,
-                             checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None)
-    log.info("serving on :%d (engine=%s)", httpd.server_address[1], master.engine_name)
+                             checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None,
+                             profile_dir=environ.get("MISAKA_PROFILE_DIR") or None)
+    pidfile = _write_pidfile(environ)
+    if pidfile:
+        log.info("pidfile %s", pidfile)
+    log.info("serving on :%d (engine=%s%s)", httpd.server_address[1], master.engine_name,
+             ", tls" if getattr(httpd, "misaka_tls", False) else "")
     if environ.get("MISAKA_AUTORUN") == "1":
         master.run()
     try:
         httpd.serve_forever()
     finally:
+        if autockpt is not None:
+            autockpt.close()
         httpd.server_close()
         master.close()
 

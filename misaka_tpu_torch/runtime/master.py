@@ -27,10 +27,24 @@ Kept from the JAX master, with the same behaviour:
   records every tick of one instance and `trace()` decodes it.
 
 `make_http_server` keeps POST /run /pause /reset /load /compute
-/compute_batch /compute_raw /checkpoint /restore and GET /status,
-/debug/isa_trace and /trace (its deprecated alias) with the JAX server's
-bodies and status codes.  Left out: the metrics, usage, trace-span and
-fault-injection hooks (planes the port has not taken yet, ROADMAP A.0).
+/compute_batch /compute_raw /checkpoint /restore /profile/start
+/profile/stop and GET /status, /metrics, /healthz, /debug/requests,
+/debug/perfetto, /debug/isa_trace and /trace (its deprecated alias) with
+the JAX server's bodies and status codes, the request trace around every
+handler (`X-Misaka-Trace` in and out, `Server-Timing`), the fast request
+parser (MISAKA_FAST_HTTP) and TLS (MISAKA_TLS_CERT/KEY).
+
+Observability (the reference's, for what the port runs): the `M_*`
+series below under the reference's names, types and labels, served at GET
+/metrics (utils/metrics.py); the request spans `http.parse`,
+`serve.queue`, `serve.pass` and the `engine.chunk` tier event
+(utils/tracespan.py); profiles through torch.profiler, begun and ended on
+the device-loop thread (utils/profiling.py::LoopCapture).  Left out: the
+series and hooks of planes not ported (native pool, distributed, SLO,
+usage, capture, fleet, the edge's auth and quotas: ROADMAP A.2-A.8).
+
+`AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
+interval, rotates, and restores the newest valid snapshot at boot.
 
 Engines (`engine=`): "auto" runs every untraced chunk through the fused
 CUDA kernel on a card (the full kernel unbatched; batched, the elided
@@ -60,6 +74,7 @@ import logging
 import os
 import queue
 import re
+import ssl
 import threading
 import time
 import weakref
@@ -81,13 +96,163 @@ from misaka_tpu_torch.core.state import (
 from misaka_tpu_torch.core.trace import TraceRing, decode_trace
 from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
 from misaka_tpu_torch.runtime import checkpoint as ckpt
+from misaka_tpu_torch.runtime import edge as edge_mod
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
 from misaka_tpu_torch.tis.parser import TISParseError
-from misaka_tpu_torch.utils import wire
+from misaka_tpu_torch.utils import buildinfo, metrics, profiling, tracespan, wire
+from misaka_tpu_torch.utils.httpfast import fast_parse_request as _fast_parse_request
 from misaka_tpu_torch.utils.textcodec import dec_to_ints, ints_to_dec
 
 log = logging.getLogger("misaka_tpu_torch.master")
+
+# --- the metrics plane (utils/metrics.py; served at GET /metrics) ----------
+# Process-global series under the reference's names, types, help and labels
+# (misaka_tpu/runtime/master.py), for what the port runs.  Every MasterNode
+# and HTTP server in this process accumulates into the same registry; the
+# per-master live values (queue depths) are callback gauges holding
+# weakrefs: the last-constructed master wins, a dead one reads 0.
+M_TICKS = metrics.counter(
+    "misaka_device_loop_ticks_total", "Network ticks advanced by the device loop"
+)
+M_LOOP_ITERS = metrics.counter(
+    "misaka_device_loop_iterations_total",
+    "Device-loop iterations by kind (serve = fed or drained, idle = nothing moved)",
+    ("kind",),
+)
+M_CHUNK_SECONDS = metrics.histogram(
+    "misaka_device_loop_chunk_seconds",
+    "Wall time of one device-loop iteration (feed + chunk + drain)",
+)
+# children resolved once: no label lookup per iteration
+M_ITER_SERVE = M_LOOP_ITERS.labels(kind="serve")
+M_ITER_IDLE = M_LOOP_ITERS.labels(kind="idle")
+M_SLOT_OCCUPANCY = metrics.histogram(
+    "misaka_device_loop_fed_slots",
+    "Batch slots fed per serve iteration (batch-slot occupancy)",
+    buckets=metrics.pow2_buckets(1, 65536),
+)
+M_SUBMIT_DEPTH = metrics.gauge(
+    "misaka_submit_queue_depth",
+    "Request chunks waiting in the submission queue (live master)",
+)
+M_OUT_DEPTH = metrics.gauge(
+    "misaka_out_queue_depth",
+    "Output chunks waiting across per-slot output queues (live master)",
+)
+M_AUTOGROW = metrics.counter(
+    "misaka_stack_autogrow_total", "Successful stack-capacity doublings"
+)
+M_AUTOGROW_BLOCKED = metrics.counter(
+    "misaka_stack_autogrow_blocked_total",
+    "Stack wedges auto-grow could not repair (byte budget or engine limits)",
+)
+M_ENGINE_SWAPS = metrics.counter(
+    "misaka_engine_swap_total",
+    "Runner replacements by cause (load / restore / autogrow)",
+    ("reason",),
+)
+M_CKPT_SAVE_SECONDS = metrics.histogram(
+    "misaka_checkpoint_save_seconds", "save_checkpoint duration"
+)
+M_CKPT_RESTORE_SECONDS = metrics.histogram(
+    "misaka_checkpoint_restore_seconds", "load_checkpoint duration (recompile + swap)"
+)
+M_CKPT_AGE = metrics.gauge(
+    "misaka_checkpoint_age_seconds",
+    "Seconds since the live master's last successful checkpoint save "
+    "(-1 until one lands; alert when this exceeds the MISAKA_AUTOCKPT "
+    "interval by a safety factor)",
+)
+M_CKPT_REJECTED = metrics.counter(
+    "misaka_checkpoint_rejected_total",
+    "Checkpoints that failed durability verification (truncated, checksum "
+    "mismatch, CRC-corrupt) and were rejected before any state swap",
+)
+M_COMPUTE_REQS = metrics.counter(
+    "misaka_compute_requests_total", "compute/compute_many/compute_spread calls"
+)
+M_COMPUTE_VALUES = metrics.counter(
+    "misaka_compute_values_total", "Values submitted through the compute lanes"
+)
+M_COMPUTE_TIMEOUTS = metrics.counter(
+    "misaka_compute_timeouts_total", "Compute calls that raised ComputeTimeout"
+)
+M_SERVE_COALESCED_VALUES = metrics.histogram(
+    "misaka_serve_coalesced_values",
+    "Values fused into one serve-scheduler pass (cross-request batching)",
+    buckets=metrics.pow2_buckets(1, 1 << 20),
+)
+M_SERVE_COALESCED_REQS = metrics.histogram(
+    "misaka_serve_coalesced_requests",
+    "Requests fused into one serve-scheduler pass",
+    buckets=metrics.pow2_buckets(1, 4096),
+)
+M_SERVE_QUEUE_DELAY = metrics.histogram(
+    "misaka_serve_queue_delay_seconds",
+    "Time a request waited in the serve-scheduler queue before its first "
+    "dispatch (the coalescing latency tax — near zero when the engine is "
+    "idle, bounded by pass time under load)",
+)
+M_SERVE_WAITING = metrics.gauge(
+    "misaka_serve_waiting_requests",
+    "Requests queued in the serve scheduler, not yet dispatched (live master)",
+)
+M_SERVE_PASSES = metrics.counter(
+    "misaka_serve_passes_total", "Fused serve-scheduler passes dispatched"
+)
+M_SERVE_LANE_ENTRIES = metrics.counter(
+    "misaka_serve_lane_entries_total",
+    "Serve-scheduler entries by priority lane (hot = latency-class small "
+    "requests, cut into passes ahead of the bulk lane's backlog)",
+    ("lane",),
+)
+M_HTTP_REQS = metrics.counter(
+    "misaka_http_requests_total", "HTTP requests by route and method",
+    ("route", "method"),
+)
+M_HTTP_ERRORS = metrics.counter(
+    "misaka_http_errors_total", "HTTP responses with status >= 400",
+    ("route", "code"),
+)
+M_HTTP_INFLIGHT = metrics.gauge(
+    "misaka_http_inflight", "HTTP requests currently being handled"
+)
+M_HTTP_LATENCY = metrics.histogram(
+    "misaka_http_request_duration_seconds", "HTTP request handling time by route",
+    ("route",),
+)
+M_DEBUG_MEM = metrics.gauge(
+    "misaka_debug_mem_bytes",
+    "Debug-plane ring memory by plane (trace/flight/capture)",
+    ("plane",),
+)
+
+# Bounded route-label cardinality, the reference's set: unknown paths
+# collapse to "other" (a client must not mint unbounded label values).
+_METRIC_ROUTES = frozenset({
+    "/run", "/pause", "/reset", "/load", "/compute", "/compute_batch",
+    "/compute_raw", "/checkpoint", "/restore", "/profile/start",
+    "/profile/stop", "/status", "/trace", "/metrics", "/healthz",
+    "/debug/requests", "/debug/perfetto", "/debug/isa_trace",
+    "/debug/usage", "/debug/alerts", "/debug/flamegraph",
+    "/debug/series", "/debug/dashboard", "/debug/faults",
+    "/debug/native_trace", "/debug/captures",
+    "/captures/start", "/captures/stop", "/captures/export",
+    "/captures/rotate", "/usage/export",
+})
+
+
+def _route_label(path: str) -> str:
+    route = path.split("?", 1)[0]
+    if route.startswith("/debug/requests/"):
+        return "/debug/requests"  # per-trace lookups share one label
+    if route.startswith("/programs"):
+        parts = route.split("/")
+        if len(parts) >= 4 and parts[3] in ("compute", "compute_batch", "compute_raw"):
+            return "/programs/" + parts[3]
+        return "/programs"
+    return route if route in _METRIC_ROUTES else "other"
 
 
 class ComputeTimeout(RuntimeError):
@@ -109,9 +274,9 @@ class _BatchEntry:
     pass writes a disjoint slice of `out`."""
 
     __slots__ = ("arr", "out", "taken", "filled", "deadline", "event",
-                 "error", "cancelled")
+                 "error", "enqueued", "dispatched", "cancelled", "traces")
 
-    def __init__(self, arr: np.ndarray, deadline: float):
+    def __init__(self, arr: np.ndarray, deadline: float, traces=()):
         self.arr = arr
         self.out = np.empty((arr.size,), np.int32)
         self.taken = 0       # values cut into passes so far
@@ -119,7 +284,13 @@ class _BatchEntry:
         self.deadline = deadline
         self.event = threading.Event()
         self.error: BaseException | None = None
+        self.enqueued = time.monotonic()
+        self.dispatched = False  # first-dispatch latch (queue-delay metric)
         self.cancelled = False   # the waiter gave up: skip the remainder
+        # the request traces riding this entry (utils/tracespan.py), passed
+        # explicitly: the scheduler's workers are other threads, where the
+        # handler's contextvar does not reach.  () = untraced.
+        self.traces = traces
 
 
 class _BatcherShared:
@@ -204,6 +375,10 @@ class ServeBatcher:
         self._hot_max = int(os.environ.get("MISAKA_LANE_SMALL", "") or 8192)
         self._shared = _BatcherShared()
         self._workers: list[threading.Thread] = []
+        ref = weakref.ref(self)
+        M_SERVE_WAITING.set_function(
+            lambda: (len(b._shared.pending) + len(b._shared.hot)
+                     if (b := ref()) is not None else 0))
 
     @property
     def passes(self) -> int:
@@ -214,29 +389,36 @@ class ServeBatcher:
         with self._shared.cond:
             return self._shared.waiting()
 
-    def compute(self, arr: np.ndarray, timeout: float) -> np.ndarray:
+    def compute(self, arr: np.ndarray, timeout: float, traces=()) -> np.ndarray:
         """Enqueue one request's values and wait for its outputs (len(arr)
         in, len(arr) out, order kept).  Entries of at most
-        MISAKA_LANE_SMALL values ride the hot lane."""
+        MISAKA_LANE_SMALL values ride the hot lane.  `traces`: the request
+        traces that get this entry's serve.queue and serve.pass spans."""
         self._ensure_workers()
-        entry = _BatchEntry(arr, time.monotonic() + timeout)
+        entry = _BatchEntry(arr, time.monotonic() + timeout, traces=traces)
         shared = self._shared
+        lane = "hot" if 0 < arr.size <= self._hot_max else "bulk"
+        M_SERVE_LANE_ENTRIES.labels(lane=lane).inc()
         with shared.cond:
             if shared.closed:
                 raise ComputeTimeout("the serve scheduler is closed")
-            hot = 0 < arr.size <= self._hot_max
-            (shared.hot if hot else shared.pending).append(entry)
+            (shared.hot if lane == "hot" else shared.pending).append(entry)
             shared.cond.notify()
         with self._master._waiters_lock:
             self._master._requests_total += 1
+        M_COMPUTE_REQS.inc()
+        M_COMPUTE_VALUES.inc(arr.size)
         if not entry.event.wait(timeout):
             with shared.cond:
                 entry.cancelled = True  # skip the undispatched remainder
                 missing = entry.arr.size - entry.filled
+            M_COMPUTE_TIMEOUTS.inc()
             raise ComputeTimeout(
                 f"no output for {missing}/{entry.arr.size} value(s) after {timeout}s"
             )
         if entry.error is not None:
+            if isinstance(entry.error, ComputeTimeout):
+                M_COMPUTE_TIMEOUTS.inc()
             raise entry.error
         return entry.out
 
@@ -328,6 +510,10 @@ class ServeBatcher:
         budget = min(len(slots) * self._in_cap, self._max_values)
         segs: list[tuple[_BatchEntry, int, int]] = []
         with shared.cond:
+            # the queue-delay clock reads inside the lock: an entry enqueued
+            # between an outside read and the acquisition would observe a
+            # negative delay
+            now = time.monotonic()
             reserve = max(1, budget // 4) if (shared.hot and shared.pending) else 0
             caps = (max(1, budget - reserve), budget)
             for q, cap in zip((shared.hot, shared.pending), caps):
@@ -337,6 +523,12 @@ class ServeBatcher:
                         q.popleft()
                         continue
                     take = min(budget, cap, e.arr.size - e.taken)
+                    if not e.dispatched:
+                        e.dispatched = True
+                        M_SERVE_QUEUE_DELAY.observe(now - e.enqueued)
+                        for tr in e.traces:
+                            tracespan.add_span(tr, "serve.queue", e.enqueued,
+                                               now - e.enqueued)
                     segs.append((e, e.taken, take))
                     e.taken += take
                     budget -= take
@@ -361,6 +553,7 @@ class ServeBatcher:
         """One pass: stripe, submit, collect, scatter.  Releases `slots`."""
         master = self._master
         shared = self._shared
+        t_pass = time.monotonic()
         if len(segs) == 1:
             e0, s0, ln = segs[0]
             flat = e0.arr[s0:s0 + ln]
@@ -372,10 +565,24 @@ class ServeBatcher:
         for s in unused:
             master._compute_locks[s].release()
         stripes = np.array_split(flat, n_used)
+        M_SERVE_COALESCED_VALUES.observe(total)
+        M_SERVE_COALESCED_REQS.observe(len(segs))
+        M_SERVE_PASSES.inc()
         deadline = max(e.deadline for e, _, _ in segs)
         timeout_s = max(0.0, deadline - time.monotonic())
         with master._waiters_lock:
             master._waiters += 1
+
+        def record_pass_spans() -> None:
+            # one serve.pass span per traced request of the pass (coalesced
+            # requests share its timing).  Before any event.set(): a woken
+            # waiter builds its Server-Timing header from the spans so far.
+            dur = time.monotonic() - t_pass
+            attrs = {"requests": len(segs), "values": total, "slots": n_used}
+            for e, _, _ in segs:
+                for tr in e.traces:
+                    tracespan.add_span(tr, "serve.pass", t_pass, dur, attrs)
+
         try:
             with master._epoch_lock:
                 if shared.closed:  # atomic against close()'s queue wipe
@@ -396,6 +603,7 @@ class ServeBatcher:
                             master._stale[s2] += st2.size
                 raise
             flat_out = np.concatenate(parts)
+            record_pass_spans()  # before any waiter wakes
             # per-slot FIFO + contiguous striping: segment j's outputs are
             # flat_out[pos_j : pos_j + len_j]
             pos = 0
@@ -410,6 +618,7 @@ class ServeBatcher:
             for e in done:
                 e.event.set()
         except Exception as exc:
+            record_pass_spans()  # before the failed waiters wake
             msg = f"{exc} (coalesced pass: {len(segs)} request(s), {total} values)"
             failed: list[_BatchEntry] = []
             with shared.cond:
@@ -578,6 +787,21 @@ class MasterNode:
         self._batcher: ServeBatcher | None = None
         if os.environ.get("MISAKA_SERVE_BATCH", "1") != "0":
             self._batcher = ServeBatcher(self, n_slots, self._net.in_cap)
+        self._last_ckpt_mono: float | None = None
+        # Profiles (utils/profiling.py): torch.profiler records the thread
+        # that starts it, so a capture is begun and ended by the device
+        # loop at an iteration boundary (or when it next starts).
+        self.profiling = profiling.LoopCapture(
+            lambda: self._loop is not None and self._loop.is_alive(),
+            wake=self._work_event.set)
+        ref = weakref.ref(self)
+        M_SUBMIT_DEPTH.set_function(
+            lambda: m._submit_q.qsize() if (m := ref()) is not None else 0)
+        M_OUT_DEPTH.set_function(
+            lambda: sum(q.qsize() for q in m._out_qs) if (m := ref()) is not None else 0)
+        M_CKPT_AGE.set_function(
+            lambda: time.monotonic() - m._last_ckpt_mono
+            if (m := ref()) is not None and m._last_ckpt_mono is not None else -1.0)
 
     def _compile(self, topology: Topology):
         """`topology` compiled for this master: a CompiledNetwork, or on a
@@ -623,6 +847,11 @@ class MasterNode:
         if self._engine == "scan" or self._net.device.type != "cuda":
             return "plain"
         return "fused"
+
+    @property
+    def device(self) -> torch.device:
+        """The device the chunks run on (a mesh's first)."""
+        return self._net.device
 
     # --- lifecycle (the broadcastCommand surface, master.go:269-351) -------
 
@@ -690,6 +919,7 @@ class MasterNode:
                     self._trace = new_net.init_trace(self._trace_cap)
                 self._serve = new_serve
             self._drain_queues()
+            M_ENGINE_SWAPS.labels(reason="load").inc()
             log.info("successfully loaded program")
 
     # --- the compute lanes --------------------------------------------------
@@ -714,6 +944,8 @@ class MasterNode:
         if arr.size == 0:
             return np.empty((0,), np.int32) if return_array else []
         n = self._n_slots
+        tr = tracespan.current()
+        t_q = time.monotonic()  # queue clock: the slot-lock wait
         with self._rr_lock:
             start = self._rr
             self._rr = (self._rr + 1) % n
@@ -729,13 +961,19 @@ class MasterNode:
         with self._waiters_lock:
             self._waiters += 1
             self._requests_total += 1
+        M_COMPUTE_REQS.inc()
+        M_COMPUTE_VALUES.inc(arr.size)
         try:
-            with self._epoch_lock:
-                epoch = self._epoch
-                self._submit_q.put([(slot, arr)])
-            self._work_event.set()
-            deadline = time.monotonic() + timeout
-            out = np.concatenate(self._collect_slot(slot, arr.size, deadline, epoch, timeout))
+            if tr is not None:  # the direct lane's queue phase
+                tracespan.add_span(tr, "serve.queue", t_q, time.monotonic() - t_q)
+            with tracespan.span("serve.pass", trace=tr, values=int(arr.size)):
+                with self._epoch_lock:
+                    epoch = self._epoch
+                    self._submit_q.put([(slot, arr)])
+                self._work_event.set()
+                deadline = time.monotonic() + timeout
+                parts = self._collect_slot(slot, arr.size, deadline, epoch, timeout)
+            out = np.concatenate(parts)
             return out if return_array else out.tolist()
         finally:
             with self._waiters_lock:
@@ -754,7 +992,9 @@ class MasterNode:
             return np.empty((0,), np.int32) if return_array else []
         if self._batcher is None:
             return self.compute_spread(arr, timeout=timeout, return_array=return_array)
-        out = self._batcher.compute(arr, timeout)
+        # the handler's trace, handed across to the scheduler's workers
+        tr = tracespan.current()
+        out = self._batcher.compute(arr, timeout, traces=(tr,) if tr is not None else ())
         return out if return_array else out.tolist()
 
     def compute_spread(self, values, timeout: float = 30.0, return_array: bool = False):
@@ -783,25 +1023,29 @@ class MasterNode:
         with self._waiters_lock:
             self._waiters += 1
             self._requests_total += 1
+        M_COMPUTE_REQS.inc()
+        M_COMPUTE_VALUES.inc(arr.size)
         try:
-            stripes = np.array_split(arr, len(owned))
-            with self._epoch_lock:
-                epoch = self._epoch
-                self._submit_q.put(list(zip(owned, stripes)))
-            self._work_event.set()
-            deadline = time.monotonic() + timeout
-            parts: list[np.ndarray] = []
-            for i, (s, part) in enumerate(zip(owned, stripes)):
-                try:
-                    parts.extend(self._collect_slot(s, part.size, deadline, epoch, timeout))
-                except ComputeTimeout:
-                    # slot s is marked; the stripes never collected will
-                    # surface outputs too: mark them stale as well
-                    with self._epoch_lock:
-                        if self._epoch == epoch:
-                            for s2, part2 in list(zip(owned, stripes))[i + 1:]:
-                                self._stale[s2] += part2.size
-                    raise
+            with tracespan.span("serve.pass", values=int(arr.size), slots=len(owned)):
+                stripes = np.array_split(arr, len(owned))
+                with self._epoch_lock:
+                    epoch = self._epoch
+                    self._submit_q.put(list(zip(owned, stripes)))
+                self._work_event.set()
+                deadline = time.monotonic() + timeout
+                parts: list[np.ndarray] = []
+                for i, (s, part) in enumerate(zip(owned, stripes)):
+                    try:
+                        parts.extend(self._collect_slot(s, part.size, deadline, epoch,
+                                                        timeout))
+                    except ComputeTimeout:
+                        # slot s is marked; the stripes never collected will
+                        # surface outputs too: mark them stale as well
+                        with self._epoch_lock:
+                            if self._epoch == epoch:
+                                for s2, part2 in list(zip(owned, stripes))[i + 1:]:
+                                    self._stale[s2] += part2.size
+                        raise
             out = np.concatenate(parts)
             return out if return_array else out.tolist()
         finally:
@@ -858,6 +1102,7 @@ class MasterNode:
             with self._epoch_lock:  # atomic vs _drain_queues' epoch bump
                 if self._epoch == epoch:
                     self._stale[slot] += want - got
+            M_COMPUTE_TIMEOUTS.inc()
             raise ComputeTimeout(
                 f"no output for {want - got}/{want} value(s) after {timeout}s"
             )
@@ -942,6 +1187,7 @@ class MasterNode:
         format, durably (runtime/checkpoint.py).  The fields are read to the
         host under the state lock (on a mesh: the global arrays, in shard
         order)."""
+        t0 = time.perf_counter()
         with self._state_lock:
             state = self._state if self._mesh is None else gather_state(self._state)
             arrays = state_to_numpy(state)
@@ -955,6 +1201,8 @@ class MasterNode:
             "batch": self._batch,
         })
         ckpt.write_checkpoint(path, arrays, self._batch)
+        self._last_ckpt_mono = time.monotonic()
+        M_CKPT_SAVE_SECONDS.observe(time.perf_counter() - t0)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore state + programs from a .npz written by either package.
@@ -964,7 +1212,12 @@ class MasterNode:
         swapped until all three pass.  Capacities travel in the checkpoint,
         and the arrays are global: any mesh of the same batch loads them.
         Leaves the network paused, as the JAX master does."""
-        meta, arrays = ckpt.read_checkpoint(path, NetworkState._fields)
+        t0 = time.perf_counter()
+        try:
+            meta, arrays = ckpt.read_checkpoint(path, NetworkState._fields)
+        except ckpt.CheckpointError:
+            M_CKPT_REJECTED.inc()
+            raise
         ckpt_batch = meta.get("batch")
         if ckpt_batch != self._batch:
             raise ValueError(
@@ -995,6 +1248,8 @@ class MasterNode:
             self._drain_queues()
             self._flush_iters = self._flush_quiet = 0
             self._restore_flush = True
+        M_ENGINE_SWAPS.labels(reason="restore").inc()
+        M_CKPT_RESTORE_SECONDS.observe(time.perf_counter() - t0)
         log.info("checkpoint restored from %s", path)
 
     def snapshot(self) -> NetworkState:
@@ -1081,6 +1336,7 @@ class MasterNode:
                 "(> stack_grow_max_bytes=%d); leaving it parked",
                 net.stack_cap, new_cap, new_bytes, self._grow_max_bytes,
             )
+            M_AUTOGROW_BLOCKED.inc()
             self._grow_blocked = True
             return
         t0 = time.monotonic()
@@ -1097,12 +1353,15 @@ class MasterNode:
             self._topology = new_topology
             self._net = new_net
             self._serve = new_serve
+        M_AUTOGROW.inc()
+        M_ENGINE_SWAPS.labels(reason="autogrow").inc()
         log.info("grew stack capacity %d -> %d in %.3fs",
                  net.stack_cap, new_cap, time.monotonic() - t0)
 
     def _mark_ticks(self) -> None:
         """Advance the tick-rate gauge by one chunk (device loop thread)."""
         self._ticks_done += self._chunk
+        M_TICKS.inc(self._chunk)
         now = time.monotonic()
         if now - self._rate_mark_time > 2:
             self._rate = (self._ticks_done - self._rate_mark_tick) / (
@@ -1118,6 +1377,8 @@ class MasterNode:
             # a crashed loop must not strand callers in a silent timeout
             log.exception("device loop crashed; network stopped")
             self._running = False
+        finally:
+            self.profiling.loop_exit()  # a capture this loop records ends here
 
     def _ingest_submissions(self) -> None:
         """Move submitted request chunks into per-slot spillover (loop thread)."""
@@ -1174,9 +1435,12 @@ class MasterNode:
         Returns (state, counters [4], [(0, outputs)] or [], fed)."""
         got = self._cut_pending(0, self._net.in_cap - int(ctrs[1] - ctrs[0]))
         vals = _NO_VALUES if got is None else got
+        if got is not None:
+            M_SLOT_OCCUPANCY.observe(1)
         state, packed = self._serve(state, vals, vals.size)
         self._mark_ticks()
-        p = packed.cpu().numpy()  # the single host read
+        with profiling.mark("misaka.read"):
+            p = packed.cpu().numpy()  # the single host read
         rd, wr = int(p[2]), int(p[3])
         per_slot = []
         if wr > rd:
@@ -1190,18 +1454,22 @@ class MasterNode:
         serve_fn, idle_fn = self._serve
         fed = False
         if self._active:
-            vals, counts = self._build_feed(ctrs)
+            with profiling.mark("misaka.feed_cut"):
+                vals, counts = self._build_feed(ctrs)
             fed = bool(counts.any())
         if fed:
+            M_SLOT_OCCUPANCY.observe(int((counts > 0).sum()))
             # feed + chunk + per-instance counter/ring snapshot
             state, packed = serve_fn(state, vals, counts)
             self._mark_ticks()
-            ctrs, per_slot = self._net.read_packed(packed)
+            with profiling.mark("misaka.read"):
+                ctrs, per_slot = self._net.read_packed(packed)
             return state, ctrs, per_slot, True
         # counters only; the ring is read only if outputs appeared
         state, c = idle_fn(state)
         self._mark_ticks()
-        p = c.cpu().numpy()
+        with profiling.mark("misaka.read"):
+            p = c.cpu().numpy()
         per_slot = []
         if (p[:, 3] > p[:, 2]).any():
             state, per_slot = self._net.drain_batched(state, rd=p[:, 2], wr=p[:, 3])
@@ -1215,11 +1483,13 @@ class MasterNode:
         if self._batch is None:
             got = self._cut_pending(0, self._net.in_cap - int(ctrs[1] - ctrs[0]))
             if got is not None:
+                M_SLOT_OCCUPANCY.observe(1)
                 state, _ = self._net.feed(state, got)
                 fed = True
         elif self._active:
             vals, counts = self._build_feed(ctrs)
             if counts.any():
+                M_SLOT_OCCUPANCY.observe(int((counts > 0).sum()))
                 state = self._net.feed_batched(state, vals, counts)
                 fed = True
         state, self._trace = self._net.run_traced(
@@ -1246,18 +1516,30 @@ class MasterNode:
                      else self._serve_unbatched if self._batch is None
                      else self._serve_batched)
         while self._running:
+            if self.profiling.pending():  # a capture begins or ends here
+                self.profiling.service()
+            t_iter = time.perf_counter()
             # After a restore: run without ingesting new work and discard
             # what the network emits until it goes quiet, so a resurrected
             # in-flight value never pairs with a post-restore request.
             flushing = self._restore_flush
-            with self._state_lock:
-                if not flushing:
-                    self._ingest_submissions()
-                self._state, ctrs, per_slot, busy = iteration(self._state, ctrs)
-            for slot, outs in per_slot:
-                busy = True
-                if not flushing:  # a flush discards orphan outputs
-                    self._out_qs[slot].put(outs)
+            with profiling.mark("misaka.iteration"):
+                with self._state_lock:
+                    if not flushing:
+                        self._ingest_submissions()
+                    self._state, ctrs, per_slot, busy = iteration(self._state, ctrs)
+                for slot, outs in per_slot:
+                    busy = True
+                    if not flushing:  # a flush discards orphan outputs
+                        self._out_qs[slot].put(outs)
+            # The whole iteration, its one host read included: launches are
+            # asynchronous, so a clock stopped at the launch would time the
+            # launch, not the chunk.
+            iter_dur = time.perf_counter() - t_iter
+            M_CHUNK_SECONDS.observe(iter_dur)
+            (M_ITER_SERVE if busy else M_ITER_IDLE).inc()
+            if busy:  # engine-tier flight-recorder event; idle chunks skipped
+                tracespan.note_tier("engine.chunk", iter_dur)
             if flushing:
                 # quiescence: 8 chunks in a row with no output and empty
                 # input rings; capped at 64 chunks so a generator network
@@ -1310,26 +1592,228 @@ def _check_shapes(state: NetworkState, ref: NetworkState, what: str) -> None:
 _NAME_RE = re.compile(r"^[A-Za-z0-9._-]{1,128}$")
 
 
+class AutoCheckpointer:
+    """Periodic durable snapshots with rotation, plus boot-time restore (the
+    port of misaka_tpu/runtime/master.py::AutoCheckpointer).
+
+    MISAKA_AUTOCKPT=N seconds arms this on the serving master (app.py):
+    every interval the live state is checkpointed into the checkpoint
+    directory as `auto-<seq>.npz` under save_checkpoint's durability
+    contract (tmp + fsync + atomic replace + manifest), and rotation keeps
+    the newest `keep` snapshots (MISAKA_AUTOCKPT_KEEP, default 4).
+    `restore_latest` is the boot half: walk the snapshots newest first and
+    install the first that passes verify_checkpoint, so one torn snapshot
+    costs one interval of history, never a boot.  The files are the JAX
+    package's: either package restores the other's snapshots."""
+
+    PREFIX = "auto-"
+    _NAME_RE = re.compile(r"^auto-(\d+)\.npz$")
+
+    def __init__(self, master, directory: str, interval_s: float, keep: int = 4):
+        if interval_s <= 0:
+            raise ValueError(f"interval must be > 0, got {interval_s}")
+        self._master = master
+        self._dir = directory
+        self._interval = float(interval_s)
+        self._keep = max(1, int(keep))
+        existing = self.snapshots(directory)
+        self._seq = (int(self._NAME_RE.match(os.path.basename(existing[0])).group(1))
+                     if existing else 0)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="misaka-torch-autockpt")
+        self._thread.start()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    @classmethod
+    def snapshots(cls, directory: str) -> list[str]:
+        """auto-*.npz paths in `directory`, newest (highest seq) first."""
+        try:
+            names = os.listdir(directory)
+        except OSError:
+            return []
+        seqs = []
+        for n in names:
+            m = cls._NAME_RE.match(n)
+            if m:
+                seqs.append((int(m.group(1)), n))
+        return [os.path.join(directory, n) for _, n in sorted(seqs, reverse=True)]
+
+    def save_once(self) -> str:
+        """One durable snapshot + rotation (also the thread's body)."""
+        self._seq += 1
+        os.makedirs(self._dir, exist_ok=True)
+        path = os.path.join(self._dir, f"{self.PREFIX}{self._seq:08d}.npz")
+        self._master.save_checkpoint(path)
+        for old in self.snapshots(self._dir)[self._keep:]:
+            for stale in (old, ckpt.manifest_path(old)):
+                try:
+                    os.unlink(stale)
+                except OSError:
+                    pass
+        return path
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval):
+            try:
+                self.save_once()
+            except Exception:  # one failure is one interval of lost history
+                log.exception("auto-checkpoint failed (retrying next interval)")
+
+    @classmethod
+    def restore_latest(cls, master, directory: str) -> str | None:
+        """Install the newest valid auto snapshot; returns its path, or None
+        when none exists or verifies (a fresh boot)."""
+        for path in cls.snapshots(directory):
+            try:
+                master.load_checkpoint(path)
+                return path
+            except Exception as e:
+                log.warning("auto-restore: skipping snapshot %s (%s); falling back",
+                            path, e)
+        return None
+
+
 def make_http_server(master: MasterNode, port: int = 8000,
-                     checkpoint_dir: str | None = None) -> ThreadingHTTPServer:
+                     checkpoint_dir: str | None = None,
+                     profile_dir: str | None = None,
+                     tls=None) -> ThreadingHTTPServer:
     """The reference's client routes (master.go:90-224) plus /compute_batch,
-    /compute_raw, /checkpoint, /restore, GET /status and GET
+    /compute_raw, /checkpoint, /restore, /profile/start|stop, GET /status,
+    /metrics, /healthz, /debug/requests, /debug/perfetto and
     /debug/isa_trace (with /trace, its deprecated alias), with the JAX
     server's bodies and status codes.  /checkpoint and /restore answer 403
-    unless `checkpoint_dir` is set; clients name a checkpoint, never a
-    path."""
+    unless `checkpoint_dir` is set, /profile/* unless `profile_dir` is;
+    clients name a checkpoint or profile, never a path.  tls=None reads
+    MISAKA_TLS_CERT/KEY (runtime/edge.py), False serves plain HTTP, an
+    SSLContext wraps the listener with it."""
     max_body = int(os.environ.get("MISAKA_MAX_BODY", "") or 64 * 1024 * 1024)
+    # requests over MISAKA_SLOW_REQ_MS log one warning with their trace ID
+    _slow_ms = os.environ.get("MISAKA_SLOW_REQ_MS")
+    slow_req_s = float(_slow_ms) / 1e3 if _slow_ms else None
+    # the fast request parser; MISAKA_FAST_HTTP=0 keeps the stock one
+    fast_http = os.environ.get("MISAKA_FAST_HTTP", "1") != "0"
+    profiler = profiling.Profiler(master.profiling)
+    boot_mono = time.monotonic()  # /healthz uptime anchor (server, not master)
+    buildinfo.install_metric()
 
-    def resolve_checkpoint(name: str) -> str | None:
-        if not checkpoint_dir or not _NAME_RE.match(name) or ".." in name:
+    def resolve_name(directory: str | None, name: str, suffix: str = "") -> str | None:
+        if not directory or not _NAME_RE.match(name) or ".." in name:
             return None
-        return os.path.join(checkpoint_dir, name if name.endswith(".npz") else name + ".npz")
+        return os.path.join(directory, name if name.endswith(suffix) else name + suffix)
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, fmt, *args):  # through logging, not stderr
-            log.debug(fmt, *args)
+            # getattr: a malformed request line reaches send_error(400)
+            # before self.path is assigned
+            log.debug(fmt, *args, extra={"route": _route_label(getattr(self, "path", ""))})
+
+        def send_response(self, code, message=None):
+            self._metrics_code = code  # read by _observed
+            super().send_response(code, message)
+
+        def handle_one_request(self):
+            """The stock request loop with the fast parser swapped in; the
+            stock parser stays the fallback for request shapes the fast
+            path declines.  MISAKA_FAST_HTTP=0 keeps the stock loop."""
+            if not fast_http:
+                return super().handle_one_request()
+            try:
+                self.raw_requestline = self.rfile.readline(65537)
+                if len(self.raw_requestline) > 65536:
+                    self.requestline = ""
+                    self.request_version = ""
+                    self.command = ""
+                    self.send_error(414, "Request-URI Too Long")
+                    return
+                if not self.raw_requestline:
+                    self.close_connection = True
+                    return
+                # the http.parse clock starts after the request line: on a
+                # keep-alive connection the readline blocks across idle time
+                t_parse = time.monotonic()
+                parsed = _fast_parse_request(self)
+                if parsed is None:  # answered an error while parsing
+                    return
+                if not parsed and not self.parse_request():
+                    return
+                self._parse_mark = (t_parse, time.monotonic() - t_parse)
+                mname = "do_" + self.command
+                if not hasattr(self, mname):
+                    self.send_error(501, f"Unsupported method ({self.command!r})")
+                    return
+                getattr(self, mname)()
+                self.wfile.flush()
+            except TimeoutError as e:
+                self.log_error("Request timed out: %r", e)
+                self.close_connection = True
+            except ssl.SSLError as e:
+                # the deferred TLS handshake (edge.wrap_server_tls) fails on
+                # the handler thread's first read: a plaintext prober costs
+                # one closed connection
+                self.log_error("TLS handshake failed: %r", e)
+                self.close_connection = True
+
+        def _observed(self, method: str, inner) -> None:
+            """Request counter, error counter by status, in-flight gauge and
+            latency histogram around every handler, and the request trace:
+            begun from the inbound X-Misaka-Trace header (minted otherwise),
+            current on this thread for the whole request, ended into the
+            flight recorder with the response status."""
+            route = _route_label(self.path)
+            self._metrics_code = None  # keep-alive reuses the handler
+            self._extra_headers = []
+            trace = tracespan.begin(self.headers.get(tracespan.TRACE_HEADER), route=route)
+            self._misaka_trace = trace
+            mark = getattr(self, "_parse_mark", None)
+            self._parse_mark = None
+            if trace is not None and mark is not None:
+                tracespan.add_span(trace, "http.parse", mark[0], mark[1])
+            M_HTTP_INFLIGHT.inc()
+            t0 = time.perf_counter()
+            try:
+                inner()
+            finally:
+                dur = time.perf_counter() - t0
+                M_HTTP_LATENCY.labels(route=route).observe(dur)
+                M_HTTP_REQS.labels(route=route, method=method).inc()
+                code = self._metrics_code or 500
+                if code >= 400:
+                    M_HTTP_ERRORS.labels(route=route, code=str(code)).inc()
+                M_HTTP_INFLIGHT.dec()
+                if slow_req_s is not None and dur >= slow_req_s:
+                    log.warning(
+                        "slow request: %s %.1fms (threshold %.0fms)",
+                        route, dur * 1e3, slow_req_s * 1e3,
+                        extra={"route": route, "program": None,
+                               "trace_id": trace.trace_id if trace is not None else None},
+                    )
+                self._misaka_trace = None
+                tracespan.end(trace, status=code)
+
+        def do_GET(self):
+            self._observed("GET", self._handle_get)
+
+        def do_POST(self):
+            self._observed("POST", self._handle_post)
+
+        def _trace_headers(self) -> None:
+            """Between send_response and end_headers on every response:
+            headers queued by the route, then the trace ID and the
+            Server-Timing phases recorded so far."""
+            for k, v in self._extra_headers:
+                self.send_header(k, v)
+            tr = self._misaka_trace
+            if tr is not None:
+                self.send_header(tracespan.TRACE_HEADER, tr.trace_id)
+                st = tracespan.server_timing(tr)
+                if st:
+                    self.send_header("Server-Timing", st)
 
         def _text(self, code: int, body: str) -> None:
             self._send(code, body.encode(), "text/plain; charset=utf-8")
@@ -1338,8 +1822,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
-            for k, v in self._extra_headers:  # queued by the route
-                self.send_header(k, v)
+            self._trace_headers()
             self.end_headers()
             self.wfile.write(data)
 
@@ -1351,20 +1834,59 @@ def make_http_server(master: MasterNode, port: int = 8000,
             raw = self.rfile.read(length).decode()
             return {k: v[0] for k, v in parse_qs(raw, keep_blank_values=True).items()}
 
-        def do_GET(self):
-            self._extra_headers = []  # per request: keep-alive reuses the handler
+        def _handle_get(self):
             try:
                 parsed = urlparse(self.path)
-                if parsed.path == "/status":
-                    self._json(master.status())
-                    return
-                if parsed.path in ("/trace", "/debug/isa_trace"):
+                path = parsed.path
+                if path == "/status":
+                    payload = master.status()
+                    payload["build"] = buildinfo.info()
+                    self._json(payload)
+                elif path == "/metrics":
+                    self._send(200, metrics.render().encode(), metrics.CONTENT_TYPE)
+                elif path == "/healthz":
+                    self._json(self._healthz())
+                elif path in ("/trace", "/debug/isa_trace"):
                     self._isa_trace(parsed)
-                    return
-                self._text(405, "method GET not allowed")
+                elif path == "/debug/requests":
+                    # the flight recorder: recent ring + slowest-K reservoir
+                    # (?slowest=1 for the reservoir alone)
+                    payload = tracespan.debug_payload()
+                    q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+                    if q.get("slowest") == "1":
+                        payload.pop("recent", None)
+                    self._json(payload)
+                elif path.startswith("/debug/requests/"):
+                    tid = path[len("/debug/requests/"):]
+                    tr = tracespan.RECORDER.get(tid)
+                    if tr is None:
+                        self._text(404, f"no completed trace {tid!r} in the flight recorder")
+                        return
+                    self._json(tr.to_dict())
+                elif path == "/debug/perfetto":
+                    # Chrome trace-event JSON of the recorder (Perfetto,
+                    # chrome://tracing), one process per tier
+                    self._json(tracespan.perfetto())
+                else:
+                    self._text(405, "method GET not allowed")
             except Exception as e:  # a handler crash must not kill the server
                 log.exception("handler error")
                 self._text(500, f"internal error: {e}")
+
+        def _healthz(self) -> dict:
+            """Cheap liveness for load balancers: no state lock and no
+            device read.  Only the planes the port runs report a block."""
+            trace_b = tracespan.mem_bytes()
+            M_DEBUG_MEM.labels(plane="trace").set(trace_b)
+            return {
+                "ok": True,
+                "engine": master.engine_name,
+                "running": master.is_running,
+                "uptime_seconds": round(time.monotonic() - boot_mono, 3),
+                # /compute_raw takes the headered binary form (utils/wire.py)
+                "wire_binary": True,
+                "debug_mem": {"trace_bytes": trace_b, "total_bytes": trace_b},
+            }
 
         def _isa_trace(self, parsed) -> None:
             """The instruction history (core/trace.py).  /trace is the old
@@ -1388,8 +1910,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 return
             self._json({"entries": entries})
 
-        def do_POST(self):
-            self._extra_headers = []
+        def _handle_post(self):
             try:
                 self._post(self.path.split("?", 1)[0])
             except Exception as e:  # a handler crash must not kill the server
@@ -1457,7 +1978,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 if not checkpoint_dir:
                     self._text(403, "checkpointing disabled (no checkpoint_dir configured)")
                     return
-                target = resolve_checkpoint(name)
+                target = resolve_name(checkpoint_dir, name, ".npz")
                 if target is None:
                     self._text(400, "invalid checkpoint name")
                     return
@@ -1471,6 +1992,34 @@ def make_http_server(master: MasterNode, port: int = 8000,
                         self._text(400, f"error restoring checkpoint: {e}")
                         return
                 self._text(200, "Success")
+            elif path == "/profile/start":
+                # a torch.profiler capture of the live device loop
+                name = self._form().get("name", "profile")  # body first
+                if not profile_dir:
+                    self._text(403, "profiling disabled (no profile_dir configured)")
+                    return
+                target = resolve_name(profile_dir, name)
+                if target is None:
+                    self._text(400, "invalid profile name")
+                    return
+                os.makedirs(profile_dir, exist_ok=True)
+                try:
+                    profiler.start(target, cuda=master.device.type == "cuda")
+                except profiling.ProfilerError as e:
+                    self._text(409, str(e))
+                    return
+                self._text(200, "Success")
+            elif path == "/profile/stop":
+                self._form()  # drain any body (keep-alive sync)
+                if not profile_dir:
+                    self._text(403, "profiling disabled (no profile_dir configured)")
+                    return
+                try:
+                    out = profiler.stop()
+                except profiling.ProfilerError as e:
+                    self._text(409, str(e))
+                    return
+                self._text(200, out)
             else:
                 # unknown POST: the body is unread -- close, don't desync
                 self.close_connection = True
@@ -1529,4 +2078,11 @@ def make_http_server(master: MasterNode, port: int = 8000,
         request_queue_size = 128  # burst of concurrent client dials
         daemon_threads = True
 
-    return _Server(("0.0.0.0", port), Handler)
+    httpd = _Server(("0.0.0.0", port), Handler)
+    if tls is False:
+        ctx = None
+    elif tls is None:
+        ctx = edge_mod.tls_context_from_env()
+    else:
+        ctx = tls
+    return edge_mod.wrap_server_tls(httpd, ctx)

@@ -1,0 +1,430 @@
+"""The port's app reads the reference's boot env, or refuses it at boot.
+
+One test per open fault of ROADMAP C, each failing before the fix:
+
+- C.1 MISAKA_TOPOLOGY builds the same network in both packages (a compose
+  .yml exits with status 2, naming ROADMAP A.10);
+- C.2 MISAKA_MODE=distributed and NODE_TYPE=program|stack refuse (A.5);
+- C.3 MISAKA_TLS_CERT/KEY: a plaintext request gets no response from
+  either server, and over HTTPS both answer the same /compute;
+- C.4 an API keyfile refuses (A.2);
+- C.5 MISAKA_AUTOCKPT: auto snapshots written by either package's
+  AutoCheckpointer restore in the other, a torn newest snapshot falls back
+  to the one before, the interval snapshots rotate to `keep`, and a
+  restarted app resumes its state;
+
+and the same class at lower stakes: MISAKA_PROGRAMS_DIR,
+MISAKA_HTTP_WORKERS > 1, MISAKA_FLEET and MISAKA_COORDINATOR refuse;
+MISAKA_FAULTS and MISAKA_SLO log one warning each.
+"""
+
+import http.client
+import json
+import logging
+import os
+import shutil
+import socket
+import ssl
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from misaka_tpu.runtime import app as japp
+from misaka_tpu.runtime.master import AutoCheckpointer as JAuto
+from misaka_tpu.runtime.master import MasterNode as JMaster
+from misaka_tpu.runtime.master import make_http_server as j_http
+from misaka_tpu.runtime.topology import Topology as JTopology
+from misaka_tpu_torch.core.state import state_to_numpy
+from misaka_tpu_torch.networks import ADD2_PROGRAMS
+from misaka_tpu_torch.runtime import app
+from misaka_tpu_torch.runtime import master as tmaster
+from misaka_tpu_torch.runtime.master import AutoCheckpointer, MasterNode, make_http_server
+from misaka_tpu_torch.runtime.topology import Topology
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUNNING_TOTAL = os.path.join(ROOT, "examples", "running_total.json")
+CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
+ADD2_ENV = {
+    "NODE_INFO": json.dumps({"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
+                             "misaka3": {"type": "stack"}}),
+    "MISAKA_PROGRAMS": json.dumps(ADD2_PROGRAMS),
+    "MISAKA_DEVICE": "cpu",
+}
+
+
+@pytest.fixture(autouse=True)
+def _quiet_jax_daemons(monkeypatch):
+    # the JAX server's process-global daemons would outlive a test
+    for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
+        monkeypatch.setenv(switch, "0")
+
+
+def _serve(httpd):
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd.server_address[1]
+
+
+def _close(*pairs):
+    for httpd, master in pairs:
+        httpd.shutdown()
+        httpd.server_close()
+        master.close()
+
+
+# --- C.1 MISAKA_TOPOLOGY ------------------------------------------------------------
+
+
+def test_c1_topology_file_builds_the_same_network_as_jax():
+    env = {"MISAKA_TOPOLOGY": RUNNING_TOTAL}
+    t, j = app.build_topology_from_env(env), japp.build_topology_from_env(env)
+    assert t.node_info == j.node_info and t.programs == j.programs
+    assert (t.stack_cap, t.in_cap, t.out_cap) == (j.stack_cap, j.in_cap, j.out_cap)
+    assert t.in_cap == 1024 and "totaler" in t.node_info
+    # the cap knobs apply to the file's topology too, in both packages
+    env["MISAKA_IN_CAP"] = "16"
+    assert app.build_topology_from_env(env).in_cap == japp.build_topology_from_env(env).in_cap == 16
+    m = app.build_master_from_env({"MISAKA_TOPOLOGY": RUNNING_TOTAL, "MISAKA_DEVICE": "cpu",
+                                   "MISAKA_BATCH": "2", "MISAKA_CHUNK_STEPS": "32"})
+    try:
+        m.run()
+        assert m.compute_many([1, 2, 3]) == [1, 3, 6]
+    finally:
+        m.close()
+
+
+def test_c1_compose_yml_exits_2_naming_a10(capsys):
+    with pytest.raises(SystemExit, match="A.10") as exc:
+        app.build_topology_from_env({"MISAKA_TOPOLOGY": "deploy/docker-compose.yml"})
+    assert exc.value.code == 2
+    assert "A.10" in capsys.readouterr().err
+
+
+def test_c1_neither_variable_names_both():
+    with pytest.raises(SystemExit, match="NODE_INFO .* or MISAKA_TOPOLOGY"):
+        app.build_topology_from_env({})
+    with pytest.raises(SystemExit, match="NODE_INFO .* or MISAKA_TOPOLOGY"):
+        japp.build_topology_from_env({})
+
+
+# --- C.2 the distributed mode and the node servers -------------------------------------
+
+
+@pytest.mark.parametrize("extra", [
+    {"MISAKA_MODE": "distributed"},
+    {"NODE_TYPE": "program"},
+    {"NODE_TYPE": "stack"},
+], ids=["distributed", "program", "stack"])
+def test_c2_distributed_and_node_servers_refuse_naming_a5(extra):
+    env = {**ADD2_ENV, **extra}
+    env.pop("MISAKA_PROGRAMS")  # the distributed master's programs live in its peers
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.5") as exc:
+        app.build_master_from_env(env)
+    assert exc.value.code == 2
+
+
+# --- C.3 TLS ----------------------------------------------------------------------------
+
+
+def _make_certs(tmp_path):
+    if shutil.which("openssl") is None:
+        pytest.skip("openssl unavailable")
+    cert, key = str(tmp_path / "cert.pem"), str(tmp_path / "key.pem")
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "ec", "-pkeyopt",
+         "ec_paramgen_curve:prime256v1", "-nodes", "-keyout", key, "-out", cert,
+         "-days", "1", "-subj", "/CN=localhost",
+         "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+        check=True, capture_output=True, timeout=60,
+    )
+    return cert, key
+
+
+def _plaintext_status(port) -> str:
+    """A plaintext GET /status: "no response" when the server answers
+    nothing over plain HTTP, else the status it answered."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", "/status")
+        return str(conn.getresponse().status)
+    except (http.client.HTTPException, OSError):
+        return "no response"
+    finally:
+        conn.close()
+
+
+def _https_compute(port, cert, value):
+    ctx = ssl.create_default_context(cafile=cert)
+    req = urllib.request.Request(f"https://127.0.0.1:{port}/compute",
+                                 data=urllib.parse.urlencode({"value": value}).encode())
+    with urllib.request.urlopen(req, timeout=30, context=ctx) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def test_c3_tls_plaintext_gets_no_response_https_answers_like_jax(tmp_path, monkeypatch):
+    cert, key = _make_certs(tmp_path)
+    monkeypatch.setenv("MISAKA_TLS_CERT", cert)
+    monkeypatch.setenv("MISAKA_TLS_KEY", key)
+    jm = JMaster(JTopology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS, **CAPS),
+                 chunk_steps=8, batch=2, engine="scan")
+    tm = app.build_master_from_env({**ADD2_ENV, "MISAKA_BATCH": "2",
+                                    "MISAKA_CHUNK_STEPS": "8", "MISAKA_IN_CAP": "8",
+                                    "MISAKA_OUT_CAP": "8", "MISAKA_STACK_CAP": "8"})
+    jh, th = j_http(jm, port=0), make_http_server(tm, port=0)
+    jp, tp = _serve(jh), _serve(th)
+    try:
+        assert getattr(th, "misaka_tls", False)
+        assert _plaintext_status(tp) == _plaintext_status(jp) == "no response"
+        jm.run()
+        tm.run()
+        for v in (5, -3, 1000):
+            got, want = _https_compute(tp, cert, v), _https_compute(jp, cert, v)
+            assert got == want and got[0] == 200
+        # the server keeps serving after the plaintext prober
+        assert _https_compute(tp, cert, 1)[2] == b'{"value": 3}\n'
+    finally:
+        _close((jh, jm), (th, tm))
+
+
+@pytest.mark.parametrize("var", ["MISAKA_TLS_CERT", "MISAKA_TLS_KEY"])
+def test_c3_one_tls_variable_without_the_other_refuses(tmp_path, monkeypatch, var):
+    monkeypatch.setenv(var, str(tmp_path / "x.pem"))
+    tm = MasterNode(Topology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS, **CAPS),
+                    chunk_steps=32, batch=2, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="set together"):
+            make_http_server(tm, port=0)
+    finally:
+        tm.close()
+
+
+# --- C.4 API keys -------------------------------------------------------------------------
+
+
+def test_c4_api_keyfile_refuses_naming_a2(tmp_path):
+    keys = tmp_path / "keys.json"
+    keys.write_text(json.dumps({"keys": {}}))
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.2") as exc:
+        app.build_master_from_env({**ADD2_ENV, "MISAKA_API_KEYS": str(keys)})
+    assert exc.value.code == 2
+    # the conventional <MISAKA_PROGRAMS_DIR>/api_keys.json resolves too
+    (tmp_path / "api_keys.json").write_text(json.dumps({"keys": {}}))
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.2"):
+        app.build_master_from_env({**ADD2_ENV, "MISAKA_PROGRAMS_DIR": str(tmp_path)})
+
+
+# --- C.5 MISAKA_AUTOCKPT ----------------------------------------------------------------
+
+
+def _rt_text():
+    with open(RUNNING_TOTAL) as f:
+        return f.read()
+
+
+def _jax_rt():
+    return JMaster(JTopology.from_json(_rt_text(), **CAPS), chunk_steps=32, batch=4,
+                   engine="scan")
+
+
+def _port_rt():
+    return MasterNode(Topology.from_json(_rt_text(), **CAPS), chunk_steps=32, batch=4,
+                      device="cpu")
+
+
+def _jfields(state):
+    return {f: np.asarray(getattr(state, f)) for f in state._fields}
+
+
+def _assert_same(a, b):
+    assert set(a) == set(b)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def _serve_some(m, seed):
+    rng = np.random.default_rng(seed)
+    m.run()
+    m.compute_spread(rng.integers(-500, 500, size=32).astype(np.int32))
+    m.pause()
+
+
+def test_c5_autockpt_requires_a_checkpoint_dir():
+    tm = _port_rt()
+    try:
+        with pytest.raises(SystemExit, match="MISAKA_AUTOCKPT requires MISAKA_CHECKPOINT_DIR"):
+            app.arm_autockpt(tm, {"MISAKA_AUTOCKPT": "5"})
+        assert app.arm_autockpt(tm, {}) is None
+    finally:
+        tm.close()
+
+
+def test_c5_auto_snapshots_cross_between_packages(tmp_path):
+    jm, tm = _jax_rt(), _port_rt()
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    auto = None
+    try:
+        # JAX writes, the port restores at boot (app.arm_autockpt)
+        _serve_some(jm, 1)
+        ja = JAuto(jm, str(jdir), 3600)
+        try:
+            jpath = ja.save_once()
+        finally:
+            ja.close()
+        assert os.path.basename(jpath) == "auto-00000001.npz"
+        auto = app.arm_autockpt(tm, {"MISAKA_AUTOCKPT": "3600",
+                                     "MISAKA_CHECKPOINT_DIR": str(jdir)})
+        _assert_same(state_to_numpy(tm.snapshot()), _jfields(jm.snapshot()))
+        # its sequence continues after the restored snapshot's
+        assert os.path.basename(auto.save_once()) == "auto-00000002.npz"
+        auto.close()
+        auto = None
+        # the port writes, JAX restores
+        _serve_some(tm, 2)
+        ta = AutoCheckpointer(tm, str(tdir), 3600)
+        try:
+            tpath = ta.save_once()
+        finally:
+            ta.close()
+        assert JAuto.restore_latest(jm, str(tdir)) == tpath
+        _assert_same(_jfields(jm.snapshot()), state_to_numpy(tm.snapshot()))
+    finally:
+        if auto is not None:
+            auto.close()
+        jm.close()
+        tm.close()
+
+
+def test_c5_torn_newest_snapshot_falls_back(tmp_path):
+    tm = _port_rt()
+    try:
+        a = AutoCheckpointer(tm, str(tmp_path), 3600)
+        try:
+            _serve_some(tm, 3)
+            first = a.save_once()
+            want = state_to_numpy(tm.snapshot())
+            _serve_some(tm, 4)
+            newest = a.save_once()
+        finally:
+            a.close()
+        with open(newest, "r+b") as f:  # tear it: cut the file in half
+            f.truncate(os.path.getsize(newest) // 2)
+        rejected = tmaster.M_CKPT_REJECTED.value
+        assert AutoCheckpointer.restore_latest(tm, str(tmp_path)) == first
+        assert tmaster.M_CKPT_REJECTED.value == rejected + 1
+        _assert_same(state_to_numpy(tm.snapshot()), want)
+    finally:
+        tm.close()
+
+
+def test_c5_interval_snapshots_rotate_to_keep(tmp_path):
+    tm = _port_rt()
+    a = AutoCheckpointer(tm, str(tmp_path), 0.2, keep=2)
+    try:
+        deadline = time.monotonic() + 30
+        while a._seq < 4:
+            assert time.monotonic() < deadline, "no interval snapshots within 30 s"
+            time.sleep(0.05)
+    finally:
+        a.close()
+    snaps = AutoCheckpointer.snapshots(str(tmp_path))
+    assert len(snaps) == 2
+    assert all(os.path.exists(p + ".manifest") for p in snaps)
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(p) for p in snaps] + [os.path.basename(p) + ".manifest" for p in snaps])
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _boot(tmp_path, env, label):
+    port = _free_port()
+    full = {**os.environ, **env, "MISAKA_PORT": str(port), "MISAKA_AUTORUN": "1",
+            "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
+    log = open(tmp_path / f"{label}.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "misaka_tpu_torch.runtime.app"], cwd=ROOT,
+                            env=full, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 60
+    while True:
+        assert proc.poll() is None, (tmp_path / f"{label}.log").read_text()
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                if json.loads(r.read())["running"]:
+                    return proc, base
+        except (urllib.error.URLError, OSError, ValueError):
+            pass
+        assert time.monotonic() < deadline, f"{label}: app not serving within 60 s"
+        time.sleep(0.2)
+
+
+def _compute_batch(base, values):
+    data = urllib.parse.urlencode({"values": ",".join(map(str, values))}).encode()
+    with urllib.request.urlopen(base + "/compute_batch", data=data, timeout=30) as r:
+        return [int(v) for v in json.loads(r.read())["values"]]
+
+
+def test_c5_restarted_app_resumes_from_its_auto_snapshot(tmp_path):
+    env = {"MISAKA_TOPOLOGY": RUNNING_TOTAL, "MISAKA_DEVICE": "cpu", "MISAKA_IN_CAP": "8",
+           "MISAKA_OUT_CAP": "8", "MISAKA_STACK_CAP": "8", "MISAKA_CHUNK_STEPS": "32",
+           "MISAKA_AUTOCKPT": "0.2", "MISAKA_CHECKPOINT_DIR": str(tmp_path / "ckpt"),
+           "MISAKA_PIDFILE": "off"}
+    proc, base = _boot(tmp_path, env, "first")
+    try:
+        assert _compute_batch(base, [1, 2, 3]) == [1, 3, 6]
+        # wait for a snapshot taken after the request
+        t_done = time.time()
+        deadline = time.monotonic() + 30
+        while not any(os.path.getmtime(p) > t_done
+                      for p in AutoCheckpointer.snapshots(str(tmp_path / "ckpt"))):
+            assert time.monotonic() < deadline, "no auto snapshot within 30 s"
+            time.sleep(0.1)
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+    proc, base = _boot(tmp_path, env, "second")
+    try:
+        # the running total carries on from the restored state (fresh: [4])
+        assert _compute_batch(base, [4]) == [10]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+# --- the same class, lower stakes ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"MISAKA_PROGRAMS_DIR": "programs"}, "A.3"),
+    ({"MISAKA_HTTP_WORKERS": "2"}, "A.1"),
+    ({"MISAKA_FLEET": "2"}, "A.6"),
+    ({"MISAKA_COORDINATOR": "127.0.0.1:1234"}, "A.7"),
+], ids=["programs_dir", "http_workers", "fleet", "coordinator"])
+def test_unported_planes_refuse_at_boot(extra, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}") as exc:
+        app.check_env({**ADD2_ENV, **extra})
+    assert exc.value.code == 2
+
+
+def test_one_worker_and_zero_fleet_boot():
+    app.check_env({**ADD2_ENV, "MISAKA_HTTP_WORKERS": "1", "MISAKA_FLEET": "0"})
+
+
+@pytest.mark.parametrize("var", ["MISAKA_FAULTS", "MISAKA_SLO"])
+def test_faults_and_slo_warn_once(var, caplog):
+    with caplog.at_level(logging.WARNING, logger="misaka_tpu_torch.app"):
+        app.check_env({**ADD2_ENV, var: "x"})
+    hits = [r for r in caplog.records if var in r.getMessage()]
+    assert len(hits) == 1 and "A.4" in hits[0].getMessage()

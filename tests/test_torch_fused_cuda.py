@@ -20,6 +20,11 @@ The unbatched lane: B=1 `serve_chunk` through the kernel against the plain
 loop (chip_smoke.compare_unbatched), also under MISAKA_FUSED_ELIDE_HI=1,
 where it must stay the full kernel; the traced loop on the card against
 the CPU; an unbatched master's launches, one per iteration.
+
+The observability hooks on the card: the device-loop chunk histogram
+counts one observation per kernel launch (batched and unbatched), and a
+profile taken through /profile/start|stop holds the kernel's CUDA events
+and the device loop's CPU ops.
 """
 
 import os
@@ -372,3 +377,69 @@ def test_unbatched_master_refuses_networks_beyond_the_kernel(card):
     with pytest.raises(ValueError, match="MAX_LANES=32"):
         MasterNode(wide, device=card)
     MasterNode(wide, device=card, engine="scan").close()  # the plain loop takes any width
+
+
+def _chunk_count():
+    from misaka_tpu_torch.runtime import master as master_mod
+
+    return sum(sum(child.snapshot()[0]) for _, child in master_mod.M_CHUNK_SECONDS._items())
+
+
+@pytest.mark.parametrize("batch", [64, None], ids=["batched", "unbatched"])
+def test_chunk_histogram_counts_one_observation_per_launch(card, batch):
+    from misaka_tpu_torch.runtime.master import MasterNode
+
+    m = MasterNode(networks.add2(in_cap=16, out_cap=16, stack_cap=8), chunk_steps=64,
+                   batch=batch, device=card)
+    try:
+        m.run()
+        assert m.compute(5, timeout=60) == 7
+        m.pause()
+        c0, n0 = _chunk_count(), fused.launch_counts[fused.KERNEL]
+        m.run()
+        vals = np.arange(-300, 300, dtype=np.int32)
+        assert np.array_equal(m.compute_coalesced(vals, timeout=120, return_array=True), vals + 2)
+        m.pause()
+        launched = fused.launch_counts[fused.KERNEL] - n0
+        assert launched > 0 and _chunk_count() - c0 == launched
+    finally:
+        m.close()
+
+
+def test_profile_on_the_card_holds_the_kernel_and_the_loop(card, tmp_path):
+    import json
+    import threading
+    import urllib.request
+
+    from misaka_tpu_torch.runtime.master import MasterNode, make_http_server
+    from misaka_tpu_torch.utils import profiling
+
+    m = MasterNode(networks.add2(in_cap=16, out_cap=16, stack_cap=8), chunk_steps=64,
+                   batch=64, device=card)
+    h = make_http_server(m, port=0, profile_dir=str(tmp_path))
+    threading.Thread(target=h.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{h.server_address[1]}"
+
+    def post(path, body=b""):
+        with urllib.request.urlopen(urllib.request.Request(base + path, data=body),
+                                    timeout=120) as r:
+            return r.status, r.read().decode()
+
+    try:
+        m.run()
+        assert post("/profile/start", b"name=card") == (200, "Success")
+        for v in range(8):
+            assert post("/compute", f"value={v}".encode())[1] == '{"value": %d}\n' % (v + 2)
+        loop_tid = m._loop.native_id
+        code, out = post("/profile/stop")
+        assert code == 200
+        with open(f"{out}/{profiling.TRACE_FILE}") as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        assert any("fused_superstep" in k for k in kernels), sorted(kernels)[:20]
+        loop_ops = {e["name"] for e in events if e.get("tid") == loop_tid}
+        assert {"misaka.iteration", "misaka.checks_clones", "misaka.kernel_launch"} <= loop_ops
+    finally:
+        h.shutdown()
+        h.server_close()
+        m.close()

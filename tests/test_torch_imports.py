@@ -43,7 +43,11 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.csrc.build", "misaka_tpu_torch.utils.wire",
               "misaka_tpu_torch.parallel.mesh", "misaka_tpu_torch.core.trace",
               "misaka_tpu_torch.tis.disasm", "misaka_tpu_torch.debug",
-              "misaka_tpu_torch.__main__"):
+              "misaka_tpu_torch.__main__", "misaka_tpu_torch.utils.metrics",
+              "misaka_tpu_torch.utils.tracespan", "misaka_tpu_torch.utils.httpfast",
+              "misaka_tpu_torch.utils.jsonlog", "misaka_tpu_torch.utils.buildinfo",
+              "misaka_tpu_torch.utils.profiling", "misaka_tpu_torch.runtime.lifecycle",
+              "misaka_tpu_torch.runtime.edge"):
         assert m in report["modules"]
 
 
