@@ -45,7 +45,13 @@ must hold the kernel's CUDA events and the device loop's CPU ops and
 splits an iteration into kernel, copy and host time, the same load with
 MISAKA_TRACE_REQUESTS=0 (the tracing overhead); and the README env's B=1
 serve call split into feed upload, checks and clones, kernel and packed
-read, with the Server-Timing phases of quiet /compute.
+read, with the Server-Timing phases of quiet /compute.  Then add2 at
+B=262144 again behind N frontend worker processes (MISAKA_HTTP_WORKERS,
+runtime/frontends.py: the public port over SO_REUSEPORT, the engine fed
+through the compute plane): the same loads through the public port, the
+engine's iterations against the kernel's launches, plane frames, a
+/profile split set beside the observability phase's, and no worker left
+after the engine is terminated.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -653,11 +659,12 @@ ADD2_NODES = {"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
 
 @contextlib.contextmanager
 def served_app(label, node_info, programs, batch, chunk, caps, device=None, autorun=True,
-               **env_extra):
+               procs=None, **env_extra):
     """Boot `python -m misaka_tpu_torch.runtime.app`, wait until it runs
     (autorun=False: until it answers, paused), yield (port, boot seconds);
     stop it on the way out.  batch, chunk or caps None leave the variable
-    unset, as the reference README's quickstart does."""
+    unset, as the reference README's quickstart does.  `procs`, a list,
+    gets the server's Popen."""
     port = free_port()
     env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
     env.update(
@@ -681,6 +688,8 @@ def served_app(label, node_info, programs, batch, chunk, caps, device=None, auto
             [sys.executable, "-m", "misaka_tpu_torch.runtime.app"],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
         )
+    if procs is not None:
+        procs.append(proc)
     try:
         deadline = time.monotonic() + 240
         while True:
@@ -1605,6 +1614,153 @@ def phase_unbatched_observability(n_quiet=99, profile_requests=40, device=None, 
     return row
 
 
+# --- the multi-process front on the card -------------------------------------------
+
+
+def frontend_workers() -> int:
+    """4 workers, or half the cores on a machine with fewer than 8."""
+    cpus = os.cpu_count() or 1
+    return 4 if cpus >= 8 else max(1, cpus // 2)
+
+
+def frontend_pids(parent: int) -> list[int]:
+    """The frontend worker processes whose parent is `parent` (/proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue  # exited while we looked
+        if ppid == parent and b"misaka_tpu_torch.runtime.frontends" in cmd:
+            out.append(int(d))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_frontends(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client=40,
+                    n_quiet=99, stream_values=None, profile_per_client=10, workers=None,
+                    device=None, card=None, zero_workers=None):
+    """The batched main path (add2, the full kernel) behind the frontend
+    workers (MISAKA_HTTP_WORKERS=N, runtime/frontends.py): the loads of
+    the served phases through the public port, every answer checked (32 x
+    40 one-value /compute, 99 quiet /compute, 32 /compute_raw streams of
+    12,500 values); the engine's own reading between two paused windows
+    (iterations must equal the kernel's launches; chunk seconds, serve
+    queue delay, plane frames and values per frame); a /profile window
+    over 32 x 10 requests split by profile_split (the device loop's host ms
+    per iteration, to set beside `observability`'s, whose row is
+    `zero_workers`); last, the engine is terminated and no worker may be
+    left 5 s later.  device="cpu" rehearses it (no kernel: no profile; the
+    streams default to 400 values, the plain loop's pace)."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    workers = workers or frontend_workers()
+    stream_values = stream_values or (400 if device == "cpu" else 12_500)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    prof_dir = tempfile.mkdtemp(prefix="prof-fe-", dir=os.path.join(ROOT, "build"))
+    row = {"phase": "frontends", "card": card, "workers": workers,
+           "cpu_count": os.cpu_count(), "batch": batch, "chunk_steps": chunk, **MAIN_CAPS}
+    procs: list = []
+    try:
+        with served_app("frontends", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                        device=device, procs=procs, MISAKA_HTTP_WORKERS=str(workers),
+                        MISAKA_PROFILE_DIR=prof_dir,
+                        MISAKA_PLANE_SOCKET=os.path.join(prof_dir, "plane.sock")) as (port, boot_s):
+            from misaka_tpu_torch.runtime import frontends
+
+            deadline = time.monotonic() + 60
+            while status(port).get("frontends", {}).get("alive") != workers:
+                expect(time.monotonic() < deadline, f"{workers} workers not alive within 60 s")
+                time.sleep(0.2)
+            expect(frontends.wait_ready(port, timeout=30), "the public port does not answer")
+            pids = frontend_pids(procs[0].pid)
+            expect(len(pids) == workers, f"worker processes {pids}, want {workers}")
+            # every worker answers: more connections than workers, each
+            # one request (the kernel spreads them over the workers)
+            small_requests(port, 4 * workers, 1, base=9_000_000)
+            s0, m0 = paused_window(port), scrape(port)
+            expect(post_form(port, "/run")[0] == 200, "/run")
+            n, secs = small_requests(port, n_clients, per_client)
+            lat = []
+            for v in list(range(-49, 50))[:n_quiet]:
+                t = time.perf_counter()
+                code, body = post_form(port, "/compute", value=str(v))
+                lat.append(time.perf_counter() - t)
+                expect(code == 200 and json.loads(body) == {"value": v + 2}, f"/compute {v}")
+            rng = np.random.default_rng(SEED + 7)
+            streams = [rng.integers(-2**31, 2**31, stream_values, dtype=np.int64).astype(np.int32)
+                       for _ in range(n_clients)]
+            errors, raw_s = run_clients(n_clients, lambda i: check_raw(port, streams[i]))
+            expect(not errors, f"/compute_raw streams: {errors[:4]}")
+            s1, m1 = paused_window(port), scrape(port)
+            expect(post_form(port, "/run")[0] == 200, "/run")
+
+            def moved(name):
+                return m1.get(name, 0.0) - m0.get(name, 0.0)
+
+            serve = moved('misaka_device_loop_iterations_total{kind="serve"}')
+            idle = moved('misaka_device_loop_iterations_total{kind="idle"}')
+            launched = (sum(s1["kernel_launches"].values())
+                        - sum(s0["kernel_launches"].values()))
+            expect(device == "cpu" or serve + idle == launched > 0,
+                   f"iterations {serve} + {idle} != {launched} kernel launches")
+            chunk_h = histogram_summary(m0, m1, "misaka_device_loop_chunk_seconds")
+            expect(chunk_h["count"] == serve + idle, f"chunk histogram {chunk_h}")
+            frames = moved("misaka_plane_frames_total")
+            values = moved("misaka_compute_values_total")
+            expect(frames > 0, "no compute-plane frame in the window")
+            row.update({
+                "boot_s": boot_s, "small_requests": n, "small_s": secs,
+                "small_requests_per_s": n / secs,
+                "compute_latency_p50_ms": float(np.median(lat)) * 1e3,
+                "compute_latency_p90_ms": float(np.percentile(lat, 90)) * 1e3,
+                "raw_streams": n_clients, "raw_stream_values": stream_values,
+                "served_values_per_s": n_clients * stream_values / raw_s,
+                "iterations_serve": serve, "iterations_idle": idle,
+                "kernel_launches": launched, "chunk_seconds": chunk_h,
+                "serve_queue_delay": histogram_summary(
+                    m0, m1, "misaka_serve_queue_delay_seconds"),
+                "plane_frames": frames, "values_per_frame": values / frames,
+                "plane_pipelined_frames": moved("misaka_plane_pipelined_frames_total"),
+                "serve_passes": moved("misaka_serve_passes_total"),
+            })
+            if device != "cpu":
+                trace = take_profile(port, "frontends", lambda: small_requests(
+                    port, n_clients, profile_per_client, base=5_000_000))
+                row["profile"] = profile_split(trace)
+            expect(status(port)["frontends"]["restarts_total"] == 0, "a worker died")
+        # served_app terminated the engine: its workers must follow
+        t_kill = time.monotonic()
+        while any(pid_alive(p) for p in pids):
+            expect(time.monotonic() - t_kill < 5, "a frontend worker outlived its engine")
+            time.sleep(0.05)
+        row["workers_gone_s"] = time.monotonic() - t_kill
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    if zero_workers is not None:
+        row["zero_workers"] = {
+            "small_requests_per_s": zero_workers["small_requests_per_s"],
+            "chunk_seconds": zero_workers["chunk_seconds"],
+            "profile_host_ms": zero_workers.get("profile", {}).get("host_ms"),
+            "profile_one_client_host_ms": zero_workers.get("profile_one_client",
+                                                           {}).get("host_ms"),
+        }
+    emit(row)
+    return row
+
+
 def cuda_time_ms(fn, reps):
     """Mean device time per call of `fn` after one warm-up call."""
     import torch
@@ -1904,6 +2060,7 @@ def main() -> int:
     phase_traced()
     obs_row = phase_observability(card=smi)
     obs_unbatched_row = phase_unbatched_observability(card=smi)
+    fe_row = phase_frontends(card=smi, zero_workers=obs_row)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -1928,6 +2085,8 @@ def main() -> int:
                              "bound_ms": big["bound_ms"], "bound_by": big["bound_by"]},
             # launches between two paused readings of the observability phase
             "observability_window_launches": obs_row["kernel_launches"],
+            # the same behind the frontend workers (the frontends phase)
+            "frontends_window_launches": fe_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

@@ -9,15 +9,15 @@ The port's twin of misaka_tpu/__main__.py:
   debug    <topology>        interactive single-step debugger
                              (misaka_tpu_torch.debug), on the card unless
                              --device cpu (or MISAKA_DEVICE=cpu)
+  compute  <v...> [--url]    send values to a running master's /compute
 
 <topology> is a baseline config name (add2, acc_loop, ring4, sorter,
 mesh8 -- misaka_tpu_torch/networks.py) or a path to a declarative JSON file
 ({"nodes": {...}, "programs": {...}} -- runtime/topology.py).
 
 Not ported yet, each exits with status 2 and names its ROADMAP item:
-`compute` (it needs client.py), `bench`, `replay` and `usage-report`
-(unported planes), and docker-compose .yml topologies (runtime/compose.py
-and PyYAML).
+`bench` and docker-compose .yml topologies (runtime/compose.py and PyYAML;
+A.10), `replay` and `usage-report` (the telemetry planes; A.4).
 """
 
 from __future__ import annotations
@@ -29,10 +29,9 @@ import sys
 
 # command -> why it is missing: each answers with status 2
 NOT_PORTED = {
-    "compute": "needs client.py (ROADMAP A.7)",
-    "bench": "needs the benchmark harness (ROADMAP A.7)",
-    "replay": "needs the traffic capture plane and tools/replay.py (ROADMAP A.7)",
-    "usage-report": "needs the usage ledger plane (ROADMAP A.7)",
+    "bench": "needs the benchmark harness (ROADMAP A.10)",
+    "replay": "needs the traffic capture plane and tools/replay.py (ROADMAP A.4)",
+    "usage-report": "needs the usage ledger plane (ROADMAP A.4)",
 }
 NOT_PORTED_STATUS = 2
 
@@ -49,7 +48,7 @@ def _load_topology(spec: str):
         return networks.BASELINE_CONFIGS[spec]()
     if spec.endswith((".yml", ".yaml")):
         raise NotPorted(f"docker-compose topologies ({spec}) need runtime/compose.py "
-                        "and PyYAML (ROADMAP A.7)")
+                        "and PyYAML (ROADMAP A.10)")
     with open(spec) as f:
         return Topology.from_json(f.read())
 
@@ -81,6 +80,24 @@ def cmd_disasm(args) -> int:
     for name, text in texts.items():
         print(f"# --- {name} ---")
         print(text)
+    return 0
+
+
+def cmd_compute(args) -> int:
+    import urllib.error
+
+    from misaka_tpu_torch.client import MisakaClient, MisakaClientError
+
+    client = MisakaClient(args.url, timeout=args.timeout)
+    for v in args.values:
+        try:
+            print(json.dumps({"value": client.compute(v)}))
+        except MisakaClientError as e:
+            print(f"error: {e.body}", file=sys.stderr)
+            return 1
+        except urllib.error.URLError as e:
+            print(f"error: cannot reach {args.url}: {e.reason}", file=sys.stderr)
+            return 1
     return 0
 
 
@@ -164,6 +181,10 @@ def main(argv=None) -> int:
     p.add_argument("topology")
     p.add_argument("--device", default=os.environ.get("MISAKA_DEVICE") or None,
                    help="cuda (default) or cpu")
+    p = sub.add_parser("compute", help="POST values to a running master")
+    p.add_argument("values", nargs="+", type=int)
+    p.add_argument("--url", default="http://localhost:8000")
+    p.add_argument("--timeout", type=float, default=60.0)
     for name, why in NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported: {why}")
 
@@ -179,7 +200,8 @@ def main(argv=None) -> int:
         serve_main()
         return 0
     try:
-        return {"check": cmd_check, "disasm": cmd_disasm, "debug": cmd_debug}[args.command](args)
+        return {"check": cmd_check, "disasm": cmd_disasm, "debug": cmd_debug,
+                "compute": cmd_compute}[args.command](args)
     except NotPorted as e:
         print(f"error: {e}", file=sys.stderr)
         return NOT_PORTED_STATUS

@@ -15,7 +15,7 @@ Environment:
   MISAKA_ENGINE      auto (default: the fused kernel on the card, its plain
                      version on the CPU) | scan (the plain version) | fused
                      (require the kernel: batched and untraced); native
-                     (the reference's host C++ tier, ROADMAP A.5) and
+                     (the reference's host C++ tier, ROADMAP A.8) and
                      fused-interpret refuse to start, gather needs model
                      parallel
   MISAKA_TRACE_CAP   N > 0 records every tick of one instance in an N-tick
@@ -62,14 +62,29 @@ Environment:
   MISAKA_PIDFILE     pidfile path ("0"/"off": none; default under the
                      temp dir), removed at exit
   MISAKA_TTL_S / MISAKA_ORPHAN_OK  lifecycle guards (runtime/lifecycle.py)
+  MISAKA_HTTP_WORKERS  N > 0: N supervised frontend worker processes
+                     (runtime/frontends.py) share MISAKA_PORT over
+                     SO_REUSEPORT and feed this engine over a compute plane
+                     at MISAKA_PLANE_SOCKET (default <tmp>/misaka-plane-
+                     <pid>.sock; host:port for plaintext TCP); the engine's
+                     own HTTP server moves to a free port as their proxy
+                     target, and /healthz and /status carry `frontends`.
+                     MISAKA_PLANE_CONNS connections per worker (default 2)
+  MISAKA_PLANE_SERVE "1" serves the compute plane beside the engine's own
+                     listener when there are no workers
+  MISAKA_PLANE_WINDOW_US / _PIPELINE / _SHM / _SECRET[_FILE] / _DEPTH_MAX
+                     the plane's knobs (runtime/frontends.py, runtime/edge.py)
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
 MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), an API keyfile
 (MISAKA_API_KEYS or <MISAKA_PROGRAMS_DIR>/api_keys.json; A.2),
-MISAKA_PROGRAMS_DIR (A.3), MISAKA_HTTP_WORKERS > 1 (A.1), MISAKA_FLEET
-(A.6) and MISAKA_COORDINATOR (A.7).  MISAKA_FAULTS and MISAKA_SLO log one
-warning each and change nothing (A.4).
+MISAKA_PROGRAMS_DIR (A.3), MISAKA_FLEET, MISAKA_PLANE_TLS_CERT/KEY/CA and a
+comma-separated MISAKA_PLANE_SOCKET (A.6) and MISAKA_COORDINATOR (A.7).
+MISAKA_FAULTS and MISAKA_SLO log one warning each and change nothing
+(A.4).  The reference's native C++ edge (MISAKA_NATIVE_EDGE) is not ported
+(A.8): the CPython workers take the public port, as the reference's do
+when its native edge is unavailable, with one logged line.
 """
 
 from __future__ import annotations
@@ -89,7 +104,7 @@ if __name__ == "__main__":
     arm_boot_handlers()
 
 from misaka_tpu_torch import PPID_AT_IMPORT as _PPID_AT_START
-from misaka_tpu_torch.runtime import edge
+from misaka_tpu_torch.runtime import edge, frontends
 from misaka_tpu_torch.runtime.lifecycle import install_guards
 from misaka_tpu_torch.runtime.master import AutoCheckpointer, MasterNode, make_http_server
 from misaka_tpu_torch.runtime.topology import Topology
@@ -158,9 +173,10 @@ def check_env(environ=os.environ) -> None:
     if environ.get("MISAKA_PROGRAMS_DIR"):
         _refuse("MISAKA_PROGRAMS_DIR: the program registry is not ported yet "
                 "(ROADMAP A.3)")
-    if int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0) > 1:
-        _refuse("MISAKA_HTTP_WORKERS > 1: the frontend worker tier is not ported "
-                "yet (ROADMAP A.1)")
+    try:
+        frontends.check_plane_addr(plane_path(environ), environ)
+    except NotImplementedError as e:
+        _refuse(f"MISAKA_PLANE_SOCKET/MISAKA_PLANE_TLS_*: {e}")
     if int(environ.get("MISAKA_FLEET", "0") or 0) >= 1:
         _refuse("MISAKA_FLEET: the replicated engine fleet is not ported yet "
                 "(ROADMAP A.6)")
@@ -228,6 +244,12 @@ def _write_pidfile(environ=os.environ) -> str | None:
     return path
 
 
+def plane_path(environ=os.environ) -> str:
+    """MISAKA_PLANE_SOCKET, by default a socket under the temp dir."""
+    return environ.get("MISAKA_PLANE_SOCKET") or os.path.join(
+        tempfile.gettempdir(), f"misaka-plane-{os.getpid()}.sock")
+
+
 def _remove(path: str) -> None:
     try:
         os.unlink(path)
@@ -244,16 +266,21 @@ def main() -> None:
     else:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     master = build_master_from_env(environ)
-    autockpt = httpd = pidfile = None
+    autockpt = httpd = pidfile = plane = supervisor = None
 
     def stop() -> None:
-        # the device loop ends first (no launch after it), then the socket;
-        # a signal exits through os._exit, past atexit: drop the pidfile
-        # here, even when a signal that lands mid-/run makes the close raise
+        # the workers go first (no new frames), then the device loop (no
+        # launch after it), then the sockets; a signal exits through
+        # os._exit, past atexit: drop the pidfile here, even when a signal
+        # that lands mid-/run makes a close raise
         try:
+            if supervisor is not None:
+                supervisor.close()
             if autockpt is not None:
                 autockpt.close()
             master.close()
+            if plane is not None:
+                plane.close()
             if httpd is not None:
                 httpd.server_close()
         finally:
@@ -263,9 +290,34 @@ def main() -> None:
     install_guards(stop, environ, start_ppid=_PPID_AT_START)
     autockpt = arm_autockpt(master, environ)
     port = int(environ.get("MISAKA_PORT", "8000"))
-    httpd = make_http_server(master, port=port,
-                             checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None,
-                             profile_dir=environ.get("MISAKA_PROFILE_DIR") or None)
+    workers = int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0)
+    dirs = dict(checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None,
+                profile_dir=environ.get("MISAKA_PROFILE_DIR") or None)
+    if workers > 0:
+        # the multi-process front (runtime/frontends.py): the workers take
+        # the public port and terminate TLS; the engine's own server is
+        # their plain-HTTP proxy target on a free port
+        sys.setswitchinterval(0.001)  # many handler threads: no convoys
+        httpd = make_http_server(master, port=0, tls=False, **dirs)
+        engine_port = httpd.server_address[1]
+        path = plane_path(environ)
+        plane = httpd.misaka_plane = frontends.start_compute_plane(master, path)
+        if environ.get("MISAKA_NATIVE_EDGE", "1") != "0" and not environ.get("MISAKA_TLS_CERT"):
+            log.warning("native edge unavailable (not ported: ROADMAP A.8); CPython workers "
+                        "take the public port")
+        supervisor = httpd.misaka_supervisor = frontends.FrontendSupervisor(
+            workers, port, f"http://127.0.0.1:{engine_port}", path,
+            plane_conns=int(environ.get("MISAKA_PLANE_CONNS", "2")))
+        log.info("engine http on 127.0.0.1:%d; %d supervised frontend workers on :%d "
+                 "(plane %s)", engine_port, workers, port, path)
+    else:
+        httpd = make_http_server(master, port=port, **dirs)
+        if environ.get("MISAKA_PLANE_SERVE") == "1":
+            # a plane with no workers of its own: frontends elsewhere on
+            # this host connect to it, and POST /fleet/drain drives it
+            path = plane_path(environ)
+            plane = httpd.misaka_plane = frontends.start_compute_plane(master, path)
+            log.info("compute plane serving at %s", path)
     pidfile = _write_pidfile(environ)
     if pidfile:
         log.info("pidfile %s", pidfile)
@@ -276,10 +328,7 @@ def main() -> None:
     try:
         httpd.serve_forever()
     finally:
-        if autockpt is not None:
-            autockpt.close()
-        httpd.server_close()
-        master.close()
+        stop()
 
 
 if __name__ == "__main__":

@@ -28,11 +28,12 @@ Kept from the JAX master, with the same behaviour:
 
 `make_http_server` keeps POST /run /pause /reset /load /compute
 /compute_batch /compute_raw /checkpoint /restore /profile/start
-/profile/stop and GET /status, /metrics, /healthz, /debug/requests,
-/debug/perfetto, /debug/isa_trace and /trace (its deprecated alias) with
-the JAX server's bodies and status codes, the request trace around every
-handler (`X-Misaka-Trace` in and out, `Server-Timing`), the fast request
-parser (MISAKA_FAST_HTTP) and TLS (MISAKA_TLS_CERT/KEY).
+/profile/stop /fleet/drain and GET /status, /metrics, /healthz,
+/debug/requests, /debug/perfetto, /debug/isa_trace and /trace (its
+deprecated alias) with the JAX server's bodies and status codes, the
+request trace around every handler (`X-Misaka-Trace` in and out,
+`Server-Timing`), the fast request parser (MISAKA_FAST_HTTP) and TLS
+(MISAKA_TLS_CERT/KEY).
 
 Observability (the reference's, for what the port runs): the `M_*`
 series below under the reference's names, types and labels, served at GET
@@ -693,7 +694,7 @@ class MasterNode:
         if engine == "native":
             raise NotImplementedError(
                 "engine='native': the host C++ interpreter tier is not ported yet "
-                "(ROADMAP A.5)")
+                "(ROADMAP A.8)")
         if engine == "fused-interpret":
             raise ValueError(
                 "engine='fused-interpret': the port has no kernel interpreter; the "
@@ -703,7 +704,7 @@ class MasterNode:
         if model_parallel is not None and int(model_parallel) > 1:
             raise NotImplementedError(
                 f"model_parallel={model_parallel}: lane-sharded serving is not "
-                "ported yet (ROADMAP A.6)")
+                "ported yet (ROADMAP A.7)")
         if trace_cap and not (0 <= trace_instance < (batch or 1)):
             raise ValueError(
                 f"trace_instance {trace_instance} out of range [0, {batch or 1})")
@@ -980,11 +981,14 @@ class MasterNode:
                 self._waiters -= 1
             self._compute_locks[slot].release()
 
-    def compute_coalesced(self, values, timeout: float = 30.0, return_array: bool = False):
+    def compute_coalesced(self, values, timeout: float = 30.0, return_array: bool = False,
+                          traces=None):
         """A value stream through the serve scheduler: len(values) in,
         len(values) out, order kept, and concurrent callers fuse into
         shared passes.  Falls back to compute_spread when the scheduler is
-        off (MISAKA_SERVE_BATCH=0)."""
+        off (MISAKA_SERVE_BATCH=0).  `traces`: the request traces that get
+        the serve.queue and serve.pass spans (default: the handler
+        thread's current trace; the compute plane passes a frame's)."""
         arr = np.asarray(values, dtype=np.int32)
         if arr.ndim != 1:
             raise ValueError(f"values must be a flat sequence, got shape {arr.shape}")
@@ -992,9 +996,11 @@ class MasterNode:
             return np.empty((0,), np.int32) if return_array else []
         if self._batcher is None:
             return self.compute_spread(arr, timeout=timeout, return_array=return_array)
-        # the handler's trace, handed across to the scheduler's workers
-        tr = tracespan.current()
-        out = self._batcher.compute(arr, timeout, traces=(tr,) if tr is not None else ())
+        if traces is None:
+            # the handler's trace, handed across to the scheduler's workers
+            tr = tracespan.current()
+            traces = (tr,) if tr is not None else ()
+        out = self._batcher.compute(arr, timeout, traces=traces)
         return out if return_array else out.tolist()
 
     def compute_spread(self, values, timeout: float = 30.0, return_array: bool = False):
@@ -1682,11 +1688,15 @@ def make_http_server(master: MasterNode, port: int = 8000,
                      profile_dir: str | None = None,
                      tls=None) -> ThreadingHTTPServer:
     """The reference's client routes (master.go:90-224) plus /compute_batch,
-    /compute_raw, /checkpoint, /restore, /profile/start|stop, GET /status,
-    /metrics, /healthz, /debug/requests, /debug/perfetto and
+    /compute_raw, /checkpoint, /restore, /profile/start|stop, /fleet/drain,
+    GET /status, /metrics, /healthz, /debug/requests, /debug/perfetto and
     /debug/isa_trace (with /trace, its deprecated alias), with the JAX
-    server's bodies and status codes.  /checkpoint and /restore answer 403
-    unless `checkpoint_dir` is set, /profile/* unless `profile_dir` is;
+    server's bodies and status codes.  The app sets the server's
+    `misaka_supervisor` (the frontend workers: /status and /healthz carry
+    its `frontends` block) and `misaka_plane` (the compute plane
+    /fleet/drain drains; 404 without one), as the reference's does.
+    /checkpoint and /restore answer 403 unless `checkpoint_dir` is set,
+    /profile/* unless `profile_dir` is;
     clients name a checkpoint or profile, never a path.  tls=None reads
     MISAKA_TLS_CERT/KEY (runtime/edge.py), False serves plain HTTP, an
     SSLContext wraps the listener with it."""
@@ -1841,6 +1851,9 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 if path == "/status":
                     payload = master.status()
                     payload["build"] = buildinfo.info()
+                    sup = getattr(self.server, "misaka_supervisor", None)
+                    if sup is not None:
+                        payload["frontends"] = sup.state()
                     self._json(payload)
                 elif path == "/metrics":
                     self._send(200, metrics.render().encode(), metrics.CONTENT_TYPE)
@@ -1878,15 +1891,23 @@ def make_http_server(master: MasterNode, port: int = 8000,
             device read.  Only the planes the port runs report a block."""
             trace_b = tracespan.mem_bytes()
             M_DEBUG_MEM.labels(plane="trace").set(trace_b)
-            return {
+            payload = {
                 "ok": True,
                 "engine": master.engine_name,
                 "running": master.is_running,
                 "uptime_seconds": round(time.monotonic() - boot_mono, 3),
                 # /compute_raw takes the headered binary form (utils/wire.py)
                 "wire_binary": True,
-                "debug_mem": {"trace_bytes": trace_b, "total_bytes": trace_b},
             }
+            # the frontend supervisor (runtime/app.py sets it): a shrunk or
+            # crash-looping worker pool is never silent; `ok` stays liveness
+            sup = getattr(self.server, "misaka_supervisor", None)
+            if sup is not None:
+                payload["frontends"] = sup.state()
+            payload["debug_mem"] = {"trace_bytes": trace_b, "total_bytes": trace_b}
+            if sup is not None:
+                payload["degraded"] = payload["frontends"]["degraded"]
+            return payload
 
         def _isa_trace(self, parsed) -> None:
             """The instruction history (core/trace.py).  /trace is the old
@@ -1992,6 +2013,20 @@ def make_http_server(master: MasterNode, port: int = 8000,
                         self._text(400, f"error restoring checkpoint: {e}")
                         return
                 self._text(200, "Success")
+            elif path == "/fleet/drain":
+                # drain the compute plane (runtime/frontends.py): new frames
+                # answer the reroute status; report quiescence
+                form = self._form()  # body first (keep-alive)
+                plane = getattr(self.server, "misaka_plane", None)
+                if plane is None:
+                    self._text(404, "no compute plane on this server (a fleet replica runs "
+                                    "with MISAKA_PLANE_SERVE=1)")
+                    return
+                on = form.get("state", "on") != "off"
+                plane.set_draining(on)
+                # the in-flight gauge counts this request too
+                self._json({"draining": on, "inflight": plane.inflight(),
+                            "http_inflight": max(0, int(M_HTTP_INFLIGHT.value) - 1)})
             elif path == "/profile/start":
                 # a torch.profiler capture of the live device loop
                 name = self._form().get("name", "profile")  # body first

@@ -13,9 +13,10 @@ One test per open fault of ROADMAP C, each failing before the fix:
   to the one before, the interval snapshots rotate to `keep`, and a
   restarted app resumes its state;
 
-and the same class at lower stakes: MISAKA_PROGRAMS_DIR,
-MISAKA_HTTP_WORKERS > 1, MISAKA_FLEET and MISAKA_COORDINATOR refuse;
-MISAKA_FAULTS and MISAKA_SLO log one warning each.
+and the same class at lower stakes: MISAKA_PROGRAMS_DIR, MISAKA_FLEET,
+MISAKA_PLANE_TLS_CERT, a comma-separated MISAKA_PLANE_SOCKET and
+MISAKA_COORDINATOR refuse; MISAKA_FAULTS and MISAKA_SLO log one warning
+each.  (MISAKA_HTTP_WORKERS is served: tests/test_torch_frontends.py.)
 """
 
 import http.client
@@ -408,10 +409,11 @@ def test_c5_restarted_app_resumes_from_its_auto_snapshot(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     ({"MISAKA_PROGRAMS_DIR": "programs"}, "A.3"),
-    ({"MISAKA_HTTP_WORKERS": "2"}, "A.1"),
     ({"MISAKA_FLEET": "2"}, "A.6"),
+    ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_TLS_CERT": "plane.pem"}, "A.6"),
+    ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_SOCKET": "/tmp/a.sock,/tmp/b.sock"}, "A.6"),
     ({"MISAKA_COORDINATOR": "127.0.0.1:1234"}, "A.7"),
-], ids=["programs_dir", "http_workers", "fleet", "coordinator"])
+], ids=["programs_dir", "fleet", "plane_tls", "plane_paths", "coordinator"])
 def test_unported_planes_refuse_at_boot(extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}") as exc:
         app.check_env({**ADD2_ENV, **extra})

@@ -2,7 +2,9 @@
 
 A fresh interpreter imports every module of the port plus chip_smoke.py
 and reports what the imports added to sys.modules; neither `jax` nor
-`misaka_tpu` (or any submodule) may appear.  chip_smoke.py must refuse to
+`misaka_tpu` (or any submodule) may appear.  The frontend worker's modules
+(runtime/frontends.py, client.py, utils/backoff.py) import no torch
+either: a worker process must not pay for it.  chip_smoke.py must refuse to
 report a result without a card, and when it is alone in a directory.
 """
 
@@ -47,8 +49,28 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.utils.tracespan", "misaka_tpu_torch.utils.httpfast",
               "misaka_tpu_torch.utils.jsonlog", "misaka_tpu_torch.utils.buildinfo",
               "misaka_tpu_torch.utils.profiling", "misaka_tpu_torch.runtime.lifecycle",
-              "misaka_tpu_torch.runtime.edge"):
+              "misaka_tpu_torch.runtime.edge", "misaka_tpu_torch.runtime.frontends",
+              "misaka_tpu_torch.client", "misaka_tpu_torch.utils.backoff"):
         assert m in report["modules"]
+
+
+LEAN_PROBE = r"""
+import json, sys
+before = set(sys.modules)
+sys.path.insert(0, sys.argv[1])
+import misaka_tpu_torch.runtime.frontends, misaka_tpu_torch.client, misaka_tpu_torch.utils.backoff
+added = set(sys.modules) - before
+print(json.dumps(sorted(k for k in added
+                        if k.split(".")[0] in ("torch", "jax", "jaxlib", "misaka_tpu"))))
+"""
+
+
+def test_frontend_worker_modules_import_no_torch():
+    out = subprocess.run(
+        [sys.executable, "-c", LEAN_PROBE, ROOT], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _run_smoke(cwd):

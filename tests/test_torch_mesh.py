@@ -212,7 +212,7 @@ def test_mesh_requires_divisibility_and_refuses_model_parallel():
         MasterNode(networks.add2(), device="cpu", data_parallel=8)  # unbatched
     with pytest.raises(ValueError, match="batch 3 not divisible by data_parallel=2"):
         MasterNode(networks.add2(), batch=3, device="cpu", data_parallel=2)
-    with pytest.raises(NotImplementedError, match="model_parallel=2.*A.6"):
+    with pytest.raises(NotImplementedError, match="model_parallel=2.*A.7"):
         MasterNode(networks.add2(), batch=2, device="cpu", model_parallel=2)
     plain = MasterNode(networks.add2(**CAPS), batch=2, device="cpu")
     assert "mesh" not in plain.status()

@@ -35,12 +35,14 @@ import pytest
 import torch
 
 from misaka_tpu import networks as jnet
+from misaka_tpu.runtime import frontends as _jfrontends  # noqa: F401 (its series)
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
 from misaka_tpu.utils import metrics as jmetrics
 from misaka_tpu.utils import tracespan as jtracespan
 from misaka_tpu.utils.jsonlog import JsonFormatter as JJsonFormatter
 from misaka_tpu_torch import networks as tnet
+from misaka_tpu_torch.runtime import frontends as _tfrontends  # noqa: F401 (its series)
 from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
 from misaka_tpu_torch.utils import metrics as tmetrics
@@ -217,7 +219,10 @@ def test_series_catalog_matches_the_reference():
                      "misaka_serve_queue_delay_seconds", "misaka_serve_waiting_requests",
                      "misaka_serve_passes_total", "misaka_serve_lane_entries_total",
                      "misaka_http_inflight", "misaka_http_request_duration_seconds",
-                     "misaka_debug_mem_bytes", "misaka_build_info"):
+                     "misaka_debug_mem_bytes", "misaka_build_info",
+                     "misaka_plane_frames_total", "misaka_plane_pipelined_frames_total",
+                     "misaka_plane_shm_frames_total", "misaka_plane_pipeline_depth",
+                     "misaka_frontend_restarts_total", "misaka_frontend_workers_alive"):
             assert name in names, name
         # planes the port has not taken stay absent, not faked
         assert not any(n.startswith(("misaka_native_", "misaka_slo_", "misaka_usage_",

@@ -575,7 +575,7 @@ def test_engine_refusals_match_jax(kw):
 
 
 def test_port_only_engine_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         TMaster(tnet.add2(**CAPS), engine="native", device="cpu")
     with pytest.raises(ValueError, match="no kernel interpreter.*engine='scan'"):
         TMaster(tnet.add2(**CAPS), engine="fused-interpret", device="cpu")
@@ -666,7 +666,7 @@ def test_app_reads_trace_instance():
 @pytest.mark.parametrize("batch", [None, "2"], ids=["unbatched", "batched"])
 def test_app_reads_engine(batch):
     env = {**README_ENV, "MISAKA_DEVICE": "cpu", **({"MISAKA_BATCH": batch} if batch else {})}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         app.build_master_from_env({**env, "MISAKA_ENGINE": "native"})
     with pytest.raises(ValueError, match="engine must be"):
         app.build_master_from_env({**env, "MISAKA_ENGINE": "bogus"})
