@@ -51,7 +51,13 @@ runtime/frontends.py: the public port over SO_REUSEPORT, the engine fed
 through the compute plane): the same loads through the public port, the
 engine's iterations against the kernel's launches, plane frames, a
 /profile split set beside the observability phase's, and no worker left
-after the engine is terminated.
+after the engine is terminated.  The `edge` phase arms the edge on the
+same path behind the workers (API keys, a per-tenant quota, a token
+secret): every typed 401/403/429 and its headers, recovery after
+Retry-After, a minted token, the workers' shed counts booked by the
+engine; admission shedding a flooding tenant's B-value bodies while a light
+tenant's requests all pass; and the edge's cost, the default env against
+MISAKA_EDGE=0 in turns a b b a, behind the workers and with none.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -657,14 +663,9 @@ ADD2_NODES = {"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
               "misaka3": {"type": "stack"}}
 
 
-@contextlib.contextmanager
-def served_app(label, node_info, programs, batch, chunk, caps, device=None, autorun=True,
-               procs=None, **env_extra):
-    """Boot `python -m misaka_tpu_torch.runtime.app`, wait until it runs
-    (autorun=False: until it answers, paused), yield (port, boot seconds);
-    stop it on the way out.  batch, chunk or caps None leave the variable
-    unset, as the reference README's quickstart does.  `procs`, a list,
-    gets the server's Popen."""
+def _start_app(label, node_info, programs, batch, chunk, caps, device=None, autorun=True,
+               **env_extra):
+    """Spawn `python -m misaka_tpu_torch.runtime.app`: (Popen, port, t_boot)."""
     port = free_port()
     env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
     env.update(
@@ -688,27 +689,66 @@ def served_app(label, node_info, programs, batch, chunk, caps, device=None, auto
             [sys.executable, "-m", "misaka_tpu_torch.runtime.app"],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
         )
-    if procs is not None:
-        procs.append(proc)
-    try:
-        deadline = time.monotonic() + 240
-        while True:
-            expect(proc.poll() is None, f"{label}: server exited early (rc {proc.returncode})")
-            try:
-                if status(port)["running"] or not autorun:
-                    break
-            except (urllib.error.URLError, ConnectionError, OSError):
-                pass
-            expect(time.monotonic() < deadline, f"{label}: server not ready within 240 s")
-            time.sleep(0.5)
-        yield port, time.perf_counter() - t_boot
-    finally:
-        proc.terminate()
+    return proc, port, t_boot
+
+
+def _await_app(label, proc, port, autorun=True):
+    """Wait until the server runs (autorun=False: until it answers,
+    paused); /healthz needs no key, whatever the edge asks of others."""
+    deadline = time.monotonic() + 240
+    while True:
+        expect(proc.poll() is None, f"{label}: server exited early (rc {proc.returncode})")
         try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
+            if json.loads(http(port, "/healthz", timeout=60)[1])["running"] or not autorun:
+                return
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        expect(time.monotonic() < deadline, f"{label}: server not ready within 240 s")
+        time.sleep(0.5)
+
+
+def _stop_app(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+@contextlib.contextmanager
+def served_apps(specs, procs=None):
+    """Boot several apps at once (each spec: served_app's arguments as a
+    dict, `label` first), wait until all run, yield [(port, boot seconds)];
+    stop them all on the way out.  `procs`, a list, gets the Popens."""
+    started = []
+    try:
+        for spec in specs:
+            started.append(_start_app(**spec))
+            if procs is not None:
+                procs.append(started[-1][0])
+        out = []
+        for spec, (proc, port, t_boot) in zip(specs, started):
+            _await_app(spec["label"], proc, port, spec.get("autorun", True))
+            out.append((port, time.perf_counter() - t_boot))
+        yield out
+    finally:
+        for proc, _, _ in started:
+            _stop_app(proc)
+
+
+@contextlib.contextmanager
+def served_app(label, node_info, programs, batch, chunk, caps, device=None, autorun=True,
+               procs=None, **env_extra):
+    """Boot `python -m misaka_tpu_torch.runtime.app`, wait until it runs
+    (autorun=False: until it answers, paused), yield (port, boot seconds);
+    stop it on the way out.  batch, chunk or caps None leave the variable
+    unset, as the reference README's quickstart does.  `procs`, a list,
+    gets the server's Popen."""
+    spec = dict(label=label, node_info=node_info, programs=programs, batch=batch, chunk=chunk,
+                caps=caps, device=device, autorun=autorun, **env_extra)
+    with served_apps([spec], procs=procs) as [(port, boot_s)]:
+        yield port, boot_s
 
 
 def run_clients(n, target):
@@ -1761,6 +1801,365 @@ def phase_frontends(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client
     return row
 
 
+# --- the edge: API keys, quotas, admission and tenant tokens ---------------------
+
+EDGE_KEYS = [
+    {"key": "edge-admin", "tenant": "ops", "admin": True},
+    {"key": "edge-alice", "tenant": "alice"},
+    {"key": "edge-bob", "tenant": "bob", "quota": "rps<5"},
+    {"key": "edge-eve", "tenant": "eve", "disabled": True},
+    {"key": "edge-pin", "tenant": "pin", "programs": ["dense"]},
+    {"key": "edge-flood", "tenant": "flood"},
+]
+ADMIN = {"X-Misaka-Key": "edge-admin"}
+CHALLENGE = 'Bearer realm="misaka", charset="UTF-8"'
+
+
+def call(port, path, data=None, headers=None, timeout=120):
+    """(status, headers, body) of one request, error statuses included."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def keyed_compute(port, key, v, headers=None):
+    """One /compute as `key`: (status, headers, body, seconds)."""
+    t = time.perf_counter()
+    c, h, b = call(port, "/compute", f"value={v}".encode(),
+                   {"X-Misaka-Key": key, **(headers or {})})
+    return c, h, b, time.perf_counter() - t
+
+
+def keyed_window(port):
+    """/pause, then /status, as the admin key."""
+    expect(call(port, "/pause", b"", ADMIN)[0] == 200, "/pause as admin")
+    return json.loads(call(port, "/status", headers=ADMIN)[2])
+
+
+def latency_ms(secs):
+    return {"n": len(secs), "p50_ms": float(np.median(secs)) * 1e3 if secs else None,
+            "p90_ms": float(np.percentile(secs, 90)) * 1e3 if secs else None}
+
+
+def edge_drill(port, workers):
+    """Every typed answer of the edge behind the workers, each checked."""
+    row = {}
+    c, h, b = call(port, "/compute", b"value=1")
+    expect(c == 401 and h.get("WWW-Authenticate") == CHALLENGE
+           and b == b"API key required (X-Misaka-Key header or Authorization: Bearer <key>)",
+           f"/compute without a key -> {c} {b!r}")
+    c, h, b = call(port, "/status")
+    expect(c == 401 and h.get("WWW-Authenticate") == CHALLENGE, f"/status without a key -> {c}")
+    c, h, b = call(port, "/compute_raw", np.arange(4, dtype="<i4").tobytes())
+    expect(c == 401 and h.get("WWW-Authenticate") == CHALLENGE, f"/compute_raw no key -> {c}")
+    c, _, b = call(port, "/pause", b"", {"X-Misaka-Key": "edge-alice"})
+    expect(c == 403 and b == b"this route requires an admin-scoped API key",
+           f"/pause as a tenant -> {c} {b!r}")
+    expect(keyed_compute(port, "edge-eve", 1)[:3:2] == (403, b"API key disabled"),
+           "the disabled key")
+    c, _, b, _ = keyed_compute(port, "edge-pin", 1, {"X-Misaka-Program": "other"})
+    expect((c, b) == (403, b"API key not authorized for program 'other'"),
+           f"the program-pinned key off its program -> {c} {b!r}")
+    for key in ("edge-pin", "edge-admin", "edge-alice"):
+        c, _, b, _ = keyed_compute(port, key, 40)
+        expect((c, json.loads(b)) == (200, {"value": 42}), f"/compute as {key} -> {c} {b!r}")
+    # bob (rps<5, a burst of 10) on the plane path while alice computes
+    stop = threading.Event()
+    alice: list = []
+
+    def neighbour():
+        v = 1_000_000
+        while not stop.is_set():
+            c, _, b, secs = keyed_compute(port, "edge-alice", v)
+            alice.append((c == 200 and json.loads(b) == {"value": v + 2}, secs))
+            v += 1
+
+    th = threading.Thread(target=neighbour)
+    th.start()
+    vals = np.arange(16, dtype=np.int32)
+    bob = {"admitted": 0, "rejected": 0, "retry_after": 0, "t_end": None, "bad": []}
+    lock = threading.Lock()
+
+    def bob_client(i):
+        # four at once: bob outruns his 5 requests/s on any host
+        while True:
+            c, h, b = call(port, "/compute_raw?spread=1", vals.astype("<i4").tobytes(),
+                           {"X-Misaka-Key": "edge-bob"})
+            with lock:
+                if c == 200 and np.array_equal(np.frombuffer(b, "<i4"), vals + 2):
+                    bob["admitted"] += 1
+                elif (c == 429 and h.get("Retry-After", "").isdigit()
+                      and b == b"request rate quota exhausted (5 requests/s)"):
+                    bob["rejected"] += 1
+                    bob["retry_after"] = max(bob["retry_after"], int(h["Retry-After"]))
+                    bob["t_end"] = bob["t_end"] or time.monotonic() + 1.0  # 1 s more
+                else:
+                    bob["bad"].append((c, b[:200]))
+                if (bob["bad"] or bob["admitted"] + bob["rejected"] >= 400
+                        or (bob["t_end"] and time.monotonic() > bob["t_end"])):
+                    return
+
+    try:
+        errors, _ = run_clients(4, bob_client)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    expect(not errors and not bob["bad"], f"bob: {errors[:4]} {bob['bad'][:4]}")
+    retry = bob.pop("retry_after")
+    del bob["t_end"], bob["bad"]
+    expect(bob["rejected"] > 0 and bob["admitted"] >= 10, f"bob's burst: {bob}")
+    expect(alice and all(ok for ok, _ in alice), "alice's answers during bob's burst")
+    expect(max(s for _, s in alice) < 2.0, "alice waited 2 s or more beside bob")
+    # recovery after the advertised wait
+    time.sleep(retry + 0.2)
+    c, _, b = call(port, "/compute_raw?spread=1", vals.astype("<i4").tobytes(),
+                   {"X-Misaka-Key": "edge-bob"})
+    expect(c == 200, f"bob after Retry-After {retry} s -> {c} {b!r}")
+    # a signed tenant token serves; a tampered one does not
+    c, _, b = call(port, "/edge/token", b"tenant=carol&ttl=60", ADMIN)
+    expect(c == 200, f"/edge/token -> {c} {b!r}")
+    token = json.loads(b)["token"]
+    c, _, b, _ = keyed_compute(port, token, 5)
+    expect((c, json.loads(b)) == (200, {"value": 7}), f"/compute with a token -> {c} {b!r}")
+    bad = token[:-10] + ("A" if token[-10] != "A" else "B") + token[-9:]
+    c, _, b, _ = keyed_compute(port, bad, 5)
+    expect((c, b) == (401, b"tenant token invalid"), f"a tampered token -> {c} {b!r}")
+    # the workers' shed-cache hits reach the engine's series once each
+    # worker has shipped a frame: new connections spread over the workers
+    series = 'misaka_edge_rejected_total{reason="rate",tenant="bob"}'
+    deadline = time.monotonic() + 15
+    while True:
+        for v in range(8 * workers):
+            expect(keyed_compute(port, "edge-alice", v)[0] == 200, "alice's flush request")
+        booked = scrape(port).get(series, 0.0)
+        if booked >= bob["rejected"] or time.monotonic() > deadline:
+            break
+    expect(booked == bob["rejected"], f"{series} = {booked}, bob saw {bob['rejected']} 429s")
+    row.update(bob=bob, bob_retry_after_s=retry, bob_rejected_booked=booked,
+               alice_beside_bob=latency_ms([s for _, s in alice]))
+    return row
+
+
+def admission_drill(port, flood_values, flooders, flood_s):
+    """`flooders` clients post flood_values-value /compute_raw bodies as
+    tenant "flood" while alice sends one-value /compute: the flood fills
+    the backlog past the soft watermark and is shed; alice is not."""
+    s0, m0 = keyed_window(port), scrape(port)
+    expect(call(port, "/run", b"", ADMIN)[0] == 200, "/run as admin")
+    rng = np.random.default_rng(SEED + 11)
+    bodies = [rng.integers(-2**31, 2**31, flood_values, dtype=np.int64).astype(np.int32)
+              for _ in range(flooders)]
+    stop = threading.Event()
+    flood = collections.Counter()
+    alice: list = []
+
+    def flooder(i):
+        body, want = bodies[i].astype("<i4").tobytes(), wrap_i32(bodies[i].astype(np.int64) + 2)
+        while not stop.is_set():
+            try:
+                c, h, b = call(port, "/compute_raw?spread=1", body,
+                               {"X-Misaka-Key": "edge-flood"})
+            except (ConnectionResetError, BrokenPipeError, urllib.error.URLError) as e:
+                # a worker that sheds a bulk body closes without reading
+                # it (edge.drain_or_close): the 429 can be lost to the reset
+                if isinstance(e, urllib.error.URLError) and not isinstance(
+                        e.reason, (ConnectionResetError, BrokenPipeError)):
+                    raise
+                flood["reset"] += 1
+                time.sleep(0.02)
+                continue
+            if c == 200:
+                if not np.array_equal(np.frombuffer(b, "<i4"), want):
+                    raise RuntimeError("a flood answer differs")
+            elif c == 429 and h.get("Retry-After"):
+                time.sleep(0.02)  # knock again soon: the drill wants pressure
+            else:
+                raise RuntimeError(f"flood -> {c} {b[:200]!r}")
+            flood[c] += 1
+
+    def light(i):
+        v = 2_000_000 + i * 100_000
+        while not stop.is_set():
+            c, _, b, secs = keyed_compute(port, "edge-alice", v)
+            alice.append((c, c == 200 and json.loads(b) == {"value": v + 2}, secs))
+            v += 1
+
+    errors: list = []
+
+    def guarded(fn, i):
+        try:
+            fn(i)
+        except Exception as e:  # recorded, and the drill stops
+            errors.append(repr(e))
+            stop.set()
+
+    threads = ([threading.Thread(target=guarded, args=(light, i), daemon=True)
+                for i in range(4)]
+               + [threading.Thread(target=guarded, args=(flooder, i), daemon=True)
+                  for i in range(flooders)])
+    for th in threads:
+        th.start()
+    time.sleep(flood_s)
+    stop.set()
+    for th in threads:
+        th.join(timeout=120)
+    s1, m1 = keyed_window(port), scrape(port)
+    expect(call(port, "/run", b"", ADMIN)[0] == 200, "/run as admin")
+
+    def moved(name):
+        return m1.get(name, 0.0) - m0.get(name, 0.0)
+
+    serve = moved('misaka_device_loop_iterations_total{kind="serve"}')
+    idle = moved('misaka_device_loop_iterations_total{kind="idle"}')
+    launched = sum(s1["kernel_launches"].values()) - sum(s0["kernel_launches"].values())
+    alice_429 = sum(1 for c, _, _ in alice if c == 429)
+    expect(not errors and flood[200] > 0, f"the flood: {dict(flood)} {errors[:4]}")
+    expect(alice and alice_429 == 0 and all(ok for _, ok, _ in alice),
+           f"alice beside the flood: {len(alice)} requests, {alice_429} 429s")
+    return {"flood_values": flood_values, "flooders": flooders, "flood_s": flood_s,
+            "flood_200": flood[200], "flood_429": flood[429], "flood_reset": flood["reset"],
+            "flood_shed_booked": moved('misaka_edge_rejected_total{reason="overload",'
+                                       'tenant="flood"}'),
+            "alice_requests": len(alice), "alice_429": alice_429,
+            "alice": latency_ms([s for _, _, s in alice]),
+            "iterations_serve": serve, "iterations_idle": idle, "kernel_launches": launched,
+            "iterations_equal_launches": serve + idle == launched}
+
+
+def cost_turn(port, n_clients, per_client, n_quiet):
+    """The small-request rate and quiet /compute p50/p90 of one server."""
+    expect(post_form(port, "/run")[0] == 200, "/run")
+    n, secs = small_requests(port, n_clients, per_client)
+    lat = []
+    for v in range(n_quiet):
+        t = time.perf_counter()
+        code, body = post_form(port, "/compute", value=str(v))
+        lat.append(time.perf_counter() - t)
+        expect(code == 200 and json.loads(body) == {"value": v + 2}, f"/compute {v}")
+    expect(post_form(port, "/pause")[0] == 200, "/pause")
+    return {"small_requests_per_s": n / secs, **latency_ms(lat)}
+
+
+def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=40,
+               n_quiet=49, flooders=6, flood_s=5.0, device=None, card=None):
+    """The edge on the main path (add2 at B, the full kernel) behind N
+    frontend workers, in three sets of servers, each set booted at once:
+
+    - the drill: a key file (an admin key, two tenant keys, bob's with
+      `rps<5`, a disabled key, a program-pinned key) and a token secret:
+      401 with the challenge without a key (compute and /status), 403 off
+      scope and for the disabled key, bob's 429 with Retry-After on the
+      plane path while alice's answers stay right and on time, recovery
+      after the advertised wait, a minted token that serves and a tampered
+      one that gets 401, and bob's 429s all booked in the engine's series;
+    - admission: the same keys with MISAKA_ADMISSION_HIGH at 4 flood
+      bodies and one pass of B/8 values at a time (MISAKA_BATCH_PASSES=1,
+      MISAKA_BATCH_MAX=B/8: the engine drains slower than `flooders`
+      clients post B-value bodies, so the backlog sits between the soft
+      watermark and the hard one, which 6 bodies cannot reach): the
+      flood's 429s (some), alice's (none), her p50/p90, iterations against
+      launches;
+    - the edge's cost: the default env (the chain armed with an empty
+      quota, as the reference's default boot) against MISAKA_EDGE=0, in
+      turns a b b a, behind the workers and with none: 32 x 40 one-value
+      /compute and quiet /compute p50/p90.  The servers not measured are
+      paused.
+
+    device="cpu" rehearses it at a small B."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    workers = workers or frontend_workers()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="edge-", dir=os.path.join(ROOT, "build"))
+    keys = os.path.join(tmp, "keys.json")
+    with open(keys, "w") as f:
+        json.dump({"keys": EDGE_KEYS}, f)
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device)
+    flood_values = batch
+    row = {"phase": "edge", "card": card, "workers": workers, "cpu_count": os.cpu_count(),
+           "batch": batch, "chunk_steps": chunk, **MAIN_CAPS}
+    t0 = time.perf_counter()
+    keyed = dict(base, MISAKA_API_KEYS=keys, MISAKA_HTTP_WORKERS=str(workers))
+    specs = [dict(keyed, label="edge_drill", MISAKA_TOKEN_SECRET=os.urandom(16).hex(),
+                  MISAKA_PLANE_SOCKET=os.path.join(tmp, "drill.sock")),
+             dict(keyed, label="edge_admission", MISAKA_ADMISSION_HIGH=str(4 * flood_values),
+                  MISAKA_BATCH_PASSES="1", MISAKA_BATCH_MAX=str(flood_values // 8),
+                  MISAKA_PLANE_SOCKET=os.path.join(tmp, "admission.sock"))]
+    # the cost's servers: a (the default env) and b (MISAKA_EDGE=0), behind
+    # the workers and with none
+    cost_cfgs = [(cfg, n) for n in (workers, 0) for cfg in ("a", "b")]
+    specs += [dict(base, label=f"edge_cost_{cfg}_{n}", MISAKA_HTTP_WORKERS=str(n),
+                   MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}{n}.sock"),
+                   **({"MISAKA_EDGE": "0"} if cfg == "b" else {}))
+              for cfg, n in cost_cfgs]
+    try:
+        # all booted at once; every server but the one measured is paused
+        with served_apps(specs) as booted:
+            from misaka_tpu_torch.runtime import frontends
+
+            (drill, boot_drill), (adm, _) = booted[:2]
+            ports = {c: p for c, (p, _) in zip(cost_cfgs, booted[2:])}
+            row["boot_s"] = boot_drill
+            keyed_window(drill)
+            keyed_window(adm)
+            for p in ports.values():
+                expect(post_form(p, "/pause")[0] == 200, "/pause")
+            for port in (drill, adm, ports[("a", workers)], ports[("b", workers)]):
+                expect(frontends.wait_ready(port, timeout=30), "the public port does not answer")
+            expect(call(drill, "/run", b"", ADMIN)[0] == 200, "/run as admin")
+            row["drill"] = edge_drill(drill, workers)
+            keyed_window(drill)
+            row["admission"] = admission_drill(adm, flood_values, flooders, flood_s)
+            keyed_window(adm)
+            # on the CPU (a rehearsal at a small B) the flood rides the hot
+            # lane and no kernel launches
+            expect(device == "cpu" or (row["admission"]["iterations_equal_launches"]
+                                       and row["admission"]["flood_429"] > 0),
+                   f"admission: {row['admission']}")
+            cost = {}
+            for n in (workers, 0):
+                a, b = ports[("a", n)], ports[("b", n)]
+                health = {cfg: json.loads(http(p, "/healthz")[1]) for cfg, p in (("a", a),
+                                                                                ("b", b))}
+                expect("edge" in health["a"] and "edge" not in health["b"],
+                       f"edge blocks {[h.get('edge') for h in health.values()]}")
+                for p in (a, b):
+                    # warm-up: the first requests after boot run slower
+                    expect(post_form(p, "/run")[0] == 200, "/run")
+                    small_requests(p, n_clients, 2, base=7_000_000)
+                    expect(post_form(p, "/pause")[0] == 200, "/pause")
+                turns = [{"config": cfg, **cost_turn(a if cfg == "a" else b, n_clients,
+                                                     per_client, n_quiet)}
+                         for cfg in ("a", "b", "b", "a")]
+
+                def mean(cfg, k, turns=turns):
+                    return float(np.mean([t[k] for t in turns if t["config"] == cfg]))
+
+                cost["workers" if n else "zero_workers"] = {
+                    "workers": n, "turns": turns, "edge": health["a"]["edge"],
+                    "rate_ratio_a_over_b": mean("a", "small_requests_per_s")
+                    / mean("b", "small_requests_per_s"),
+                    "p50_ratio_a_over_b": mean("a", "p50_ms") / mean("b", "p50_ms"),
+                    "p90_ratio_a_over_b": mean("a", "p90_ms") / mean("b", "p90_ms"),
+                }
+            row["cost"] = cost
+            launches = [json.loads(call(p, "/status", headers=ADMIN)[2])["kernel_launches"]
+                        for p in [drill, adm, *ports.values()]]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from misaka_tpu_torch.core import fused
+
+    row["kernel_launches"] = sum(k.get(fused.KERNEL, 0) for k in launches)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def cuda_time_ms(fn, reps):
     """Mean device time per call of `fn` after one warm-up call."""
     import torch
@@ -2061,6 +2460,7 @@ def main() -> int:
     obs_row = phase_observability(card=smi)
     obs_unbatched_row = phase_unbatched_observability(card=smi)
     fe_row = phase_frontends(card=smi, zero_workers=obs_row)
+    edge_row = phase_edge(card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -2075,7 +2475,7 @@ def main() -> int:
             "source": "misaka_tpu_torch/csrc/fused_superstep.cu",
             "replaces": "misaka_tpu/core/fused.py:80",
             "launches": main_row["kernel_launches"][fused.KERNEL]
-            + grow_row["kernel_launches"][fused.KERNEL],
+            + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -2087,6 +2487,8 @@ def main() -> int:
             "observability_window_launches": obs_row["kernel_launches"],
             # the same behind the frontend workers (the frontends phase)
             "frontends_window_launches": fe_row["kernel_launches"],
+            # the edge phase's servers (counted in `launches` above)
+            "edge_launches": edge_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

@@ -74,13 +74,23 @@ Environment:
                      listener when there are no workers
   MISAKA_PLANE_WINDOW_US / _PIPELINE / _SHM / _SECRET[_FILE] / _DEPTH_MAX
                      the plane's knobs (runtime/frontends.py, runtime/edge.py)
+  MISAKA_API_KEYS    the API key file: arms auth on every route but
+                     /healthz and /metrics (runtime/edge.py); the app then
+                     mints MISAKA_EDGE_INTERNAL_TOKEN unless it is set
+  MISAKA_QUOTA       per-tenant quota default, "rps<100,vps<500000"
+                     (MISAKA_QUOTA_BURST_S burst window, default 2 s)
+  MISAKA_ADMISSION_HIGH  the admission watermark in waiting values
+  MISAKA_TOKEN_SECRET[_FILE]  arms signed tenant tokens (POST /edge/token)
+  MISAKA_EDGE / _AUTH / _QUOTA / _ADMISSION  "0" disarms the whole edge or
+                     one stage
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
-MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), an API keyfile
-(MISAKA_API_KEYS or <MISAKA_PROGRAMS_DIR>/api_keys.json; A.2),
-MISAKA_PROGRAMS_DIR (A.3), MISAKA_FLEET, MISAKA_PLANE_TLS_CERT/KEY/CA and a
-comma-separated MISAKA_PLANE_SOCKET (A.6) and MISAKA_COORDINATOR (A.7).
+MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_QUOTA
+with a `cpu` field (the usage ledger, A.4), MISAKA_PROGRAMS_DIR (with its
+conventional api_keys.json; A.3), MISAKA_FLEET, MISAKA_PLANE_TLS_CERT/KEY/CA
+and a comma-separated MISAKA_PLANE_SOCKET (A.6) and MISAKA_COORDINATOR
+(A.7).
 MISAKA_FAULTS and MISAKA_SLO log one warning each and change nothing
 (A.4).  The reference's native C++ edge (MISAKA_NATIVE_EDGE) is not ported
 (A.8): the CPython workers take the public port, as the reference's do
@@ -166,10 +176,10 @@ def check_env(environ=os.environ) -> None:
     if environ.get("MISAKA_MODE") == "distributed":
         _refuse("MISAKA_MODE=distributed: the distributed master (programs in "
                 "per-process peers) is not ported yet (ROADMAP A.5)")
-    keyfile = edge.keyfile_path(environ)
-    if keyfile:
-        _refuse(f"API keys ({keyfile}): the edge's authentication is not ported yet "
-                "(ROADMAP A.2); an open server would be worse than none")
+    if (environ.get("MISAKA_EDGE", "1") != "0" and environ.get("MISAKA_EDGE_QUOTA", "1") != "0"
+            and "cpu" in edge.parse_quota_spec(environ.get("MISAKA_QUOTA"))):
+        _refuse("MISAKA_QUOTA: the `cpu` quota stage reads the usage ledger, not ported yet "
+                "(ROADMAP A.4); give rps and vps only")
     if environ.get("MISAKA_PROGRAMS_DIR"):
         _refuse("MISAKA_PROGRAMS_DIR: the program registry is not ported yet "
                 "(ROADMAP A.3)")
@@ -288,6 +298,11 @@ def main() -> None:
                 _remove(pidfile)
 
     install_guards(stop, environ, start_ppid=_PPID_AT_START)
+    if (edge.keyfile_path(environ) and not environ.get("MISAKA_EDGE_INTERNAL_TOKEN")
+            and environ.get("MISAKA_EDGE", "1") != "0"):
+        # the per-boot admin credential of this process tree (the workers
+        # inherit it through the env), as the reference mints it
+        environ["MISAKA_EDGE_INTERNAL_TOKEN"] = os.urandom(16).hex()
     autockpt = arm_autockpt(master, environ)
     port = int(environ.get("MISAKA_PORT", "8000"))
     workers = int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0)

@@ -21,13 +21,16 @@ the public port speaks the whole surface.
 
 The frame codec, the handshake, shared-memory arming, pipelining, the
 drain status and the probe are byte for byte the reference's: the two
-packages' PlaneClient and ComputePlane talk to each other.  Left out, each
-with its ROADMAP item: the fleet router across replicas and plane mTLS
-(A.6: a comma-separated plane path and MISAKA_PLANE_TLS_* refuse), the
-native C++ edge (A.8), and the engine-side edge chain, SLO windows, chaos
-points and capture recording (A.2, A.4): the plane runs as the
-reference's does with those planes disarmed, and a frame addressed to a
-registry program answers 404 as the reference's does without a registry
+packages' PlaneClient and ComputePlane talk to each other.  The engine
+runs the edge chain (runtime/edge.py) once per frame on the frame's API
+key and request count, and books the shed counts a worker ships in its
+frames (the worker's shed cache answers a tenant inside an engine-issued
+Retry-After without a round trip).  Left out, each with its ROADMAP item:
+the fleet router across replicas and plane mTLS (A.6: a comma-separated
+plane path and MISAKA_PLANE_TLS_* refuse), the native C++ edge (A.8), and
+SLO windows, chaos points and capture recording (A.4): the plane runs as
+the reference's does with those planes disarmed, and a frame addressed to
+a registry program answers 404 as the reference's does without a registry
 (A.3).
 
 This module imports the standard library and the port's stdlib-only
@@ -153,7 +156,8 @@ G_PLANE_PIPE_DEPTH.set_function(_PIPE_DEPTH_WINDOW.read)
 # With MISAKA_PLANE_SECRET set, every connection opens with the 32-byte
 # HMAC handshake (runtime/edge.py) before its first frame.  The metadata
 # is a JSON object {"program": name-or-null, "traces": [...], "key": ...,
-# "reqs": n}; each traces entry covers one traced request of the frame:
+# "reqs": n, "shed": [[tenant, reason, count], ...]}; each traces entry
+# covers one traced request of the frame:
 # {"id", "off", "len", "spans": [[name, start_monotonic_s, dur_s], ...]},
 # the spans the frontend completed (http.parse, frontend.coalesce), so the
 # engine-side trace tells the cross-process story (CLOCK_MONOTONIC is
@@ -255,10 +259,14 @@ class _BadMeta(Exception):
 class _Meta:
     """One compute frame's decoded metadata."""
 
-    __slots__ = ("program", "traces", "probe", "shm_arm", "shm_vals", "shm_seg")
+    __slots__ = ("program", "key", "reqs", "shed", "traces", "probe", "shm_arm", "shm_vals",
+                 "shm_seg")
 
     def __init__(self):
         self.program = None
+        self.key = None        # the frame's API key (frames pack per tenant)
+        self.reqs = 1          # client requests the frame fused
+        self.shed = []         # worker-local shed counts: [[tenant, reason, n], ...]
         self.traces = []
         self.probe = False
         self.shm_arm = None    # {name, size}: a shared-memory arming request
@@ -281,7 +289,8 @@ def _parse_meta(blob: bytes) -> _Meta:
             key = obj.get("key") or None
             segs = obj.get("traces", ())
             meta.probe = bool(obj.get("probe"))
-            int(obj.get("reqs") or 1)  # a malformed request count fails the frame
+            meta.reqs = max(1, int(obj.get("reqs") or 1))
+            meta.shed = obj.get("shed") or []
             if obj.get("shm") is not None:
                 arm = obj["shm"]
                 if not (isinstance(arm, dict) and isinstance(arm.get("name"), str)
@@ -299,7 +308,10 @@ def _parse_meta(blob: bytes) -> _Meta:
         if meta.program is not None and not isinstance(meta.program, str):
             raise ValueError("program must be a string")
         if key is not None and not isinstance(key, str):
+            # guessing "no key" would bill an authentication failure to
+            # the anonymous tenant's quota
             raise ValueError("key must be a string")
+        meta.key = key
     except (ValueError, TypeError, UnicodeDecodeError, KeyError) as e:
         raise _BadMeta(str(e)) from e
     if tracespan.enabled():
@@ -437,6 +449,31 @@ class ComputePlane:
             M_PLANE_FRAMES.inc()
             if meta.shm_vals is not None:
                 M_PLANE_SHM_FRAMES.inc()
+            if meta.shed:
+                # the worker's shed-cache hits since its last frame: booked
+                # here, so the rejected series covers the whole door (a
+                # malformed row costs the count, never the frame)
+                try:
+                    for t, r, cnt in meta.shed:
+                        edge_mod.count_shed(t if isinstance(t, str) else None, str(r), int(cnt))
+                except (ValueError, TypeError):
+                    log.debug("dropping malformed shed metadata")
+            # The edge chain, once per frame (runtime/edge.py): one frame is
+            # one (program, tenant), so a frame decision is a tenant
+            # decision.  A rejection ships its typed status and a JSON body
+            # from which the worker restores the headers.
+            chain = edge_mod.current()
+            if chain.armed:
+                decision = chain.check("/compute_raw", "POST", key=meta.key, program=meta.program,
+                                       values=int(n), requests=meta.reqs)
+                rej = decision.reject
+                if rej is not None:
+                    rej.tenant = decision.tenant  # the worker's shed cache reports under it
+                    body = rej.to_wire()
+                    reply(_RESP_HDR.pack(rej.status, len(body)) + body)
+                    for tr in traces:
+                        tracespan.end(tr, status=rej.status)
+                    return
             t_recv = time.monotonic()
             values = get_values()
             if meta.program:
@@ -675,13 +712,14 @@ class _PlaneRequest:
 class _Shipment:
     """One in-flight frame on a pipelined plane connection."""
 
-    __slots__ = ("batch", "traced", "t_ship", "use_shm", "replay_ok")
+    __slots__ = ("batch", "traced", "t_ship", "use_shm", "shed", "replay_ok")
 
-    def __init__(self, batch, traced, t_ship, use_shm, replay_ok):
+    def __init__(self, batch, traced, t_ship, use_shm, shed, replay_ok):
         self.batch = batch
         self.traced = traced
         self.t_ship = t_ship
         self.use_shm = use_shm
+        self.shed = shed            # the worker's shed counts riding this frame
         self.replay_ok = replay_ok  # not the first frame on a fresh dial
 
 
@@ -710,6 +748,10 @@ class PlaneClient:
         self._pending: deque[_PlaneRequest] = deque()
         self._closed = False
         self._inflight = 0
+        # the worker's shed-cache rejections awaiting delivery: they never
+        # reach the engine, so their counts ride the next frame's metadata
+        # into its misaka_edge_rejected_total
+        self._shed: dict[tuple[str, str], int] = {}
         self._segs: set = set()  # live shared-memory segments (guarded by _cond)
         self._window_s = float(os.environ.get("MISAKA_PLANE_WINDOW_US", "") or 300) / 1e6
         self._threads = [
@@ -736,6 +778,19 @@ class PlaneClient:
         """Queued plus in-flight frames on this client."""
         with self._cond:
             return len(self._pending) + self._inflight
+
+    def report_shed(self, tenant: str | None, reason: str) -> None:
+        """Count one worker-local edge rejection for the next frame."""
+        k = (tenant or "other", reason)
+        with self._cond:
+            self._shed[k] = self._shed.get(k, 0) + 1
+
+    def _remerge_shed(self, shed) -> None:
+        """The frame carrying these counts was lost: keep them for the next."""
+        if shed:
+            with self._cond:
+                for k, cnt in shed.items():
+                    self._shed[k] = self._shed.get(k, 0) + cnt
 
     def compute_raw(self, body: bytes, timeout: float = 30.0, program: str | None = None,
                     key: str | None = None) -> bytes:
@@ -878,6 +933,7 @@ class PlaneClient:
                         requeue.append(r)
                     else:
                         failed.append(r)
+                self._remerge_shed(shp.shed)
             fail_requests(failed, f"compute plane error: {exc}".encode())
             if requeue:
                 with self._cond:
@@ -960,9 +1016,9 @@ class PlaneClient:
                 pass
 
     def _next_batch(self):
-        """(batch, program, key, total bytes) of the next frame, or None
-        when the client closed.  One frame is one (program, key); later
-        requests for others keep their FIFO place."""
+        """(batch, program, key, total bytes, shed counts) of the next frame,
+        or None when the client closed.  One frame is one (program, key);
+        later requests for others keep their FIFO place."""
         with self._cond:
             while True:
                 while not self._pending and not self._closed:
@@ -997,15 +1053,17 @@ class PlaneClient:
                     self._pending.appendleft(skipped.pop())
                 if batch:
                     self._inflight += 1
-                    return batch, program, key, total
+                    shed, self._shed = (self._shed, {}) if self._shed else (None, self._shed)
+                    return batch, program, key, total, shed
 
     @staticmethod
-    def _frame_meta(batch, program, key) -> bytes:
+    def _frame_meta(batch, program, key, shed) -> bytes:
         """The frame's metadata: each traced request's ID, value offset
-        and completed spans (http.parse, frontend.coalesce); nothing for
-        one untraced request of the default program."""
+        and completed spans (http.parse, frontend.coalesce), the key, the
+        fused request count and the shed counts; nothing for one untraced
+        request of the default program."""
         traced = [r for r in batch if r.trace is not None]
-        if not (traced or program is not None or key is not None or len(batch) > 1):
+        if not (traced or program is not None or key is not None or len(batch) > 1 or shed):
             return b""
         now = time.monotonic()
         entries = []
@@ -1024,7 +1082,9 @@ class PlaneClient:
         if key is not None:
             obj["key"] = key
         if len(batch) > 1:
-            obj["reqs"] = len(batch)
+            obj["reqs"] = len(batch)  # the engine bills rps per request
+        if shed:
+            obj["shed"] = [[t, r, n] for (t, r), n in shed.items()]
         return json.dumps(obj).encode()
 
     def _ship_one(self, seg_box, seg_size, depth, cond, gen, fail_requests, conn_failed,
@@ -1034,8 +1094,8 @@ class PlaneClient:
         nxt = self._next_batch()
         if nxt is None:
             return False
-        batch, program, key, total = nxt
-        meta = self._frame_meta(batch, program, key)
+        batch, program, key, total, shed = nxt
+        meta = self._frame_meta(batch, program, key, shed)
         traced = [r for r in batch if r.trace is not None]
         payload_out = b"".join(r.body for r in batch)
         dials = 0
@@ -1057,6 +1117,7 @@ class PlaneClient:
                         self._inflight -= 1
                         self._cond.notify()
                     fail_requests(batch, error)
+                    self._remerge_shed(shed)
                     return True
                 armed = False
                 seg = self._fresh_seg(seg_box, seg_size) if self._shm_enabled else None
@@ -1098,7 +1159,7 @@ class PlaneClient:
                     frame = _REQ_HDR.pack(0, len(shm_meta)) + shm_meta
                 else:
                     frame = _REQ_HDR.pack(total // 4, len(meta)) + payload_out + meta
-                shp = _Shipment(batch, traced, time.monotonic(), use_shm,
+                shp = _Shipment(batch, traced, time.monotonic(), use_shm, shed,
                                 replay_ok=gen["inherited"])
                 # enqueued before the send (a response cannot precede its
                 # frame), and sent outside the lock: a blocking sendall
@@ -1264,6 +1325,7 @@ def make_frontend_server(public_port: int, engine_url: str, plane_path: str,
             edge_mod.drain_or_close(self)  # keep-alive discipline
             self._extra_headers.append(("Retry-After", str(max(1, int(-(-remaining // 1))))))
             self._text(429, rej.message)
+            plane.report_shed(rej.tenant, rej.reason)  # rides the next frame
             return True
 
         def _edge_guard(self) -> bool:
@@ -1275,6 +1337,7 @@ def make_frontend_server(public_port: int, engine_url: str, plane_path: str,
             self._extra_headers.append(("Retry-After", "1"))
             self._text(429, f"frontend overloaded: {plane.depth()} plane frames queued "
                             f"(cap {plane_depth_max}); retry after backoff")
+            plane.report_shed(None, "overload")  # no tenant is known at the worker
             return False
 
         def _with_trace(self, inner) -> None:

@@ -32,8 +32,11 @@ Kept from the JAX master, with the same behaviour:
 /debug/requests, /debug/perfetto, /debug/isa_trace and /trace (its
 deprecated alias) with the JAX server's bodies and status codes, the
 request trace around every handler (`X-Misaka-Trace` in and out,
-`Server-Timing`), the fast request parser (MISAKA_FAST_HTTP) and TLS
-(MISAKA_TLS_CERT/KEY).
+`Server-Timing`), the fast request parser (MISAKA_FAST_HTTP), TLS
+(MISAKA_TLS_CERT/KEY) and the edge chain before every route body
+(runtime/edge.py: API keys, tenant quotas, admission on the ServeBatcher's
+waiting values, signed tenant tokens at POST /edge/token, usage gossip at
+POST /edge/gossip, the /healthz `edge` block).
 
 Observability (the reference's, for what the port runs): the `M_*`
 series below under the reference's names, types and labels, served at GET
@@ -42,7 +45,7 @@ series below under the reference's names, types and labels, served at GET
 (utils/tracespan.py); profiles through torch.profiler, begun and ended on
 the device-loop thread (utils/profiling.py::LoopCapture).  Left out: the
 series and hooks of planes not ported (native pool, distributed, SLO,
-usage, capture, fleet, the edge's auth and quotas: ROADMAP A.2-A.8).
+usage, capture, fleet: ROADMAP A.3-A.8).
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -1689,9 +1692,12 @@ def make_http_server(master: MasterNode, port: int = 8000,
                      tls=None) -> ThreadingHTTPServer:
     """The reference's client routes (master.go:90-224) plus /compute_batch,
     /compute_raw, /checkpoint, /restore, /profile/start|stop, /fleet/drain,
-    GET /status, /metrics, /healthz, /debug/requests, /debug/perfetto and
-    /debug/isa_trace (with /trace, its deprecated alias), with the JAX
-    server's bodies and status codes.  The app sets the server's
+    /edge/token, /edge/gossip, GET /status, /metrics, /healthz,
+    /debug/requests, /debug/perfetto and /debug/isa_trace (with /trace, its
+    deprecated alias), with the JAX server's bodies and status codes.  The
+    edge chain (runtime/edge.py), built from the env and installed for the
+    compute plane too, runs before every route body; MISAKA_EDGE=0
+    disarms it.  The app sets the server's
     `misaka_supervisor` (the frontend workers: /status and /healthz carry
     its `frontends` block) and `misaka_plane` (the compute plane
     /fleet/drain drains; 404 without one), as the reference's does.
@@ -1709,6 +1715,26 @@ def make_http_server(master: MasterNode, port: int = 8000,
     profiler = profiling.Profiler(master.profiling)
     boot_mono = time.monotonic()  # /healthz uptime anchor (server, not master)
     buildinfo.install_metric()
+
+    # The edge (runtime/edge.py): auth, quota and admission before every
+    # route body.  The admission signal is the ServeBatcher's waiting
+    # values, read at most every 25 ms (the read takes the scheduler's own
+    # lock); the SLO page bit is False while utils/slo.py is not ported
+    # (ROADMAP A.4), as the reference's is with MISAKA_SLO unset.
+    waiting_cache = [0.0, 0]  # (last read, waiting values)
+
+    def edge_signals() -> tuple[int, bool]:
+        now = time.monotonic()
+        if now - waiting_cache[0] > 0.025:
+            waiting_cache[0] = now
+            b = master._batcher
+            waiting_cache[1] = b.waiting_values() if b is not None else 0
+        return waiting_cache[1], False
+
+    # the default watermark clears two maximum-size legal bodies (int32
+    # values x 4): what the body cap admits is never shed right after
+    edge_chain = edge_mod.install(edge_mod.from_env(
+        signals=edge_signals, default_admission_high=max(65536, (max_body // 4) * 2)))
 
     def resolve_name(directory: str | None, name: str, suffix: str = "") -> str | None:
         if not directory or not _NAME_RE.match(name) or ".." in name:
@@ -1839,6 +1865,28 @@ def make_http_server(master: MasterNode, port: int = 8000,
         def _json(self, obj) -> None:
             self._send(200, (json.dumps(obj) + "\n").encode(), "application/json")
 
+        def _edge_check(self, route: str, method: str, program: str | None = None,
+                        values: int = 1) -> bool:
+            """The edge chain for this request; True = admitted.  A rejection
+            answers its typed status and headers (the POST body drained or
+            the connection closed) and puts an `edge.reject` span on the
+            request trace."""
+            if not edge_chain.armed:
+                return True
+            decision = edge_chain.check(route, method, key=edge_mod.key_from_headers(self.headers),
+                                        program=program, values=values)
+            rej = decision.reject
+            if rej is None:
+                return True
+            if method == "POST":
+                edge_mod.drain_or_close(self)  # keep-alive discipline
+            self._extra_headers.extend(rej.headers())
+            if self._misaka_trace is not None:
+                tracespan.add_span(self._misaka_trace, "edge.reject", time.monotonic(), 0.0,
+                                   {"tenant": decision.tenant, "reason": rej.reason})
+            self._text(rej.status, rej.message)
+            return False
+
         def _form(self) -> dict[str, str]:
             length = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(length).decode()
@@ -1848,6 +1896,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
             try:
                 parsed = urlparse(self.path)
                 path = parsed.path
+                if not self._edge_check(path, "GET", values=0):
+                    return
                 if path == "/status":
                     payload = master.status()
                     payload["build"] = buildinfo.info()
@@ -1907,6 +1957,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
             payload["debug_mem"] = {"trace_bytes": trace_b, "total_bytes": trace_b}
             if sup is not None:
                 payload["degraded"] = payload["frontends"]["degraded"]
+            if edge_chain.armed:
+                payload["edge"] = edge_chain.debug_payload()  # the stages at the door
             return payload
 
         def _isa_trace(self, parsed) -> None:
@@ -1933,7 +1985,19 @@ def make_http_server(master: MasterNode, port: int = 8000,
 
         def _handle_post(self):
             try:
-                self._post(self.path.split("?", 1)[0])
+                path = self.path.split("?", 1)[0]
+                # the value estimate for quota and admission comes from the
+                # wire size (raw int32s 4 bytes each, decimal text ~8)
+                try:
+                    clen = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    clen = 0
+                est = (max(1, clen // 4) if path == "/compute_raw"
+                       else max(1, clen // 8) if path == "/compute_batch" else 1)
+                program = (self.headers.get("X-Misaka-Program") or "").partition("@")[0] or None
+                if not self._edge_check(path, "POST", program=program, values=est):
+                    return
+                self._post(path)
             except Exception as e:  # a handler crash must not kill the server
                 log.exception("handler error")
                 self.close_connection = True  # request state unknown
@@ -2055,10 +2119,51 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     self._text(409, str(e))
                     return
                 self._text(200, out)
+            elif path == "/edge/token":
+                self._edge_token(self._form())  # body first (keep-alive)
+            elif path == "/edge/gossip":
+                # usage gossip: drain the local buckets by a sibling's
+                # admissions, answer this replica's own snapshot
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length) if length else b""
+                try:
+                    payload = json.loads(raw or b"{}")
+                    drained = edge_chain.apply_remote_usage(
+                        payload.get("usage") or {}, source=str(payload.get("source") or "peer"))
+                except (ValueError, TypeError) as e:
+                    edge_mod.M_EDGE_GOSSIP_ROUNDS.labels(status="error").inc()
+                    self._text(400, f"bad gossip payload: {e}")
+                    return
+                edge_mod.M_EDGE_GOSSIP_ROUNDS.labels(status="ok" if drained else "stale").inc()
+                self._json({"drained": drained, "usage": edge_chain.usage_snapshot()})
             else:
                 # unknown POST: the body is unread -- close, don't desync
                 self.close_connection = True
                 self._text(404, "not found")
+
+        def _edge_token(self, form: dict) -> None:
+            """Mint a signed short-lived tenant token (form `tenant`, `ttl`
+            seconds, `programs`, `admin`); 503 without a token secret."""
+            if edge_chain.token_secret is None:
+                self._text(503, "token minting disabled (set MISAKA_TOKEN_SECRET or "
+                                "MISAKA_PLANE_SECRET)")
+                return
+            tenant = (form.get("tenant") or "").strip()
+            if not tenant:
+                self._text(400, "missing tenant")
+                return
+            try:
+                ttl = float(form.get("ttl") or 300.0)
+            except ValueError:
+                self._text(400, "cannot parse ttl")
+                return
+            ttl = min(max(ttl, 1.0), 86400.0)
+            programs = [p.strip() for p in (form.get("programs") or "").split(",")
+                        if p.strip()] or None
+            token, exp = edge_mod.mint_tenant_token(
+                edge_chain.token_secret, tenant, ttl_s=ttl,
+                admin=(form.get("admin") or "") in ("1", "true", "on"), programs=programs)
+            self._json({"token": token, "tenant": tenant, "expires_at": exp, "ttl_s": ttl})
 
         def _compute_raw(self) -> None:
             """Body: raw little-endian int32 values (or the MSK1 framing);

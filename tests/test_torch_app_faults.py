@@ -7,7 +7,10 @@ One test per open fault of ROADMAP C, each failing before the fix:
 - C.2 MISAKA_MODE=distributed and NODE_TYPE=program|stack refuse (A.5);
 - C.3 MISAKA_TLS_CERT/KEY: a plaintext request gets no response from
   either server, and over HTTPS both answer the same /compute;
-- C.4 an API keyfile refuses (A.2);
+- C.4 an API keyfile arms auth as the JAX app's does (401 without a key,
+  served with one, 403 off its scope; behind 0 and 1 frontend workers),
+  <MISAKA_PROGRAMS_DIR>/api_keys.json refuses with the registry (A.3) and
+  MISAKA_QUOTA with a `cpu` field refuses (A.4);
 - C.5 MISAKA_AUTOCKPT: auto snapshots written by either package's
   AutoCheckpointer restore in the other, a torn newest snapshot falls back
   to the one before, the interval snapshots rotate to `keep`, and a
@@ -211,16 +214,67 @@ def test_c3_one_tls_variable_without_the_other_refuses(tmp_path, monkeypatch, va
 # --- C.4 API keys -------------------------------------------------------------------------
 
 
-def test_c4_api_keyfile_refuses_naming_a2(tmp_path):
+C4_KEYS = [{"key": "adm-secret", "tenant": "ops", "admin": True},
+           {"key": "bob-secret", "tenant": "bob"}]
+
+
+def _c4_probe(base):
+    """(status, body, WWW-Authenticate) of /compute without a key, with a
+    tenant key, and of /pause with the tenant key."""
+    out = []
+    for path, key in (("/compute", None), ("/compute", "bob-secret"), ("/pause", "bob-secret")):
+        req = urllib.request.Request(base + path, data=b"value=5", method="POST")
+        if key:
+            req.add_header("X-Misaka-Key", key)
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                out.append((r.status, r.read(), r.headers.get("WWW-Authenticate")))
+        except urllib.error.HTTPError as e:
+            out.append((e.code, e.read(), e.headers.get("WWW-Authenticate")))
+    return out
+
+
+@pytest.mark.parametrize("workers", [0, 1])
+def test_c4_api_keyfile_arms_auth_like_jax(tmp_path, monkeypatch, workers):
     keys = tmp_path / "keys.json"
-    keys.write_text(json.dumps({"keys": {}}))
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.2") as exc:
-        app.build_master_from_env({**ADD2_ENV, "MISAKA_API_KEYS": str(keys)})
-    assert exc.value.code == 2
-    # the conventional <MISAKA_PROGRAMS_DIR>/api_keys.json resolves too
-    (tmp_path / "api_keys.json").write_text(json.dumps({"keys": {}}))
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.2"):
+    keys.write_text(json.dumps({"keys": C4_KEYS}))
+    monkeypatch.setenv("MISAKA_API_KEYS", str(keys))
+    jm = JMaster(JTopology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS, **CAPS),
+                 chunk_steps=32, batch=2, engine="scan")
+    jh = j_http(jm, port=0)
+    try:
+        jm.run()
+        want = _c4_probe(f"http://127.0.0.1:{_serve(jh)}")
+    finally:
+        _close((jh, jm))
+    proc, base = _boot(tmp_path, {**ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_PIDFILE": "off",
+                                  "MISAKA_HTTP_WORKERS": str(workers)}, f"keys{workers}")
+    try:
+        got = _c4_probe(base)
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+    assert got == want
+    assert [g[0] for g in got] == [401, 200, 403] and got[1][1] == b'{"value": 7}\n'
+    assert got[0][2] == 'Bearer realm="misaka", charset="UTF-8"'
+
+
+def test_c4_programs_dir_keyfile_and_cpu_quota_refuse(tmp_path, capsys):
+    # the conventional <MISAKA_PROGRAMS_DIR>/api_keys.json arms with the
+    # registry, which refuses (A.3)
+    (tmp_path / "api_keys.json").write_text(json.dumps({"keys": C4_KEYS}))
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.3") as exc:
         app.build_master_from_env({**ADD2_ENV, "MISAKA_PROGRAMS_DIR": str(tmp_path)})
+    assert exc.value.code == 2
+    # the cpu stage reads the usage ledger (A.4); with the quota stage off
+    # the spec is inert, as the reference's is
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.4") as exc:
+        app.build_master_from_env({**ADD2_ENV, "MISAKA_QUOTA": "cpu<0.5"})
+    assert exc.value.code == 2
+    assert "A.4" in capsys.readouterr().err
+    for off in ({"MISAKA_EDGE": "0"}, {"MISAKA_EDGE_QUOTA": "0"}):
+        app.check_env({**ADD2_ENV, "MISAKA_QUOTA": "rps<5,cpu<0.5", **off})
+    app.check_env({**ADD2_ENV, "MISAKA_QUOTA": "rps<5,vps<100"})
 
 
 # --- C.5 MISAKA_AUTOCKPT ----------------------------------------------------------------

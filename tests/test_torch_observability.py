@@ -55,7 +55,7 @@ torch.set_num_threads(1)
 CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 TRACE_ID = "feedc0de12345678"
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"edge", "frontends", "native_edge", "slo", "watchdog", "canary", "degraded"}
+UNPORTED_BLOCKS = {"frontends", "native_edge", "slo", "watchdog", "canary", "degraded"}
 
 
 @pytest.fixture(autouse=True)
@@ -171,6 +171,7 @@ def test_same_session_same_series_counters_and_headers(batch):
                 assert got[2] == want[2], path
             if path == "/healthz":
                 assert set(json.loads(got[2])) == set(json.loads(want[2])) - UNPORTED_BLOCKS
+                assert json.loads(got[2])["edge"] == json.loads(want[2])["edge"]
                 assert json.loads(got[2])["wire_binary"] is True
         # a request's counters move after its response is sent: scrape
         # again (bounded) until the last ones have landed on both
@@ -222,11 +223,14 @@ def test_series_catalog_matches_the_reference():
                      "misaka_debug_mem_bytes", "misaka_build_info",
                      "misaka_plane_frames_total", "misaka_plane_pipelined_frames_total",
                      "misaka_plane_shm_frames_total", "misaka_plane_pipeline_depth",
-                     "misaka_frontend_restarts_total", "misaka_frontend_workers_alive"):
+                     "misaka_frontend_restarts_total", "misaka_frontend_workers_alive",
+                     "misaka_edge_admitted_total", "misaka_edge_rejected_total",
+                     "misaka_edge_tokens_total", "misaka_edge_gossip_rounds_total",
+                     "misaka_edge_gossip_drained_total"):
             assert name in names, name
         # planes the port has not taken stay absent, not faked
         assert not any(n.startswith(("misaka_native_", "misaka_slo_", "misaka_usage_",
-                                     "misaka_edge_", "misaka_fleet_", "misaka_capture"))
+                                     "misaka_plane_tls_", "misaka_fleet_", "misaka_capture"))
                        for n in names)
     finally:
         p.close()
