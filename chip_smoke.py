@@ -57,7 +57,14 @@ secret): every typed 401/403/429 and its headers, recovery after
 Retry-After, a minted token, the workers' shed counts booked by the
 engine; admission shedding a flooding tenant's B-value bodies while a light
 tenant's requests all pass; and the edge's cost, the default env against
-MISAKA_EDGE=0 in turns a b b a, behind the workers and with none.
+MISAKA_EDGE=0 in turns a b b a, behind the workers and with none.  The
+`registry` phase serves the same add2 with MISAKA_PROGRAMS_DIR behind the
+workers, three tenants and the canary over MISAKA_REGISTRY_MAX_ACTIVE=3:
+uploads, program-addressed compute behind the workers and direct,
+evictions and revivals through checkpoints (a delay line's state carried
+across each), a hot swap under 32 clients, the canary's tiers, device
+memory released by an eviction (an in-process registry on the card), and
+the registry's cost on the default program, a b b a.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -2160,6 +2167,468 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
     return row
 
 
+# --- the program registry: per-program engines, eviction, hot swap, canary ---------
+
+REG_ADD10 = "IN ACC\nADD 10\nOUT ACC\n"
+REG_ADD20 = "IN ACC\nADD 20\nOUT ACC\n"
+# a delay line: output i is input i-1 (0 on a fresh instance); BAK holds
+# the last value, the state an eviction must carry
+REG_DELAY = "IN ACC\nSWP\nOUT ACC\nSWP\nSAV\n"
+# every delay request ends with this value, so every instance it has used
+# holds it: a request's first output says whether its instance is fresh
+DELAY_LAST = 777
+
+
+def engine_port(label) -> int:
+    """The engine's own HTTP port behind the workers, from the app's log."""
+    with open(os.path.join(ROOT, "build", f"chip_smoke_{label}.log")) as f:
+        m = re.search(r"engine http on 127\.0\.0\.1:(\d+)", f.read())
+    expect(m is not None, f"{label}: no engine port in the log")
+    return int(m.group(1))
+
+
+def series(scraped, name, **labels):
+    """One series' value in a parse_text scrape (0 when absent)."""
+    from misaka_tpu_torch.utils import metrics
+
+    for k, v in scraped.items():
+        n, lbl = metrics.parse_series(k)
+        if n == name and all(lbl.get(a) == b for a, b in labels.items()):
+            return v
+    return 0.0
+
+
+def program_raw(port, name, vals, header=False, query="?spread=1"):
+    """One program-addressed /compute_raw (its path, or X-Misaka-Program on
+    the legacy route): (status, int32 answers or body, seconds)."""
+    t = time.perf_counter()
+    path = "/compute_raw" if header else f"/programs/{name}/compute_raw"
+    c, _, b = call(port, path + query, np.asarray(vals, "<i4").tobytes(),
+                   {"X-Misaka-Program": name} if header else None)
+    return c, np.frombuffer(b, "<i4") if c == 200 else b, time.perf_counter() - t
+
+
+def program_compute(port, name, v):
+    """One /compute with X-Misaka-Program: (status, body)."""
+    c, _, b = call(port, "/compute", f"value={v}".encode(), {"X-Misaka-Program": name})
+    return c, b
+
+
+class DelayModel:
+    """The delay program's expected answers.  Every delay request is pinned
+    to one instance (`?spread=0`, compute_many: the rotating slot start,
+    0 after each activation, one step per request), so the k-th request
+    of an engine's life lands on instance k; each ends with DELAY_LAST, so
+    its first output is DELAY_LAST when an earlier request, of this life
+    or one before it, used the instance, and 0 when it is fresh: revived
+    state answers DELAY_LAST on instance 0, a fresh engine 0."""
+
+    def __init__(self):
+        self.used = 0   # instances any life has used so far
+        self.k = 0      # the next instance of the current life
+
+    def check(self, out, vals, new_life):
+        if new_life:
+            self.k = 0
+        want = [DELAY_LAST if self.k < self.used else 0] + list(vals[:-1])
+        expect(list(np.asarray(out).tolist()) == want, f"delay {list(out)} != {want}")
+        self.k += 1
+        self.used = max(self.used, self.k)
+        return want[0] == DELAY_LAST
+
+
+def delay_request(port, model, x, header=False):
+    """One pinned delay request of [x, DELAY_LAST] (its path, or
+    X-Misaka-Program), checked against the model; the activations counter
+    says whether it began a new life.  Returns its row."""
+    before = scrape(port)
+    vals = [x, DELAY_LAST]
+    c, out, secs = program_raw(port, "delay", vals, header=header, query="?spread=0")
+    expect(c == 200, f"delay: {c} {out!r}")
+    act = series(scrape(port), "misaka_program_activations_total", program="delay") - series(
+        before, "misaka_program_activations_total", program="delay")
+    revived = model.check(out, vals, act > 0) and act > 0
+    return {"header": header, "seconds": secs, "activated": int(act), "revived_state": revived}
+
+
+def eviction_window(before, after):
+    """What the registry did between two scrapes: evictions and activations
+    per program, and the checkpoint saves (count, seconds)."""
+    from misaka_tpu_torch.utils import metrics
+
+    moved = {}
+    for k, v in after.items():
+        n, lbl = metrics.parse_series(k)
+        if n in ("misaka_program_evictions_total", "misaka_program_activations_total") \
+                and v - before.get(k, 0.0):
+            moved.setdefault(n.split("_")[2], {})[lbl["program"]] = int(v - before.get(k, 0.0))
+    n_save = series(after, "misaka_checkpoint_save_seconds_count") - series(
+        before, "misaka_checkpoint_save_seconds_count")
+    s_save = series(after, "misaka_checkpoint_save_seconds_sum") - series(
+        before, "misaka_checkpoint_save_seconds_sum")
+    return {"evictions": moved.get("evictions", {}), "activations": moved.get("activations", {}),
+            "checkpoint_saves": int(n_save), "checkpoint_seconds": s_save}
+
+
+def min_allocated(samples=40, gap_s=0.005):
+    """torch.cuda.memory_allocated() at rest: the least of `samples`
+    readings `gap_s` apart (an engine's idle iteration holds a transient
+    copy of the fields it writes)."""
+    import torch
+
+    out = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        out.append(torch.cuda.memory_allocated())
+        time.sleep(gap_s)
+    return min(out)
+
+
+def registry_memory(batch, device):
+    """In this process: a ProgramRegistry on `device` at the served width
+    with max_active 2 activates, evicts and revives; on a card
+    memory_allocated() after each eviction must be within 5% of one
+    engine's state of its value before the activation that evicted.  Then
+    every engine is closed and the launches must equal the loop's
+    iterations plus the warm-ups (all loops stopped: exact)."""
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.runtime import master as tmaster
+    from misaka_tpu_torch.runtime.registry import ProgramRegistry
+
+    card = device != "cpu"
+    iters0 = tmaster.M_ITER_SERVE.value + tmaster.M_ITER_IDLE.value
+    warm0, launch0 = tmaster.M_WARM_TOTAL.value, fused.launch_counts[fused.KERNEL]
+    reg = ProgramRegistry(None, batch=batch, caps=MAIN_CAPS, max_active=2, device=device)
+    row = {"max_active": 2, "steps": []}
+    model = DelayModel()
+    try:
+        for name, src in (("a10", REG_ADD10), ("a20", REG_ADD20), ("delay", REG_DELAY)):
+            reg.publish(name, tis=src)
+
+        def touch(name, x):
+            before = min_allocated() if card else 0
+            t = time.perf_counter()
+            acts = reg.list_programs()["programs"][name]["versions"]
+            new_life = not any(v["active"] for v in acts.values())
+            with reg.lease(name) as m:
+                if name == "delay":
+                    out = m.compute_many([x, DELAY_LAST])
+                    model.check(out, [x, DELAY_LAST], new_life)
+                else:
+                    add = 10 if name == "a10" else 20
+                    vals = np.arange(x, x + 1000, dtype=np.int32)
+                    expect(np.array_equal(m.compute_coalesced(vals, return_array=True),
+                                          vals + add), f"{name} answers")
+                state = m._state
+                state_bytes = sum(t_.numel() * t_.element_size() for t_ in state)
+                del m, state
+            secs = time.perf_counter() - t
+            after = min_allocated() if card else 0
+            row["steps"].append({"program": name, "seconds": secs, "activated": new_life,
+                                 "active": [n for n, _ in reg.active_versions()],
+                                 "allocated_before": before, "allocated_after": after,
+                                 "state_bytes": state_bytes})
+            return before, after, state_bytes
+
+        touch("a10", 1)
+        touch("delay", 11)
+        # a20 evicts a10 (the least recently used), a10 then evicts delay,
+        # delay then evicts a20 and must answer from its revived state
+        for name, x in (("a20", 21), ("a10", 31), ("delay", 41)):
+            before, after, state_bytes = touch(name, x)
+            expect(not card or abs(after - before) <= 0.05 * state_bytes,
+                   f"device memory after evicting for {name}: {before} -> {after} "
+                   f"(one engine's state: {state_bytes} bytes)")
+        expect(model.k == 1 and model.used == 1, "delay revived on instance 0")
+        row["delay_revived"] = True
+    finally:
+        reg.close()
+    iters = tmaster.M_ITER_SERVE.value + tmaster.M_ITER_IDLE.value - iters0
+    warm = tmaster.M_WARM_TOTAL.value - warm0
+    launches = fused.launch_counts[fused.KERNEL] - launch0
+    row.update(iterations=int(iters), warmups=int(warm), kernel_launches=launches,
+               released_after_close=min_allocated() if card else None)
+    expect(not card or launches == iters + warm,
+           f"in process: launches {launches} != iterations {iters} + warm-ups {warm}")
+    return row
+
+
+def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32,
+                   per_client=40, n_quiet=49, swap_clients=32, n_stream=20_000, device=None,
+                   card=None):
+    """The program registry on the main path: add2 at B (the full kernel)
+    behind N frontend workers with MISAKA_PROGRAMS_DIR (a fresh directory
+    on local disk), MISAKA_REGISTRY_MAX_ACTIVE=3 and a canary every second.
+
+    1. publish add10 and delay (TIS) and reverse_any (topology JSON);
+    2. serve each through /programs/<name>/compute_raw (add10 striped,
+       n_stream values) and X-Misaka-Program, behind the workers and
+       direct on the engine's own port; the default still answers +2, an
+       unknown program the typed 404 on both paths;
+    3. alternating requests (three tenants and `_canary` over a cap of 3)
+       force evictions: each request's client seconds, the evictions,
+       activations and checkpoint seconds it caused; delay continues its
+       sequence across every round trip;
+    4. 32 clients post to add10 while it is republished as ADD 20: no
+       error, every answer +10 or +20, no +10 after a +20 within a client,
+       one swap, the longest request across it;
+    5. in this process, a registry on the card at max_active 2: device
+       memory released by each eviction (registry_memory);
+    6. the /healthz canary block: every tier ok, no failing tier;
+    7. launches: in process exactly the iterations plus the warm-ups; in
+       the server (its engines never all stop) bounded by two /status
+       readings around one /metrics;
+    8. then, with that server stopped, the registry's cost on the default
+       program: two servers booted at once, a (MISAKA_PROGRAMS_DIR set)
+       and b (unset), the small-request rate and quiet /compute p50/p90
+       in turns a b b a, the partner paused.
+
+    device="cpu" rehearses it at a small B."""
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+    from misaka_tpu_torch.runtime import frontends
+
+    workers = workers or frontend_workers()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="registry-", dir=os.path.join(ROOT, "build"))
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers))
+    row = {"phase": "registry", "card": card, "workers": workers, "batch": batch,
+           "chunk_steps": chunk, **MAIN_CAPS}
+    t0 = time.perf_counter()
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        reverse_text = f.read()
+    try:
+        with served_app("registry", MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"),
+                        MISAKA_REGISTRY_MAX_ACTIVE="3", MISAKA_CANARY_INTERVAL_S="1",
+                        MISAKA_PLANE_SOCKET=os.path.join(tmp, "reg.sock"),
+                        **base) as (pub, boot_s):
+            row["boot_s"] = boot_s
+            eng = engine_port("registry")
+            expect(frontends.wait_ready(pub, timeout=30), "the public port does not answer")
+            # the canary's first cycle publishes and activates `_canary`:
+            # let it finish before the tenants' activations begin
+            deadline = time.monotonic() + 120
+            while not ((json.loads(http(pub, "/healthz")[1]).get("canary") or {}).get(
+                    "tiers") or {}).get("engine"):
+                expect(time.monotonic() < deadline, "the canary's engine never came up")
+                time.sleep(0.5)
+            # 1. publish
+            versions = {}
+            for name, field, src in (("add10", "program", REG_ADD10),
+                                     ("delay", "program", REG_DELAY),
+                                     ("reverse_any", "topology", reverse_text)):
+                c, _, b = call(pub, "/programs", urlencode_form(name=name, **{field: src}))
+                expect(c == 200, f"publish {name}: {c} {b!r}")
+                out = json.loads(b)
+                expect(out["created"] and out["name"] == name and not out["swapped"],
+                       f"publish {name}: {out}")
+                versions[name] = out["version"]
+            row["versions"] = versions
+            # 2. serve each, behind the workers (pub) and direct (eng);
+            # reverse_any first, so that it never serves after a revival
+            # (a dumped instance parks on its empty stack for good)
+            served = []
+            rev_vals = [7, 8, 9, 0]
+            for port, header in ((pub, False), (eng, True)):
+                c, out, secs = program_raw(port, "reverse_any", rev_vals, header=header)
+                expect(c == 200 and out.tolist() == [0, 9, 8, 7], f"reverse_any: {c} {out!r}")
+                served.append({"program": "reverse_any", "port": "public" if port == pub
+                               else "engine", "seconds": secs})
+            rng = np.random.default_rng(SEED + 9)
+            for port in (pub, eng):
+                vals = rng.integers(-2**20, 2**20, size=n_stream).astype(np.int32)
+                for header in (False, True):
+                    c, out, secs = program_raw(port, "add10", vals, header=header)
+                    expect(c == 200 and np.array_equal(out, vals + 10), f"add10 striped: {c}")
+                    served.append({"program": "add10", "port": "public" if port == pub
+                                   else "engine", "header": header, "seconds": secs})
+                c, b = program_compute(port, "add10", 5)
+                expect(c == 200 and json.loads(b) == {"value": 15}, f"add10 /compute: {c} {b!r}")
+                c, b = post_form(port, "/compute", value="5")
+                expect(c == 200 and json.loads(b) == {"value": 7}, f"default: {c} {b!r}")
+                for path, hdr in (("/programs/ghost/compute_raw", None),
+                                  ("/compute_raw", {"X-Misaka-Program": "ghost"})):
+                    c, _, b = call(port, path, np.asarray([1], "<i4").tobytes(), hdr)
+                    expect(c == 404 and b == b"unknown program 'ghost'", f"ghost: {c} {b!r}")
+            model = DelayModel()
+            for i, (port, header) in enumerate(((pub, False), (eng, True), (pub, True),
+                                                (eng, False))):
+                r = delay_request(port, model, 100 + i, header)
+                served.append({"program": "delay", "port": "public" if port == pub
+                               else "engine", **r})
+            row["served"] = served
+            # 3. evict and revive: alternating add10 and delay, 3 tenants
+            # and the canary over a cap of 3
+            rounds = []
+            s_all = scrape(pub)
+            for i in range(3):
+                for name in ("add10", "delay"):
+                    before = scrape(pub)
+                    if name == "delay":
+                        r = delay_request(pub, model, 200 + i)
+                    else:
+                        vals = np.arange(i * 100, i * 100 + 100, dtype=np.int32)
+                        c, out, secs = program_raw(pub, "add10", vals)
+                        expect(c == 200 and np.array_equal(out, vals + 10), "add10 round trip")
+                        r = {"seconds": secs}
+                    rounds.append({"program": name, **r,
+                                   **eviction_window(before, scrape(pub))})
+            total = eviction_window(s_all, scrape(pub))
+            revivals = [r["seconds"] for r in rounds if r.get("activations", {}).get(
+                r["program"])]
+            row["evict_revive"] = {
+                "rounds": rounds, **total,
+                "checkpoint_seconds_each": (total["checkpoint_seconds"]
+                                            / max(1, total["checkpoint_saves"])),
+                "reviving_request_s": revivals,
+                "delay_revived_state": sum(1 for r in rounds if r.get("revived_state")),
+            }
+            expect(sum(total["evictions"].values()) >= 2 and revivals,
+                   f"no evictions forced: {total}")
+            expect(row["evict_revive"]["delay_revived_state"] >= 1,
+                   "delay never answered from revived state")
+            # 4. hot swap under load
+            row["hot_swap"] = hot_swap_drill(pub, swap_clients)
+            # 5. device memory, in this process
+            row["memory"] = registry_memory(batch, device or "cuda")
+            # 6. the canary
+            deadline = time.monotonic() + 60
+            while True:
+                health = json.loads(http(pub, "/healthz")[1])
+                can = health.get("canary") or {}
+                if can.get("failing_tier") is None and all(
+                        (can.get("tiers") or {}).get(t) for t in ("edge", "plane", "engine",
+                                                                  "full")):
+                    break
+                expect(time.monotonic() < deadline, f"canary not green: {can}")
+                time.sleep(0.5)
+            row["canary"] = can
+            # each activation's split, from the server's log
+            with open(os.path.join(ROOT, "build", "chip_smoke_registry.log")) as f:
+                row["engines_up"] = [
+                    {"program": m[0], "seconds": float(m[1]), "build_s": float(m[2]),
+                     "restore_s": float(m[3]), "warm_s": float(m[4])}
+                    for m in re.findall(r"program (\S+)@\w+: engine up in ([\d.]+)s \(build "
+                                        r"([\d.]+), restore ([\d.]+), warm-up ([\d.]+)\)",
+                                        f.read())]
+            # 7. launches in the server, bounded (its engines keep ticking)
+            l1 = status(pub)["kernel_launches"][fused.KERNEL]
+            m = scrape(pub)
+            l2 = status(pub)["kernel_launches"][fused.KERNEL]
+            it = sum(series(m, "misaka_device_loop_iterations_total", kind=k)
+                     for k in ("serve", "idle"))
+            warm = series(m, "misaka_engine_warm_total")
+            n_engines = len(status(pub)["programs"]["active"])
+            row["launches"] = {"status_before": l1, "iterations": it, "warmups": warm,
+                               "status_after": l2, "active_engines": n_engines}
+            expect(device == "cpu" or l1 - n_engines - 1 <= it + warm <= l2,
+                   f"server launches: {row['launches']}")
+            launches = [l2]
+        # 8. the registry's cost on the default program
+        cost = [dict(base, label=f"registry_cost_{cfg}", autorun=False,
+                     MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}.sock"),
+                     **({"MISAKA_PROGRAMS_DIR": os.path.join(tmp, "cost_a")} if cfg == "a"
+                        else {}))
+                for cfg in ("a", "b")]
+        with served_apps(cost) as [(cost_a, _), (cost_b, _)]:
+            for p in (cost_a, cost_b):
+                expect(frontends.wait_ready(p, timeout=30), "the public port does not answer")
+                expect(post_form(p, "/run")[0] == 200, "/run")
+                small_requests(p, n_clients, 2, base=7_000_000)  # warm-up
+                expect(post_form(p, "/pause")[0] == 200, "/pause")
+            turns = [{"config": cfg, **cost_turn(cost_a if cfg == "a" else cost_b, n_clients,
+                                                 per_client, n_quiet)}
+                     for cfg in ("a", "b", "b", "a")]
+
+            def mean(cfg, k):
+                return float(np.mean([t[k] for t in turns if t["config"] == cfg]))
+
+            row["cost"] = {
+                "turns": turns,
+                "rate_ratio_a_over_b": mean("a", "small_requests_per_s")
+                / mean("b", "small_requests_per_s"),
+                "p50_ratio_a_over_b": mean("a", "p50_ms") / mean("b", "p50_ms"),
+                "p90_ratio_a_over_b": mean("a", "p90_ms") / mean("b", "p90_ms"),
+                "a_programs": status(cost_a).get("programs"),
+            }
+            launches += [status(p)["kernel_launches"][fused.KERNEL] for p in (cost_a, cost_b)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["kernel_launches"] = sum(launches) + row["memory"]["kernel_launches"]
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def urlencode_form(**fields) -> bytes:
+    from urllib.parse import urlencode
+
+    return urlencode(fields).encode()
+
+
+def hot_swap_drill(port, n_clients):
+    """n_clients post [v, v+1] to add10 while it is republished as ADD 20
+    (once every client has an answer; stopped once every client has one
+    from after the publish returned): every answer +10 or +20, never +10
+    after +20 within a client, no error, one swap; the longest request
+    across it."""
+    c, out, _ = program_raw(port, "add10", [0])  # active before the load starts
+    expect(c == 200 and out.tolist() == [10], f"add10 before the swap: {c} {out!r}")
+    before = scrape(port)
+    stop = threading.Event()
+    seen = [[] for _ in range(n_clients)]  # (delta, seconds, finished at)
+
+    def client(i):
+        v = i * 1_000_000
+        while not stop.is_set():
+            c, out, secs = program_raw(port, "add10", [v, v + 1])
+            if c != 200:
+                raise RuntimeError(f"add10 during the swap: {c} {out!r}")
+            d = int(out[0]) - v
+            if d not in (10, 20) or int(out[1]) - (v + 1) != d:
+                raise RuntimeError(f"add10 during the swap answered {out.tolist()} for {v}")
+            if seen[i] and seen[i][-1][0] == 20 and d == 10:
+                raise RuntimeError("a +10 after a +20")
+            seen[i].append((d, secs, time.monotonic()))
+            v += 2
+
+    result = {}
+
+    def publish():
+        deadline = time.monotonic() + 120
+        while not all(seen) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        t = time.perf_counter()
+        c, _, b = call(port, "/programs", urlencode_form(name="add10", program=REG_ADD20))
+        result["publish"] = (c, b, time.perf_counter() - t)
+        done = time.monotonic()
+        while not all(s and s[-1][2] > done for s in seen) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        stop.set()
+
+    pub = threading.Thread(target=publish)
+    pub.start()
+    errors, secs = run_clients(n_clients, client)
+    stop.set()
+    pub.join()
+    expect(not errors, f"hot swap clients: {errors[:4]}")
+    c, b, publish_s = result["publish"]
+    expect(c == 200 and json.loads(b)["swapped"], f"republish add10: {c} {b!r}")
+    swaps = series(scrape(port), "misaka_program_swaps_total", program="add10") - series(
+        before, "misaka_program_swaps_total", program="add10")
+    expect(swaps == 1, f"swaps {swaps}")
+    answers = [d for s in seen for d, _, _ in s]
+    expect(answers.count(20) > 0 and answers.count(10) > 0, "both versions answered")
+    c, out, _ = program_raw(port, "add10", [1])
+    expect(c == 200 and out.tolist() == [21], "add10 after the swap")
+    times = [t for s in seen for _, t, _ in s]
+    return {"clients": n_clients, "requests": len(answers), "plus10": answers.count(10),
+            "plus20": answers.count(20), "errors": 0, "swaps": swaps,
+            "publish_s": publish_s, "longest_request_s": max(times),
+            "p50_request_s": float(np.median(times)), "seconds": secs}
+
+
 def cuda_time_ms(fn, reps):
     """Mean device time per call of `fn` after one warm-up call."""
     import torch
@@ -2461,6 +2930,7 @@ def main() -> int:
     obs_unbatched_row = phase_unbatched_observability(card=smi)
     fe_row = phase_frontends(card=smi, zero_workers=obs_row)
     edge_row = phase_edge(card=smi)
+    registry_row = phase_registry(card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -2475,7 +2945,8 @@ def main() -> int:
             "source": "misaka_tpu_torch/csrc/fused_superstep.cu",
             "replaces": "misaka_tpu/core/fused.py:80",
             "launches": main_row["kernel_launches"][fused.KERNEL]
-            + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"],
+            + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
+            + registry_row["kernel_launches"],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -2489,6 +2960,9 @@ def main() -> int:
             "frontends_window_launches": fe_row["kernel_launches"],
             # the edge phase's servers (counted in `launches` above)
             "edge_launches": edge_row["kernel_launches"],
+            # the registry phase's servers, every engine of each, and its
+            # in-process registry (counted in `launches` above)
+            "registry_launches": registry_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

@@ -83,14 +83,26 @@ Environment:
   MISAKA_TOKEN_SECRET[_FILE]  arms signed tenant tokens (POST /edge/token)
   MISAKA_EDGE / _AUTH / _QUOTA / _ADMISSION  "0" disarms the whole edge or
                      one stage
+  MISAKA_PROGRAMS_DIR  arms the program registry (runtime/registry.py) over
+                     this store: the boot network is seeded as the pinned
+                     program MISAKA_DEFAULT_PROGRAM (default "default"),
+                     uploads at POST /programs serve from their own engines
+                     on the boot batch, caps, MISAKA_ENGINE and device, at
+                     most MISAKA_REGISTRY_MAX_ACTIVE (default 4) active, the
+                     coldest evicted through a checkpoint; a hot swap drains
+                     the old engine for up to MISAKA_SWAP_DRAIN_S.  A key
+                     file at <dir>/api_keys.json arms auth as MISAKA_API_KEYS
+  MISAKA_CANARY      "0" turns the synthetic canary off (runtime/canary.py:
+                     on by default, probing the public port every
+                     MISAKA_CANARY_INTERVAL_S, default 5 s; /healthz
+                     `canary`)
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
 MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_QUOTA
-with a `cpu` field (the usage ledger, A.4), MISAKA_PROGRAMS_DIR (with its
-conventional api_keys.json; A.3), MISAKA_FLEET, MISAKA_PLANE_TLS_CERT/KEY/CA
-and a comma-separated MISAKA_PLANE_SOCKET (A.6) and MISAKA_COORDINATOR
-(A.7).
+with a `cpu` field (the usage ledger, A.4), MISAKA_FLEET,
+MISAKA_PLANE_TLS_CERT/KEY/CA and a comma-separated MISAKA_PLANE_SOCKET (A.6)
+and MISAKA_COORDINATOR (A.7).
 MISAKA_FAULTS and MISAKA_SLO log one warning each and change nothing
 (A.4).  The reference's native C++ edge (MISAKA_NATIVE_EDGE) is not ported
 (A.8): the CPython workers take the public port, as the reference's do
@@ -114,9 +126,10 @@ if __name__ == "__main__":
     arm_boot_handlers()
 
 from misaka_tpu_torch import PPID_AT_IMPORT as _PPID_AT_START
-from misaka_tpu_torch.runtime import edge, frontends
+from misaka_tpu_torch.runtime import canary, edge, frontends
 from misaka_tpu_torch.runtime.lifecycle import install_guards
 from misaka_tpu_torch.runtime.master import AutoCheckpointer, MasterNode, make_http_server
+from misaka_tpu_torch.runtime.registry import ProgramRegistry
 from misaka_tpu_torch.runtime.topology import Topology
 
 log = logging.getLogger("misaka_tpu_torch.app")
@@ -139,7 +152,8 @@ def _refuse(msg: str):
     raise BootRefusal(msg)
 
 
-def build_topology_from_env(environ=os.environ) -> Topology:
+def caps_from_env(environ=os.environ) -> dict:
+    """The capacities MISAKA_STACK_CAP / MISAKA_IN_CAP / MISAKA_OUT_CAP set."""
     caps = {}
     for env_name, field in (
         ("MISAKA_STACK_CAP", "stack_cap"),
@@ -149,6 +163,11 @@ def build_topology_from_env(environ=os.environ) -> Topology:
         v = environ.get(env_name)
         if v:
             caps[field] = int(v)
+    return caps
+
+
+def build_topology_from_env(environ=os.environ) -> Topology:
+    caps = caps_from_env(environ)
     path = environ.get("MISAKA_TOPOLOGY")
     if path:
         if path.endswith((".yml", ".yaml")):
@@ -180,9 +199,6 @@ def check_env(environ=os.environ) -> None:
             and "cpu" in edge.parse_quota_spec(environ.get("MISAKA_QUOTA"))):
         _refuse("MISAKA_QUOTA: the `cpu` quota stage reads the usage ledger, not ported yet "
                 "(ROADMAP A.4); give rps and vps only")
-    if environ.get("MISAKA_PROGRAMS_DIR"):
-        _refuse("MISAKA_PROGRAMS_DIR: the program registry is not ported yet "
-                "(ROADMAP A.3)")
     try:
         frontends.check_plane_addr(plane_path(environ), environ)
     except NotImplementedError as e:
@@ -235,6 +251,28 @@ def arm_autockpt(master: MasterNode, environ=os.environ) -> AutoCheckpointer | N
                             keep=int(environ.get("MISAKA_AUTOCKPT_KEEP", "4")))
 
 
+def build_registry_from_env(master: MasterNode, environ=os.environ) -> ProgramRegistry | None:
+    """MISAKA_PROGRAMS_DIR: the program registry over that store, seeded
+    with the boot master under MISAKA_DEFAULT_PROGRAM from its live
+    topology (an auto-restored checkpoint may carry other programs than
+    the boot env); None when unset."""
+    programs_dir = environ.get("MISAKA_PROGRAMS_DIR")
+    if not programs_dir:
+        return None
+    registry = ProgramRegistry(
+        programs_dir,
+        batch=int(environ.get("MISAKA_BATCH", "0") or 0) or None,
+        engine=environ.get("MISAKA_ENGINE", "auto"),
+        caps=caps_from_env(environ),
+        device=environ.get("MISAKA_DEVICE") or None,
+    )
+    default_name = environ.get("MISAKA_DEFAULT_PROGRAM", "default")
+    registry.seed(default_name, master)
+    log.info("program registry armed (dir %s, default program %r, max_active %d)",
+             programs_dir, default_name, registry.max_active)
+    return registry
+
+
 def _write_pidfile(environ=os.environ) -> str | None:
     """This server's pidfile: MISAKA_PIDFILE ("0"/"off": none), by default
     under the temp dir, never the working directory; removed at exit.  An
@@ -276,7 +314,7 @@ def main() -> None:
     else:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     master = build_master_from_env(environ)
-    autockpt = httpd = pidfile = plane = supervisor = None
+    autockpt = httpd = pidfile = plane = supervisor = registry = None
 
     def stop() -> None:
         # the workers go first (no new frames), then the device loop (no
@@ -286,8 +324,11 @@ def main() -> None:
         try:
             if supervisor is not None:
                 supervisor.close()
+            canary.shutdown()
             if autockpt is not None:
                 autockpt.close()
+            if registry is not None:
+                registry.close()  # checkpoints and closes the engines it built
             master.close()
             if plane is not None:
                 plane.close()
@@ -304,19 +345,21 @@ def main() -> None:
         # inherit it through the env), as the reference mints it
         environ["MISAKA_EDGE_INTERNAL_TOKEN"] = os.urandom(16).hex()
     autockpt = arm_autockpt(master, environ)
+    registry = build_registry_from_env(master, environ)
     port = int(environ.get("MISAKA_PORT", "8000"))
     workers = int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0)
-    dirs = dict(checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None,
-                profile_dir=environ.get("MISAKA_PROFILE_DIR") or None)
+    server_kw = dict(checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None,
+                     profile_dir=environ.get("MISAKA_PROFILE_DIR") or None, registry=registry)
     if workers > 0:
         # the multi-process front (runtime/frontends.py): the workers take
         # the public port and terminate TLS; the engine's own server is
         # their plain-HTTP proxy target on a free port
         sys.setswitchinterval(0.001)  # many handler threads: no convoys
-        httpd = make_http_server(master, port=0, tls=False, **dirs)
+        httpd = make_http_server(master, port=0, tls=False, **server_kw)
         engine_port = httpd.server_address[1]
         path = plane_path(environ)
-        plane = httpd.misaka_plane = frontends.start_compute_plane(master, path)
+        plane = httpd.misaka_plane = frontends.start_compute_plane(master, path,
+                                                                   registry=registry)
         if environ.get("MISAKA_NATIVE_EDGE", "1") != "0" and not environ.get("MISAKA_TLS_CERT"):
             log.warning("native edge unavailable (not ported: ROADMAP A.8); CPython workers "
                         "take the public port")
@@ -326,12 +369,13 @@ def main() -> None:
         log.info("engine http on 127.0.0.1:%d; %d supervised frontend workers on :%d "
                  "(plane %s)", engine_port, workers, port, path)
     else:
-        httpd = make_http_server(master, port=port, **dirs)
+        httpd = make_http_server(master, port=port, **server_kw)
         if environ.get("MISAKA_PLANE_SERVE") == "1":
             # a plane with no workers of its own: frontends elsewhere on
             # this host connect to it, and POST /fleet/drain drives it
             path = plane_path(environ)
-            plane = httpd.misaka_plane = frontends.start_compute_plane(master, path)
+            plane = httpd.misaka_plane = frontends.start_compute_plane(master, path,
+                                                                       registry=registry)
             log.info("compute plane serving at %s", path)
     pidfile = _write_pidfile(environ)
     if pidfile:
@@ -340,6 +384,12 @@ def main() -> None:
              ", tls" if getattr(httpd, "misaka_tls", False) else "")
     if environ.get("MISAKA_AUTORUN") == "1":
         master.run()
+    # the synthetic canary probes the public port (the workers' when they
+    # take it) and, with a registry, the canary program's own engine
+    scheme = "https" if environ.get("MISAKA_TLS_CERT") else "http"
+    public_port = port if workers > 0 else httpd.server_address[1]
+    canary.ensure_started(f"{scheme}://127.0.0.1:{public_port}", registry=registry,
+                          server=httpd, environ=environ)
     try:
         httpd.serve_forever()
     finally:

@@ -25,13 +25,15 @@ packages' PlaneClient and ComputePlane talk to each other.  The engine
 runs the edge chain (runtime/edge.py) once per frame on the frame's API
 key and request count, and books the shed counts a worker ships in its
 frames (the worker's shed cache answers a tenant inside an engine-issued
-Retry-After without a round trip).  Left out, each with its ROADMAP item:
-the fleet router across replicas and plane mTLS (A.6: a comma-separated
-plane path and MISAKA_PLANE_TLS_* refuse), the native C++ edge (A.8), and
-SLO windows, chaos points and capture recording (A.4): the plane runs as
-the reference's does with those planes disarmed, and a frame addressed to
-a registry program answers 404 as the reference's does without a registry
-(A.3).
+Retry-After without a round trip).  With a program registry
+(runtime/registry.py) each frame resolves its engine through a registry
+lease on the frame's program (the seeded default when it names none); an
+unknown program is the typed 404, and without a registry a frame that
+names a program gets the reference's 404.  Left out, each with its ROADMAP
+item: the fleet router across replicas and plane mTLS (A.6: a
+comma-separated plane path and MISAKA_PLANE_TLS_* refuse), the native C++
+edge (A.8), and SLO windows, chaos points and capture recording (A.4): the
+plane runs as the reference's does with those planes disarmed.
 
 This module imports the standard library and the port's stdlib-only
 modules only: a frontend worker never pays the torch import or its memory.
@@ -338,9 +340,14 @@ class ComputePlane:
     connection (default 4) are in flight at once; responses ship in frame
     order."""
 
-    def __init__(self, master, path: str, timeout: float = 30.0):
+    def __init__(self, master, path: str, timeout: float = 30.0, registry=None):
         check_plane_addr(path)
         self._master = master
+        # the program registry when multi-program serving is armed: frames
+        # then resolve their engine through a registry lease.  This module
+        # never imports the registry: an unknown program surfaces as the
+        # lease's KeyError (ProgramNotFound), answered as 404.
+        self._registry = registry
         self._timeout = timeout
         self._secret = edge_mod.plane_secret()
         self.path = path
@@ -462,9 +469,12 @@ class ComputePlane:
             # one (program, tenant), so a frame decision is a tenant
             # decision.  A rejection ships its typed status and a JSON body
             # from which the worker restores the headers.
+            registry = self._registry
             chain = edge_mod.current()
             if chain.armed:
-                decision = chain.check("/compute_raw", "POST", key=meta.key, program=meta.program,
+                decision = chain.check("/compute_raw", "POST", key=meta.key,
+                                       program=meta.program or getattr(registry, "default_name",
+                                                                       None),
                                        values=int(n), requests=meta.reqs)
                 rej = decision.reject
                 if rej is not None:
@@ -476,25 +486,45 @@ class ComputePlane:
                     return
             t_recv = time.monotonic()
             values = get_values()
-            if meta.program:
-                # no registry in the port (ROADMAP A.3): the reference's
-                # answer without one
-                body = (f"program registry disabled; cannot route to program "
-                        f"{meta.program!r}").encode()
+            # The lease first, in its own try: only this step may answer
+            # 404 (ProgramNotFound is a KeyError).  A KeyError escaping the
+            # compute itself stays a 500: calling an engine fault "program
+            # not found" would hide it from 5xx alerting.
+            lease = None
+            try:
+                if registry is not None:
+                    # resolves the program (the seeded default for None),
+                    # activates a cold engine, parks through a hot swap
+                    lease = registry.lease(meta.program, values=int(values.size))
+                    m = lease.__enter__()
+                elif meta.program:
+                    raise KeyError(f"program registry disabled; cannot route to program "
+                                   f"{meta.program!r}")
+                else:
+                    m = self._master
+            except KeyError as e:
+                # args[0]: KeyError's str() would quote the message
+                msg = e.args[0] if e.args and isinstance(e.args[0], str) else str(e)
+                body = msg.encode()
                 reply(_RESP_HDR.pack(404, len(body)) + body)
                 for tr in traces:
                     tracespan.end(tr, status=404)
                 return
-            master = self._master
+            except Exception as e:  # an activation failure
+                body = str(e).encode()
+                reply(_RESP_HDR.pack(500, len(body)) + body)
+                for tr in traces:
+                    tracespan.end(tr, status=500)
+                return
             try:
-                if not master.is_running:
+                if not m.is_running:
                     body = b"network is not running"  # the route's 400 body
                     reply(_RESP_HDR.pack(400, len(body)) + body)
                     for tr in traces:
                         tracespan.end(tr, status=400)
                     return
-                out = master.compute_coalesced(values, timeout=self._timeout,
-                                               return_array=True, traces=tuple(traces))
+                out = m.compute_coalesced(values, timeout=self._timeout,
+                                          return_array=True, traces=tuple(traces))
             except Exception as e:
                 body = str(e).encode()
                 reply(_RESP_HDR.pack(500, len(body)) + body)
@@ -502,6 +532,9 @@ class ComputePlane:
                     tracespan.add_span(tr, "plane.recv", t_recv, time.monotonic() - t_recv)
                     tracespan.end(tr, status=500)
                 return
+            finally:
+                if lease is not None:
+                    lease.__exit__(None, None, None)
             payload = out.astype("<i4").tobytes()
             if meta.shm_vals is not None:
                 # the response rides the segment's second half; the socket
@@ -676,8 +709,9 @@ class ComputePlane:
                 pass
 
 
-def start_compute_plane(master, path: str, timeout: float = 30.0) -> ComputePlane:
-    return ComputePlane(master, path, timeout=timeout)
+def start_compute_plane(master, path: str, timeout: float = 30.0,
+                        registry=None) -> ComputePlane:
+    return ComputePlane(master, path, timeout=timeout, registry=registry)
 
 
 # --- frontend side --------------------------------------------------------------

@@ -36,7 +36,13 @@ request trace around every handler (`X-Misaka-Trace` in and out,
 (MISAKA_TLS_CERT/KEY) and the edge chain before every route body
 (runtime/edge.py: API keys, tenant quotas, admission on the ServeBatcher's
 waiting values, signed tenant tokens at POST /edge/token, usage gossip at
-POST /edge/gossip, the /healthz `edge` block).
+POST /edge/gossip, the /healthz `edge` block).  With a program registry
+(runtime/registry.py) it also keeps POST/GET /programs, GET
+/programs/<name> and program-addressed compute (/programs/<name>/<op>, or
+X-Misaka-Program on the legacy routes), each compute request served by the
+engine a registry lease resolves; without one a named program is the
+reference's typed 404.  /healthz carries the canary's block when the app
+runs one (runtime/canary.py).
 
 Observability (the reference's, for what the port runs): the `M_*`
 series below under the reference's names, types and labels, served at GET
@@ -45,7 +51,7 @@ series below under the reference's names, types and labels, served at GET
 (utils/tracespan.py); profiles through torch.profiler, begun and ended on
 the device-loop thread (utils/profiling.py::LoopCapture).  Left out: the
 series and hooks of planes not ported (native pool, distributed, SLO,
-usage, capture, fleet: ROADMAP A.3-A.8).
+usage, capture, fleet: ROADMAP A.4-A.8).
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -72,6 +78,7 @@ package at the same B.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import logging
@@ -84,7 +91,7 @@ import time
 import weakref
 import zipfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import parse_qs, urlparse
+from urllib.parse import parse_qs, unquote, urlparse
 
 import numpy as np
 import torch
@@ -99,8 +106,10 @@ from misaka_tpu_torch.core.state import (
 )
 from misaka_tpu_torch.core.trace import TraceRing, decode_trace
 from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
+from misaka_tpu_torch.runtime import canary as canary_mod
 from misaka_tpu_torch.runtime import checkpoint as ckpt
 from misaka_tpu_torch.runtime import edge as edge_mod
+from misaka_tpu_torch.runtime.registry import ProgramNotFound, RegistryError
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
 from misaka_tpu_torch.tis.parser import TISParseError
@@ -143,6 +152,18 @@ M_SUBMIT_DEPTH = metrics.gauge(
 M_OUT_DEPTH = metrics.gauge(
     "misaka_out_queue_depth",
     "Output chunks waiting across per-slot output queues (live master)",
+)
+M_WARM_TOTAL = metrics.counter(
+    "misaka_engine_warm_total",
+    "Engine warm-ups COMPLETED (first-call jit compiles forced)",
+)
+M_WARM_FAILED = metrics.counter(
+    "misaka_engine_warm_failed_total",
+    "Engine warm-ups that raised (the device loop then compiles under lock)",
+)
+M_WARM_SECONDS = metrics.histogram(
+    "misaka_engine_warm_seconds",
+    "Completed engine warm-up duration (jit compile + dummy chunk)",
 )
 M_AUTOGROW = metrics.counter(
     "misaka_stack_autogrow_total", "Successful stack-capacity doublings"
@@ -247,13 +268,21 @@ _METRIC_ROUTES = frozenset({
 })
 
 
+# Program-addressed compute (the registry surface, runtime/registry.py):
+# the <name> segment collapses out of the route label.  Program names are
+# client-chosen, so they live in the registry's own `program`-labelled
+# series, with their own cardinality guard, never in the route label.
+_PROGRAM_OPS = ("compute", "compute_batch", "compute_raw")
+_PROGRAM_COMPUTE_RE = re.compile(r"^/programs/([^/]+)/(compute|compute_batch|compute_raw)$")
+
+
 def _route_label(path: str) -> str:
     route = path.split("?", 1)[0]
     if route.startswith("/debug/requests/"):
         return "/debug/requests"  # per-trace lookups share one label
     if route.startswith("/programs"):
         parts = route.split("/")
-        if len(parts) >= 4 and parts[3] in ("compute", "compute_batch", "compute_raw"):
+        if len(parts) >= 4 and parts[3] in _PROGRAM_OPS:
             return "/programs/" + parts[3]
         return "/programs"
     return route if route in _METRIC_ROUTES else "other"
@@ -366,7 +395,10 @@ class ServeBatcher:
     """
 
     def __init__(self, master: "MasterNode", n_slots: int, in_cap: int):
-        self._master = master
+        # a proxy, not a reference: the master owns its batcher, and a
+        # cycle between them would keep a dropped engine's device state
+        # alive until the next garbage collection
+        self._master = weakref.proxy(master)
         self._n_slots = int(n_slots)
         self._in_cap = max(1, int(in_cap))
         self._max_values = int(
@@ -583,6 +615,10 @@ class ServeBatcher:
             # waiter builds its Server-Timing header from the spans so far.
             dur = time.monotonic() - t_pass
             attrs = {"requests": len(segs), "values": total, "slots": n_used}
+            if master.program_label is not None:
+                # which registry program this pass served (the trace-side
+                # twin of the registry series' `program` label)
+                attrs["program"] = master.program_label
             for e, _, _ in segs:
                 for tr in e.traces:
                     tracespan.add_span(tr, "serve.pass", t_pass, dur, attrs)
@@ -592,6 +628,7 @@ class ServeBatcher:
                 if shared.closed:  # atomic against close()'s queue wipe
                     raise ComputeTimeout("the serve scheduler was closed")
                 epoch = master._epoch
+                master._out_qs.make(used)
                 master._submit_q.put(list(zip(used, stripes)))
             master._work_event.set()
             parts: list[np.ndarray] = []
@@ -641,6 +678,27 @@ class ServeBatcher:
 
 
 # --- the master ---------------------------------------------------------------
+
+
+class _SlotQueues(dict):
+    """The per-slot output queues, each made on its slot's first use.  A
+    master of B instances would otherwise build B queue.Queue objects at
+    construction (seconds of host time at B=262144, paid again by every
+    registry activation) and walk them all at every wipe.  A submission
+    makes its slots' queues under the epoch lock (`make`), so a wipe,
+    which holds that lock, reaches every queue a pre-wipe request
+    collects from."""
+
+    __slots__ = ()
+
+    def __missing__(self, slot: int) -> queue.Queue:
+        # one atomic dict operation: threads that miss at once share a queue
+        return self.setdefault(slot, queue.Queue())
+
+    def make(self, slots) -> None:
+        for s in slots:
+            if s not in self:
+                self.setdefault(s, queue.Queue())
 
 
 _ENGINES = ("auto", "scan", "fused", "fused-interpret", "gather", "native")
@@ -753,9 +811,9 @@ class MasterNode:
         self._n_slots = n_slots
         self._compute_locks = [threading.Lock() for _ in range(n_slots)]
         # ONE submission queue for all slots (payload: a list of (slot,
-        # int32-array) pairs); per-slot output queues.
+        # int32-array) pairs); per-slot output queues, made on first use.
         self._submit_q: queue.Queue = queue.Queue()
-        self._out_qs = [queue.Queue() for _ in range(n_slots)]
+        self._out_qs = _SlotQueues()
         # Device-loop-private spillover: submitted chunks that did not fit
         # the input ring yet, plus the set of slots that have any.
         self._in_pending: list[list[np.ndarray]] = [[] for _ in range(n_slots)]
@@ -792,17 +850,25 @@ class MasterNode:
         if os.environ.get("MISAKA_SERVE_BATCH", "1") != "0":
             self._batcher = ServeBatcher(self, n_slots, self._net.in_cap)
         self._last_ckpt_mono: float | None = None
+        # Which registry program this engine serves (runtime/registry.py
+        # sets it; None outside the registry): the `program` attr of its
+        # serve.pass spans.
+        self.program_label: str | None = None
         # Profiles (utils/profiling.py): torch.profiler records the thread
         # that starts it, so a capture is begun and ended by the device
-        # loop at an iteration boundary (or when it next starts).
-        self.profiling = profiling.LoopCapture(
-            lambda: self._loop is not None and self._loop.is_alive(),
-            wake=self._work_event.set)
+        # loop at an iteration boundary (or when it next starts).  The
+        # callback holds this master weakly, as every callback below: a
+        # dropped engine's device state is freed when the last reference
+        # goes, not at the next garbage collection.
         ref = weakref.ref(self)
+        self.profiling = profiling.LoopCapture(
+            lambda: (m := ref()) is not None and m._loop is not None and m._loop.is_alive(),
+            wake=self._work_event.set)
         M_SUBMIT_DEPTH.set_function(
             lambda: m._submit_q.qsize() if (m := ref()) is not None else 0)
         M_OUT_DEPTH.set_function(
-            lambda: sum(q.qsize() for q in m._out_qs) if (m := ref()) is not None else 0)
+            lambda: sum(q.qsize() for q in list(m._out_qs.values()))
+            if (m := ref()) is not None else 0)
         M_CKPT_AGE.set_function(
             lambda: time.monotonic() - m._last_ckpt_mono
             if (m := ref()) is not None and m._last_ckpt_mono is not None else -1.0)
@@ -883,7 +949,10 @@ class MasterNode:
 
     def close(self) -> None:
         """Stop serving, fail every waiting request and end the scheduler's
-        workers."""
+        workers.  Nothing this master started (the loop, the scheduler's
+        workers, metric callbacks) holds it afterwards, so the engine's
+        device state is freed once its owner drops it (the program
+        registry's eviction and retire path)."""
         with self._lifecycle_lock:
             self.pause()
             if self._batcher is not None:
@@ -891,6 +960,36 @@ class MasterNode:
             self._drain_queues()
         if self._batcher is not None and not self._batcher.join(10.0):
             log.warning("serve-scheduler workers still running 10 s after close")
+
+    def warm(self) -> None:
+        """Pay the first chunk's one-time costs on throwaway state, before
+        run(), so the first request does not (the program registry warms
+        every engine it builds: untraced, on one device).  One serve
+        iteration, fed nothing, on a fresh state of this network that is
+        then dropped: on a card that is one launch of the kernel (counted
+        in fused.launch_counts, and once in misaka_engine_warm_total),
+        whose first call in the process loads the kernel's module and
+        sizes the allocator's pools; the library load and the line records
+        (`fused.decode_lines`) were paid when the runner was built.
+        Best-effort: a failure is logged and counted, and serving goes
+        on."""
+        t0 = time.perf_counter()
+        try:
+            with self._state_lock:
+                net, serve = self._net, self._serve
+            if self._batch is None:
+                _, packed = serve(net.init_state(), _NO_VALUES, 0)
+            else:
+                serve_fn, _ = serve
+                _, packed = serve_fn(net.init_state(),
+                                     np.zeros((self._batch, net.in_cap), np.int32),
+                                     np.zeros((self._batch,), np.int32))
+            packed.reshape(-1)[:1].cpu()  # one element read: waits for the device
+            M_WARM_TOTAL.inc()
+            M_WARM_SECONDS.observe(time.perf_counter() - t0)
+        except Exception as e:  # warm-up is best-effort
+            M_WARM_FAILED.inc()
+            log.warning("engine warm-up failed (continuing): %s", e)
 
     def reset(self) -> None:
         """Stop + zero all state and queues (stopNode/resetNode, master.go:252-266)."""
@@ -970,9 +1069,13 @@ class MasterNode:
         try:
             if tr is not None:  # the direct lane's queue phase
                 tracespan.add_span(tr, "serve.queue", t_q, time.monotonic() - t_q)
-            with tracespan.span("serve.pass", trace=tr, values=int(arr.size)):
+            pass_attrs = {"values": int(arr.size)}
+            if self.program_label is not None:
+                pass_attrs["program"] = self.program_label
+            with tracespan.span("serve.pass", trace=tr, **pass_attrs):
                 with self._epoch_lock:
                     epoch = self._epoch
+                    self._out_qs.make((slot,))
                     self._submit_q.put([(slot, arr)])
                 self._work_event.set()
                 deadline = time.monotonic() + timeout
@@ -1035,10 +1138,14 @@ class MasterNode:
         M_COMPUTE_REQS.inc()
         M_COMPUTE_VALUES.inc(arr.size)
         try:
-            with tracespan.span("serve.pass", values=int(arr.size), slots=len(owned)):
+            pass_attrs = {"values": int(arr.size), "slots": len(owned)}
+            if self.program_label is not None:
+                pass_attrs["program"] = self.program_label
+            with tracespan.span("serve.pass", **pass_attrs):
                 stripes = np.array_split(arr, len(owned))
                 with self._epoch_lock:
                     epoch = self._epoch
+                    self._out_qs.make(owned)
                     self._submit_q.put(list(zip(owned, stripes)))
                 self._work_event.set()
                 deadline = time.monotonic() + timeout
@@ -1148,7 +1255,7 @@ class MasterNode:
         if self._batcher is not None:
             host_in += self._batcher.waiting_values()
         host_out = 0
-        for q in self._out_qs:
+        for q in list(self._out_qs.values()):
             with q.mutex:
                 host_out += sum(len(c) for c in q.queue)
         with self._waiters_lock:
@@ -1191,11 +1298,14 @@ class MasterNode:
 
     # --- checkpoints, snapshot, restore -------------------------------------
 
-    def save_checkpoint(self, path: str) -> None:
+    def save_checkpoint(self, path: str, include_history: bool = True) -> None:
         """Whole-network state + topology to one .npz in the JAX package's
         format, durably (runtime/checkpoint.py).  The fields are read to the
         host under the state lock (on a mesh: the global arrays, in shard
-        order)."""
+        order).  `include_history` is the reference's switch for its
+        metric-history blob (the registry's eviction checkpoints pass
+        False); the port keeps no history yet (ROADMAP A.4), so both
+        values write the same file."""
         t0 = time.perf_counter()
         with self._state_lock:
             state = self._state if self._mesh is None else gather_state(self._state)
@@ -1305,7 +1415,8 @@ class MasterNode:
         # Called with the device loop stopped (after pause()), so the
         # loop-private spillover is safe to wipe here too.
         with self._epoch_lock:
-            for q in (self._submit_q, *self._out_qs):
+            out_qs = list(self._out_qs.values())
+            for q in (self._submit_q, *out_qs):
                 while True:
                     try:
                         q.get_nowait()
@@ -1319,7 +1430,7 @@ class MasterNode:
             self._stale = [0] * len(self._stale)
             self._grow_blocked = False
             self._epoch += 1
-            for q in self._out_qs:
+            for q in out_qs:
                 q.put(_WIPED)
 
     def _maybe_grow_stacks(self) -> None:
@@ -1689,7 +1800,7 @@ class AutoCheckpointer:
 def make_http_server(master: MasterNode, port: int = 8000,
                      checkpoint_dir: str | None = None,
                      profile_dir: str | None = None,
-                     tls=None) -> ThreadingHTTPServer:
+                     tls=None, registry=None) -> ThreadingHTTPServer:
     """The reference's client routes (master.go:90-224) plus /compute_batch,
     /compute_raw, /checkpoint, /restore, /profile/start|stop, /fleet/drain,
     /edge/token, /edge/gossip, GET /status, /metrics, /healthz,
@@ -1705,7 +1816,16 @@ def make_http_server(master: MasterNode, port: int = 8000,
     /profile/* unless `profile_dir` is;
     clients name a checkpoint or profile, never a path.  tls=None reads
     MISAKA_TLS_CERT/KEY (runtime/edge.py), False serves plain HTTP, an
-    SSLContext wraps the listener with it."""
+    SSLContext wraps the listener with it.
+
+    `registry` (runtime/registry.py::ProgramRegistry, seeded with
+    `master`) arms the program routes: POST /programs (upload), GET
+    /programs and /programs/<name>, program-addressed compute
+    (/programs/<name>/compute|compute_batch|compute_raw, or the
+    X-Misaka-Program header on the legacy routes) through a registry
+    lease, /status `programs`, and the admission signal summed over the
+    registry's engines.  registry=None keeps the single-program server,
+    and a request that names a program gets the reference's typed 404."""
     max_body = int(os.environ.get("MISAKA_MAX_BODY", "") or 64 * 1024 * 1024)
     # requests over MISAKA_SLOW_REQ_MS log one warning with their trace ID
     _slow_ms = os.environ.get("MISAKA_SLOW_REQ_MS")
@@ -1727,14 +1847,38 @@ def make_http_server(master: MasterNode, port: int = 8000,
         now = time.monotonic()
         if now - waiting_cache[0] > 0.025:
             waiting_cache[0] = now
-            b = master._batcher
-            waiting_cache[1] = b.waiting_values() if b is not None else 0
+            if registry is not None:  # every engine; the seeded one is `master`
+                waiting_cache[1] = registry.waiting_values()
+            else:
+                b = master._batcher
+                waiting_cache[1] = b.waiting_values() if b is not None else 0
         return waiting_cache[1], False
 
     # the default watermark clears two maximum-size legal bodies (int32
     # values x 4): what the body cap admits is never shed right after
     edge_chain = edge_mod.install(edge_mod.from_env(
         signals=edge_signals, default_admission_high=max(65536, (max_body // 4) * 2)))
+    if registry is not None:
+        # persisted per-program quota overrides predate this chain (the
+        # registry loads its store at construction, before any server)
+        registry.install_quotas(edge_chain)
+
+    @contextlib.contextmanager
+    def resolved_master(ref, values=0):
+        """The engine a compute request serves on: the registry lease (a
+        program-addressed request, or the seeded default through the same
+        lease), or the bare master on a server without a registry, where
+        a named program is the typed 404."""
+        if registry is not None:
+            with registry.lease(ref, values=values) as m:
+                yield m
+            return
+        if ref:
+            raise ProgramNotFound(
+                f"program registry disabled (set MISAKA_PROGRAMS_DIR); "
+                f"cannot route to program {ref!r}"
+            )
+        yield master
 
     def resolve_name(directory: str | None, name: str, suffix: str = "") -> str | None:
         if not directory or not _NAME_RE.match(name) or ".." in name:
@@ -1804,6 +1948,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
             route = _route_label(self.path)
             self._metrics_code = None  # keep-alive reuses the handler
             self._extra_headers = []
+            self._misaka_program = None  # set by _handle_post's resolution
             trace = tracespan.begin(self.headers.get(tracespan.TRACE_HEADER), route=route)
             self._misaka_trace = trace
             mark = getattr(self, "_parse_mark", None)
@@ -1826,7 +1971,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     log.warning(
                         "slow request: %s %.1fms (threshold %.0fms)",
                         route, dur * 1e3, slow_req_s * 1e3,
-                        extra={"route": route, "program": None,
+                        extra={"route": route, "program": self._misaka_program,
                                "trace_id": trace.trace_id if trace is not None else None},
                     )
                 self._misaka_trace = None
@@ -1904,7 +2049,25 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     sup = getattr(self.server, "misaka_supervisor", None)
                     if sup is not None:
                         payload["frontends"] = sup.state()
+                    if registry is not None:
+                        payload["programs"] = registry.summary()
                     self._json(payload)
+                elif path == "/programs":
+                    if registry is None:
+                        self._text(404, "program registry disabled (set MISAKA_PROGRAMS_DIR)")
+                        return
+                    self._json(registry.list_programs())
+                elif path.startswith("/programs/"):
+                    if _PROGRAM_COMPUTE_RE.match(path):
+                        self._text(405, "method GET not allowed")
+                        return
+                    if registry is None:
+                        self._text(404, "program registry disabled (set MISAKA_PROGRAMS_DIR)")
+                        return
+                    try:
+                        self._json(registry.info(unquote(path[len("/programs/"):])))
+                    except ProgramNotFound as e:
+                        self._text(404, str(e))
                 elif path == "/metrics":
                     self._send(200, metrics.render().encode(), metrics.CONTENT_TYPE)
                 elif path == "/healthz":
@@ -1954,6 +2117,16 @@ def make_http_server(master: MasterNode, port: int = 8000,
             sup = getattr(self.server, "misaka_supervisor", None)
             if sup is not None:
                 payload["frontends"] = sup.state()
+            # the synthetic canary (runtime/canary.py), when this process
+            # runs one: the last cycle's per-tier outcomes and the first
+            # failing tier
+            cst = canary_mod.state_payload()
+            if cst is not None:
+                payload["canary"] = {
+                    "failing_tier": cst["failing_tier"],
+                    "consecutive_full_failures": cst["consecutive_full_failures"],
+                    "tiers": {t: v.get("ok") for t, v in cst["tiers"].items()},
+                }
             payload["debug_mem"] = {"trace_bytes": trace_b, "total_bytes": trace_b}
             if sup is not None:
                 payload["degraded"] = payload["frontends"]["degraded"]
@@ -1985,7 +2158,23 @@ def make_http_server(master: MasterNode, port: int = 8000,
 
         def _handle_post(self):
             try:
+                # Program addressing: a /programs/<name>/<op> path or an
+                # X-Misaka-Program header names the serving program; the op
+                # then runs the same route body as its legacy twin against
+                # the engine resolved for it.  Neither: the default.
                 path = self.path.split("?", 1)[0]
+                pm = _PROGRAM_COMPUTE_RE.match(path)
+                if pm:
+                    prog_ref = unquote(pm.group(1))
+                    path = "/" + pm.group(2)
+                else:
+                    prog_ref = self.headers.get("X-Misaka-Program") or None
+                # the program this request is for (edge allowlists and
+                # quotas, the slow-request log line): the addressed name,
+                # or the seeded default when a registry is armed
+                self._misaka_program = (
+                    prog_ref.partition("@")[0] if prog_ref
+                    else registry.default_name if registry is not None else None)
                 # the value estimate for quota and admission comes from the
                 # wire size (raw int32s 4 bytes each, decimal text ~8)
                 try:
@@ -1994,16 +2183,16 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     clen = 0
                 est = (max(1, clen // 4) if path == "/compute_raw"
                        else max(1, clen // 8) if path == "/compute_batch" else 1)
-                program = (self.headers.get("X-Misaka-Program") or "").partition("@")[0] or None
-                if not self._edge_check(path, "POST", program=program, values=est):
+                if not self._edge_check(path, "POST", program=self._misaka_program,
+                                        values=est):
                     return
-                self._post(path)
+                self._post(path, prog_ref)
             except Exception as e:  # a handler crash must not kill the server
                 log.exception("handler error")
                 self.close_connection = True  # request state unknown
                 self._text(500, f"internal error: {e}")
 
-        def _post(self, path: str) -> None:
+        def _post(self, path: str, prog_ref: str | None) -> None:
             if path in ("/run", "/pause", "/reset"):
                 self._form()  # drain any body (keep-alive sync)
                 getattr(master, path[1:])()
@@ -2019,16 +2208,21 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 self._text(200, "Success")
             elif path == "/compute":
                 form = self._form()  # body first: keep-alive stays in sync
-                if not master.is_running:
-                    self._text(400, "network is not running")
-                    return
                 try:
-                    value = int(form.get("value", ""))
-                except ValueError:
-                    self._text(400, "cannot parse value")
+                    with resolved_master(prog_ref, values=1) as m:
+                        if not m.is_running:
+                            self._text(400, "network is not running")
+                            return
+                        try:
+                            value = int(form.get("value", ""))
+                        except ValueError:
+                            self._text(400, "cannot parse value")
+                            return
+                        # through the serve scheduler
+                        result = int(m.compute_coalesced([value])[0])
+                except ProgramNotFound as e:
+                    self._text(404, str(e))
                     return
-                try:  # through the serve scheduler
-                    result = int(master.compute_coalesced([value])[0])
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
@@ -2042,14 +2236,18 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 except (ValueError, UnicodeEncodeError):
                     self._text(400, "cannot parse values")
                     return
-                if not master.is_running:
-                    self._text(400, "network is not running")
-                    return
                 try:
-                    if form.get("spread") == "1":
-                        result = master.compute_coalesced(values, return_array=True)
-                    else:
-                        result = master.compute_many(values, return_array=True)
+                    with resolved_master(prog_ref, values=len(values)) as m:
+                        if not m.is_running:
+                            self._text(400, "network is not running")
+                            return
+                        if form.get("spread") == "1":
+                            result = m.compute_coalesced(values, return_array=True)
+                        else:
+                            result = m.compute_many(values, return_array=True)
+                except ProgramNotFound as e:
+                    self._text(404, str(e))
+                    return
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
@@ -2057,7 +2255,26 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 self._send(200, b'{"values": [' + ints_to_dec(result, b",") + b"]}\n",
                            "application/json")
             elif path == "/compute_raw":
-                self._compute_raw()
+                self._compute_raw(prog_ref)
+            elif path == "/programs":
+                # the registry's upload surface: publish one program version
+                # (TIS source or topology JSON) under a name; a new version
+                # over a live engine hot-swaps it
+                form = self._form()  # body first (keep-alive)
+                if registry is None:
+                    self._text(404, "program registry disabled (set MISAKA_PROGRAMS_DIR)")
+                    return
+                query = {k: v[0] for k, v in parse_qs(urlparse(self.path).query).items()}
+                try:
+                    result = registry.publish(
+                        form.get("name", ""), tis=form.get("program"),
+                        topology_json=form.get("topology"), compose=form.get("compose"),
+                        slo_spec=form.get("slo"), quota_spec=form.get("quota"),
+                        verify=query.get("verify") or form.get("verify") or None)
+                except (RegistryError, TopologyError, TISParseError, TISLowerError) as e:
+                    self._text(400, f"error publishing program: {e}")
+                    return
+                self._json(result)
             elif path in ("/checkpoint", "/restore"):
                 name = self._form().get("name", "")  # body first
                 if not checkpoint_dir:
@@ -2165,7 +2382,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 admin=(form.get("admin") or "") in ("1", "true", "on"), programs=programs)
             self._json({"token": token, "tenant": tenant, "expires_at": exp, "ttl_s": ttl})
 
-        def _compute_raw(self) -> None:
+        def _compute_raw(self, prog_ref: str | None) -> None:
             """Body: raw little-endian int32 values (or the MSK1 framing);
             response: raw int32 outputs, order kept.  Striped over free
             instances by default, one instance under ?spread=0."""
@@ -2197,14 +2414,18 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 return
             values = np.frombuffer(raw, dtype="<i4")
             query = {k: v[0] for k, v in parse_qs(urlparse(self.path).query).items()}
-            if not master.is_running:
-                self._text(400, "network is not running")
-                return
             try:
-                if query.get("spread", "1") == "1":
-                    result = master.compute_coalesced(values, return_array=True)
-                else:
-                    result = master.compute_many(values, return_array=True)
+                with resolved_master(prog_ref, values=int(values.size)) as m:
+                    if not m.is_running:
+                        self._text(400, "network is not running")
+                        return
+                    if query.get("spread", "1") == "1":
+                        result = m.compute_coalesced(values, return_array=True)
+                    else:
+                        result = m.compute_many(values, return_array=True)
+            except ProgramNotFound as e:
+                self._text(404, str(e))
+                return
             except ComputeTimeout as e:
                 self._text(500, str(e))
                 return

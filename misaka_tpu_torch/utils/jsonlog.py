@@ -11,9 +11,11 @@ line on stderr:
 `extra={"route": ...}`); `trace_id` appears on every line emitted while a
 request trace is in scope on the logging thread (utils/tracespan.py), the
 key that joins a log line to its `/debug/requests/<id>` entry; `program`
-appears when a record carries one explicitly (the port has no program
-registry yet, ROADMAP A.3).  Exceptions land under "exc" as one escaped
-string, so a traceback stays one log event.
+appears when a record carries one explicitly, or else while a program is
+current on the logging thread: the program registry's lease makes the
+leased program current for a request's lifetime (runtime/usage.py).
+Exceptions land under "exc" as one escaped string, so a traceback stays
+one log event.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import logging
 import sys
 import time
 
+from misaka_tpu_torch.runtime import usage
 from misaka_tpu_torch.utils import tracespan
 
 
@@ -46,7 +49,9 @@ class JsonFormatter(logging.Formatter):
         trace_id = getattr(record, "trace_id", None) or tracespan.current_id()
         if trace_id:
             obj["trace_id"] = trace_id
-        program = getattr(record, "program", None)
+        # an explicit extra={"program": ...} wins; otherwise the program the
+        # registry lease made current on the emitting thread
+        program = getattr(record, "program", None) or usage.current_program()
         if program:
             obj["program"] = program
         if record.exc_info:

@@ -9,17 +9,19 @@ One test per open fault of ROADMAP C, each failing before the fix:
   either server, and over HTTPS both answer the same /compute;
 - C.4 an API keyfile arms auth as the JAX app's does (401 without a key,
   served with one, 403 off its scope; behind 0 and 1 frontend workers),
-  <MISAKA_PROGRAMS_DIR>/api_keys.json refuses with the registry (A.3) and
-  MISAKA_QUOTA with a `cpu` field refuses (A.4);
+  and so does <MISAKA_PROGRAMS_DIR>/api_keys.json, with the registry
+  seeding the boot network as the pinned default program; MISAKA_QUOTA
+  with a `cpu` field refuses (A.4);
 - C.5 MISAKA_AUTOCKPT: auto snapshots written by either package's
   AutoCheckpointer restore in the other, a torn newest snapshot falls back
   to the one before, the interval snapshots rotate to `keep`, and a
   restarted app resumes its state;
 
-and the same class at lower stakes: MISAKA_PROGRAMS_DIR, MISAKA_FLEET,
-MISAKA_PLANE_TLS_CERT, a comma-separated MISAKA_PLANE_SOCKET and
-MISAKA_COORDINATOR refuse; MISAKA_FAULTS and MISAKA_SLO log one warning
-each.  (MISAKA_HTTP_WORKERS is served: tests/test_torch_frontends.py.)
+and the same class at lower stakes: MISAKA_FLEET, MISAKA_PLANE_TLS_CERT, a
+comma-separated MISAKA_PLANE_SOCKET and MISAKA_COORDINATOR refuse, while
+MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX app's
+version ID; MISAKA_FAULTS and MISAKA_SLO log one warning each.
+(MISAKA_HTTP_WORKERS is served: tests/test_torch_frontends.py.)
 """
 
 import http.client
@@ -45,6 +47,7 @@ from misaka_tpu.runtime import app as japp
 from misaka_tpu.runtime.master import AutoCheckpointer as JAuto
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
+from misaka_tpu.runtime.registry import ProgramRegistry as JRegistry
 from misaka_tpu.runtime.topology import Topology as JTopology
 from misaka_tpu_torch.core.state import state_to_numpy
 from misaka_tpu_torch.networks import ADD2_PROGRAMS
@@ -259,13 +262,45 @@ def test_c4_api_keyfile_arms_auth_like_jax(tmp_path, monkeypatch, workers):
     assert got[0][2] == 'Bearer realm="misaka", charset="UTF-8"'
 
 
-def test_c4_programs_dir_keyfile_and_cpu_quota_refuse(tmp_path, capsys):
-    # the conventional <MISAKA_PROGRAMS_DIR>/api_keys.json arms with the
-    # registry, which refuses (A.3)
-    (tmp_path / "api_keys.json").write_text(json.dumps({"keys": C4_KEYS}))
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.3") as exc:
-        app.build_master_from_env({**ADD2_ENV, "MISAKA_PROGRAMS_DIR": str(tmp_path)})
-    assert exc.value.code == 2
+def test_c4_programs_dir_keyfile_and_cpu_quota_refuse(tmp_path, monkeypatch, capsys):
+    # the conventional <MISAKA_PROGRAMS_DIR>/api_keys.json arms auth with
+    # the registry, in both apps; the registry seeds the boot network as
+    # the pinned default program
+    jdir, tdir = tmp_path / "jprograms", tmp_path / "tprograms"
+    for d in (jdir, tdir):
+        d.mkdir()
+        (d / "api_keys.json").write_text(json.dumps({"keys": C4_KEYS}))
+    monkeypatch.setenv("MISAKA_PROGRAMS_DIR", str(jdir))
+    jm = JMaster(JTopology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS, **CAPS),
+                 chunk_steps=32, batch=2, engine="scan")
+    jreg = JRegistry(str(jdir), batch=2, engine="scan", caps=CAPS)
+    jreg.seed("default", jm)
+    jh = j_http(jm, port=0, registry=jreg)
+    try:
+        jm.run()
+        want = _c4_probe(f"http://127.0.0.1:{_serve(jh)}")
+    finally:
+        jreg.close()
+        _close((jh, jm))
+    monkeypatch.delenv("MISAKA_PROGRAMS_DIR")
+    proc, base = _boot(tmp_path, {**ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_PIDFILE": "off",
+                                  "MISAKA_IN_CAP": "8", "MISAKA_OUT_CAP": "8",
+                                  "MISAKA_STACK_CAP": "8", "MISAKA_CANARY": "0",
+                                  "MISAKA_PROGRAMS_DIR": str(tdir)}, "programs_dir_keys")
+    try:
+        got = _c4_probe(base)
+        req = urllib.request.Request(base + "/programs", headers={"X-Misaka-Key": "adm-secret"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            listing = json.loads(r.read())["programs"]
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+    assert got == want
+    assert [g[0] for g in got] == [401, 200, 403] and got[1][1] == b'{"value": 7}\n'
+    assert listing["default"]["pinned"] and listing["default"]["default"]
+    assert listing["default"]["latest"] == jreg.resolve("default")[1]
+    assert sorted(os.listdir(tdir / "default" / "versions")) == sorted(
+        os.listdir(jdir / "default" / "versions"))
     # the cpu stage reads the usage ledger (A.4); with the quota stage off
     # the spec is inert, as the reference's is
     with pytest.raises(SystemExit, match=r"ROADMAP A\.4") as exc:
@@ -462,13 +497,40 @@ def test_c5_restarted_app_resumes_from_its_auto_snapshot(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"MISAKA_PROGRAMS_DIR": "programs"}, "A.3"),
+    ({"MISAKA_PROGRAMS_DIR": "programs"}, None),
     ({"MISAKA_FLEET": "2"}, "A.6"),
     ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_TLS_CERT": "plane.pem"}, "A.6"),
     ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_SOCKET": "/tmp/a.sock,/tmp/b.sock"}, "A.6"),
     ({"MISAKA_COORDINATOR": "127.0.0.1:1234"}, "A.7"),
 ], ids=["programs_dir", "fleet", "plane_tls", "plane_paths", "coordinator"])
-def test_unported_planes_refuse_at_boot(extra, item):
+def test_unported_planes_refuse_at_boot(extra, item, tmp_path):
+    if item is None:
+        # ported (ROADMAP A.3): the app boots, and the registry seeds the
+        # boot network under the JAX app's version ID and store layout
+        env = {**ADD2_ENV, "MISAKA_BATCH": "2",
+               **{k: str(tmp_path / v) for k, v in extra.items()}}
+        app.check_env(env)
+        tm = app.build_master_from_env(env)
+        jm = JMaster(JTopology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS),
+                     chunk_steps=32, batch=2, engine="scan")
+        reg = jreg = None
+        try:
+            reg = app.build_registry_from_env(tm, env)
+            jreg = JRegistry(None, batch=2, engine="scan")
+            jreg.seed("default", jm)
+            assert reg.default_name == "default" and tm.program_label == "default"
+            assert reg.resolve(None) == jreg.resolve(None)
+            with reg.lease(None) as m:
+                assert m is tm
+            assert sorted(os.listdir(tmp_path / "programs" / "default")) == [
+                "aliases.json", "versions"]
+        finally:
+            for r in (reg, jreg):
+                if r is not None:
+                    r.close()
+            tm.close()
+            jm.close()
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}") as exc:
         app.check_env({**ADD2_ENV, **extra})
     assert exc.value.code == 2

@@ -50,7 +50,9 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.utils.jsonlog", "misaka_tpu_torch.utils.buildinfo",
               "misaka_tpu_torch.utils.profiling", "misaka_tpu_torch.runtime.lifecycle",
               "misaka_tpu_torch.runtime.edge", "misaka_tpu_torch.runtime.frontends",
-              "misaka_tpu_torch.client", "misaka_tpu_torch.utils.backoff"):
+              "misaka_tpu_torch.client", "misaka_tpu_torch.utils.backoff",
+              "misaka_tpu_torch.runtime.registry", "misaka_tpu_torch.runtime.canary",
+              "misaka_tpu_torch.runtime.usage", "misaka_tpu_torch.utils.slo"):
         assert m in report["modules"]
 
 
