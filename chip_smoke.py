@@ -64,7 +64,16 @@ uploads, program-addressed compute behind the workers and direct,
 evictions and revivals through checkpoints (a delay line's state carried
 across each), a hot swap under 32 clients, the canary's tiers, device
 memory released by an eviction (an in-process registry on the card), and
-the registry's cost on the default program, a b b a.
+the registry's cost on the default program, a b b a.  The `telemetry`
+phase serves the same add2 behind the workers with two tenants, an SLO
+objective and a usage secret: the usage ledger's exact counts and its
+conservation, the signed export through `usage-report`, a fault injected
+on one tenant's serve passes paging that tenant only and clearing, a
+capture exported and replayed on the card by `python -m misaka_tpu_torch
+replay` (green for add2 and a serialized delay line, a divergent candidate
+loud), the ?verify=replay deploy gate's swap and 409, anchors and the
+shadow engine in device memory, an unbatched capture replayed, and the
+planes' cost, a b b a.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -2629,6 +2638,501 @@ def hot_swap_drill(port, n_clients):
             "p50_request_s": float(np.median(times)), "seconds": secs}
 
 
+# --- the telemetry planes: ledger, SLO, faults, capture and replay ------------------
+
+TELE_SECRET = "chip-usage-secret"
+# an equivalent rewrite of the delay line (a trailing NOP: a new version
+# ID, the same answers) and add2's twin that adds 3 (the same state shapes)
+TELE_DELAY_V2 = REG_DELAY + "NOP\n"
+TELE_DELAY_V3 = REG_DELAY + "NOP\nNOP\n"
+
+
+def add3_topology_json() -> str:
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    progs = dict(ADD2_PROGRAMS)
+    progs["misaka2"] = progs["misaka2"].replace("ADD 1", "ADD 2")
+    return json.dumps({"nodes": {k: v["type"] for k, v in ADD2_NODES.items()},
+                       "programs": progs})
+
+
+def usage_rows(port):
+    return json.loads(http(port, "/debug/usage", timeout=60)[1])
+
+
+def usage_delta(before, after, name):
+    b = before["programs"].get(name, {})
+    return {k: after["programs"].get(name, {}).get(k, 0) - b.get(k, 0)
+            for k in ("requests", "values", "cpu_seconds", "queue_seconds")}
+
+
+def alert_states(port):
+    progs = json.loads(http(port, "/debug/alerts", timeout=60)[1])["programs"]
+    return {p: progs.get(p, {}).get("state") for p in ("tenant-a", "tenant-b", "default")}
+
+
+def run_replay(args, device):
+    """`python -m misaka_tpu_torch replay ...`: (rc, stdout lines, seconds)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "misaka_tpu_torch", "replay", *args]
+    if device is not None:
+        cmd += ["--device", device]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    return out.returncode, (out.stdout + out.stderr).splitlines(), time.perf_counter() - t
+
+
+def slo_drill(eng, pub, fault_s, n_clients=9, hol_s=4.0):
+    """serve_delay:tenant-a=fault_s armed over POST /debug/faults: tenant-a
+    pages on /debug/alerts and /healthz turns degraded while tenant-b and
+    the default stay ok and tenant-b gets no 429; cleared, everything
+    returns to ok.  n_clients small-request clients, spread over the three
+    programs, post to the engine's own port meanwhile: behind the workers
+    a plane connection answers its frames in order, so a faulted tenant's
+    frame holds its neighbours' frames queued behind it (their latency
+    counts from the worker's receipt).  That effect is read after the
+    drill, with the fault armed again for hol_s: tenant-b's latency
+    through the public port against the engine's port, states not held."""
+    stop = threading.Event()
+    answers = {"tenant-a": [], "tenant-b": [], "default": []}
+
+    def client(port, prog, i, lat=None):
+        add = {"tenant-a": 10, "tenant-b": 20, "default": 2}[prog]
+        v = i * 1_000_000
+        path = "/compute_raw" if prog == "default" else f"/programs/{prog}/compute_raw"
+        while not stop.is_set():
+            t = time.perf_counter()
+            c, _, b = call(port, path + "?spread=1", np.asarray([v], "<i4").tobytes())
+            if c == 200 and np.frombuffer(b, "<i4").tolist() != [v + add]:
+                raise RuntimeError(f"{prog} answered {np.frombuffer(b, '<i4')} for {v}")
+            answers[prog].append(c)
+            if lat is not None:
+                lat.append(time.perf_counter() - t)
+            v += 1
+
+    def arm(spec):
+        c, _, b = call(eng, "/debug/faults", urlencode_form(spec=spec))
+        want = {"armed": [spec.split("=")[0]] if spec else []}
+        expect(c == 200 and json.loads(b) == want, f"/debug/faults {spec!r}: {c} {b!r}")
+
+    progs = ("tenant-a", "tenant-b", "default")
+    out = {}
+    th = threading.Thread(target=lambda: out.setdefault("errors", run_clients(
+        n_clients, lambda i: client(eng, progs[i % 3], i))[0]))
+    th.start()
+    try:
+        deadline = time.monotonic() + 60
+        while alert_states(eng) != {"tenant-a": "ok", "tenant-b": "ok", "default": "ok"}:
+            expect(time.monotonic() < deadline, f"not all ok before the fault: "
+                                                f"{alert_states(eng)}")
+            time.sleep(0.25)
+        arm(f"serve_delay:tenant-a={fault_s}")
+        t0 = time.perf_counter()
+        while alert_states(eng)["tenant-a"] != "page":
+            expect(time.perf_counter() - t0 < 60, f"tenant-a never paged: {alert_states(eng)}")
+            time.sleep(0.2)
+        out["page_after_s"] = time.perf_counter() - t0
+        out["paged_states"] = alert_states(eng)
+        health = json.loads(http(pub, "/healthz")[1])
+        out["paged_health"] = {"slo": health.get("slo"), "degraded": health.get("degraded")}
+        alerts = json.loads(http(eng, "/debug/alerts")[1])["programs"]["tenant-a"]
+        out["exemplars"] = len(alerts.get("exemplars") or [])
+        expect(out["paged_states"] == {"tenant-a": "page", "tenant-b": "ok", "default": "ok"},
+               f"paged states {out['paged_states']}")
+        expect(out["paged_health"] == {"slo": "page", "degraded": True},
+               f"/healthz while paging: {out['paged_health']}")
+        arm("")
+        t1 = time.perf_counter()
+        while alert_states(eng) != {"tenant-a": "ok", "tenant-b": "ok", "default": "ok"}:
+            expect(time.perf_counter() - t1 < 90, f"no recovery: {alert_states(eng)}")
+            time.sleep(0.25)
+        out["recover_after_s"] = time.perf_counter() - t1
+        health = json.loads(http(pub, "/healthz")[1])
+        expect(health.get("slo") == "ok" and health.get("degraded") is False,
+               f"/healthz after recovery: {health}")
+    finally:
+        stop.set()
+        th.join()
+    expect(not out["errors"], f"drill clients: {out['errors'][:4]}")
+    out["statuses"] = {p: dict(collections.Counter(v)) for p, v in answers.items()}
+    expect(set(out["statuses"]["tenant-b"]) == {200}, f"tenant-b: {out['statuses']}")
+    # the plane's head-of-line effect: tenant-b behind the workers and
+    # direct, with tenant-a faulted and loaded through the workers
+    hol = {}
+    for armed in (False, True):
+        if armed:
+            arm(f"serve_delay:tenant-a={fault_s}")
+        stop.clear()
+        lat_pub, lat_eng = [], []
+        jobs = [lambda i: client(pub, "tenant-a", i), lambda i: client(pub, "tenant-b", i,
+                                                                         lat_pub),
+                lambda i: client(eng, "tenant-b", i, lat_eng)]
+        timer = threading.Timer(hol_s, stop.set)
+        timer.start()
+        errors, _ = run_clients(3, lambda i: jobs[i](i))
+        timer.join()
+        expect(not errors, f"head-of-line clients: {errors[:4]}")
+        hol["faulted" if armed else "healthy"] = {"tenant_b_public": latency_ms(lat_pub),
+                                                  "tenant_b_engine": latency_ms(lat_eng)}
+    arm("")
+    out["head_of_line"] = hol
+    return out
+
+
+def capture_memory(batch, device, n_delay=40):
+    """In this process, on the card: an anchor's size and the time to cut
+    it; device memory across capture start -> stop -> start (the second
+    anchor replaces the first); a shadow engine's build, restore and
+    per-record replay; the registry's ?verify=replay gate refusing a
+    mutant with memory back where it was (the shadow freed)."""
+    import gc
+
+    import torch
+
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.runtime import capture
+    from misaka_tpu_torch.runtime import master as tmaster
+    from misaka_tpu_torch.runtime.registry import ProgramRegistry, ReplayDivergence
+
+    card = device != "cpu"
+    launch0 = fused.launch_counts[fused.KERNEL]
+    mem = min_allocated if card else (lambda: 0)
+    row = {}
+    reg = ProgramRegistry(None, batch=batch, caps=MAIN_CAPS, device=device)
+    capture.configure({"MISAKA_CAPTURE_SAMPLE": "1.0"})
+    try:
+        reg.publish("d", tis=REG_DELAY)
+        with reg.lease("d") as m:
+            m0 = mem()
+            t = time.perf_counter()
+            a1 = capture.anchor_from_master("d", m)
+            if card:
+                torch.cuda.synchronize()
+            row["anchor_cut_s"] = time.perf_counter() - t
+            row["anchor_bytes"] = sum(x.numel() * x.element_size() for x in a1["state"])
+            capture.start(anchors={"d": a1})
+            del a1
+            m1 = mem()
+            capture.stop()
+            m2 = mem()
+            capture.start(anchors={"d": capture.anchor_from_master("d", m)})
+            m3 = mem()
+            row["memory"] = {"before": m0, "started": m1, "stopped": m2, "restarted": m3}
+            expect(not card or (abs(m1 - m0 - row["anchor_bytes"]) <= 0.05 * row["anchor_bytes"]
+                                and m2 == m1 and abs(m3 - m1) <= 0.05 * row["anchor_bytes"]),
+                   f"anchor memory {row['memory']} (one anchor: {row['anchor_bytes']})")
+            for i in range(n_delay):  # serialized: one pinned request at a time
+                vals = np.asarray([i, DELAY_LAST], np.int32)
+                out = m.compute_many(vals, return_array=True)
+                capture.note("http", program="d", trace=None, inbound=False,
+                             vals=vals.tobytes(), resp=out.astype("<i4").tobytes(),
+                             status=200, tick=int(m._ticks_done), op="many")
+            capture.stop()
+            topo = m._topology
+            del m
+        anchor, recs = capture.verify_bundle("d")
+        before = mem()
+        t = time.perf_counter()
+        shadow = tmaster.MasterNode(topo, batch=batch, device=device)
+        row["shadow_build_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        shadow.restore(anchor["state"])
+        shadow.run()
+        row["shadow_restore_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        diffs = capture.replay_records(shadow, recs)
+        row["replay_s_per_record"] = (time.perf_counter() - t) / len(recs)
+        row["replayed_records"] = len(recs)
+        shadow.close()
+        del shadow
+        gc.collect()
+        expect(diffs == [], f"in-process replay diverged: {diffs[:2]}")
+        after = mem()
+        row["shadow_memory"] = {"before": before, "after_freed": after}
+        expect(not card or abs(after - before) <= 0.05 * row["anchor_bytes"],
+               f"memory after the shadow was freed: {before} -> {after}")
+        before = mem()
+        t = time.perf_counter()
+        try:
+            reg.publish("d", tis=REG_ADD10, verify="replay")
+            raise SystemExit("main path check failed: the gate admitted a mutant")
+        except ReplayDivergence as e:
+            row["gate_409_diffs"] = len(e.diffs)
+            del e
+        row["gate_s"] = time.perf_counter() - t
+        gc.collect()
+        after = mem()
+        row["gate_memory"] = {"before": before, "after": after}
+        expect(not card or abs(after - before) <= 0.05 * row["anchor_bytes"],
+               f"memory after the refused gate: {before} -> {after}")
+    finally:
+        capture.configure()
+        capture.start()  # drop the anchors: the ring and its clones go
+        capture.stop()
+        reg.close()
+    row["kernel_launches"] = fused.launch_counts[fused.KERNEL] - launch0
+    return row
+
+
+def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32,
+                    per_client=40, n_raw_clients=32, raw_values=12_500, n_quiet=49,
+                    capture_clients=32, n_delay=40, n_b1=100, slo_ms=250, fault_s=0.5,
+                    drill_clients=9, min_events=3, canary=True, device=None, card=None):
+    """The telemetry planes on the main path: add2 at B (the full kernel)
+    behind N frontend workers with MISAKA_PROGRAMS_DIR, two tenants
+    (tenant-a +10, tenant-b +20), MISAKA_SLO="p99<{slo_ms}ms" over windows
+    shrunk to 2/4/8/16 s, and a usage secret.
+
+    1. ledger: n_clients x per_client /compute and n_raw_clients x
+       raw_values-value /compute_raw on the engine's own port, counted
+       exactly per program on /debug/usage; behind the workers the values
+       exactly (requests are the plane's frames); cpu_seconds summed over
+       programs, `_canary` included, against the pass-wall anchor within
+       5%; /usage/export verified by `python -m misaka_tpu_torch
+       usage-report`;
+    2. SLO drill (slo_drill, a fault of fault_s on tenant-a's passes);
+    3. capture: the delay line re-published (a fresh engine, its slot
+       cursor at 0) and anchored with the rest at /captures/start, 32
+       clients striping add2 behind the workers while delay is served one
+       pinned request at a time, the segment exported and replayed on the
+       card by `python -m misaka_tpu_torch replay` (green for add2 and
+       delay), a candidate adding 3 (diverges at the first record's index
+       0), the deploy gate (an equivalent delay swaps, ADD 10 answers
+       409 and the old version keeps serving);
+    4. in this process: capture_memory;
+    5. the README env (unbatched, B=1): 100 /compute captured and
+       replayed green;
+    6. the cost, a b b a: a with MISAKA_USAGE=0 MISAKA_CAPTURE=0 and no
+       MISAKA_SLO, b with the ledger, MISAKA_SLO and a recording.
+
+    device="cpu" rehearses it at a small B (no memory checks; canary=False,
+    a looser objective and a longer fault there: on the CPU every idle
+    engine burns a core, and the plain version serves in seconds)."""
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+    from misaka_tpu_torch.runtime import frontends
+
+    workers = workers or frontend_workers()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="telemetry-", dir=os.path.join(ROOT, "build"))
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers))
+    row = {"phase": "telemetry", "card": card, "workers": workers, "batch": batch,
+           "chunk_steps": chunk, **MAIN_CAPS}
+    t0 = time.perf_counter()
+    launches = []
+    rng = np.random.default_rng(SEED + 11)
+    try:
+        with served_app("telemetry", MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"),
+                        MISAKA_SLO=f"p99<{slo_ms}ms", MISAKA_SLO_WINDOWS="2,4,8,16",
+                        MISAKA_SLO_MIN_EVENTS=str(min_events), MISAKA_USAGE_SECRET=TELE_SECRET,
+                        MISAKA_CAPTURE_DIR=os.path.join(tmp, "captures"),
+                        MISAKA_PLANE_SOCKET=os.path.join(tmp, "tele.sock"),
+                        **({} if canary else {"MISAKA_CANARY": "0"}), **base) as (pub, boot_s):
+            row["boot_s"] = boot_s
+            eng = engine_port("telemetry")
+            expect(frontends.wait_ready(pub, timeout=30), "the public port does not answer")
+            for name, src in (("tenant-a", REG_ADD10), ("tenant-b", REG_ADD20)):
+                c, _, b = call(pub, "/programs", urlencode_form(name=name, program=src))
+                expect(c == 200, f"publish {name}: {c} {b!r}")
+                c, out, _ = program_raw(pub, name, [1])
+                expect(c == 200 and out.tolist() == [1 + (10 if name == "tenant-a" else 20)],
+                       f"{name}: {c} {out!r}")
+            # 1. the ledger
+            u0 = usage_rows(eng)
+            n, secs = small_requests(eng, n_clients, per_client, base=9_000_000)
+            raw = [rng.integers(-2**20, 2**20, size=raw_values).astype(np.int32)
+                   for _ in range(n_raw_clients)]
+
+            def raw_client(i):
+                c, out, _ = program_raw(eng, "tenant-a", raw[i])
+                if c != 200 or not np.array_equal(out, raw[i] + 10):
+                    raise RuntimeError(f"tenant-a raw {i}: {c}")
+
+            errors, raw_s = run_clients(n_raw_clients, raw_client)
+            expect(not errors, f"ledger raw clients: {errors[:4]}")
+            u1 = usage_rows(eng)
+            d_def, d_a = usage_delta(u0, u1, "default"), usage_delta(u0, u1, "tenant-a")
+            expect((d_def["requests"], d_def["values"]) == (n, n),
+                   f"default booked {d_def} for {n} requests")
+            expect((d_a["requests"], d_a["values"]) == (n_raw_clients,
+                                                        n_raw_clients * raw_values),
+                   f"tenant-a booked {d_a}")
+            vals = rng.integers(-2**20, 2**20, size=raw_values).astype(np.int32)
+            pub_reqs = 16
+
+            def pub_client(i):
+                c, _, b = call(pub, "/compute_raw", vals.tobytes())
+                if c != 200 or not np.array_equal(np.frombuffer(b, "<i4"), vals + 2):
+                    raise RuntimeError(f"public /compute_raw: {c} {b[:200]!r}")
+
+            errors, _ = run_clients(pub_reqs, pub_client)
+            expect(not errors, f"public stream: {errors[:4]}")
+            u2 = usage_rows(eng)
+            d_pub = usage_delta(u1, u2, "default")
+            expect(d_pub["values"] == pub_reqs * raw_values and 1 <= d_pub["requests"] <= pub_reqs,
+                   f"behind the workers: {d_pub}")
+            cpu_total = sum(p["cpu_seconds"] for p in u2["programs"].values())
+            expect(abs(cpu_total - u2["pass_seconds_total"]) <= 0.05 * u2["pass_seconds_total"],
+                   f"conservation: {cpu_total} vs {u2['pass_seconds_total']}")
+            env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
+            env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+            rep = subprocess.run(
+                [sys.executable, "-m", "misaka_tpu_torch", "usage-report", "--url",
+                 f"http://127.0.0.1:{pub}", "--secret", TELE_SECRET],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+            expect(rep.returncode == 0, f"usage-report: {rep.returncode} {rep.stderr[-300:]}")
+            report = json.loads(rep.stdout)
+            expect(report["verified"] and report["programs"]["tenant-a"]["values"]
+                   >= n_raw_clients * raw_values and "_canary" not in report["programs"],
+                   f"usage report {report}")
+            row["ledger"] = {
+                "small_requests": n, "small_seconds": secs, "raw_seconds": raw_s,
+                "default": d_def, "tenant_a": d_a, "public_stream": d_pub,
+                "cpu_seconds_total": cpu_total, "pass_seconds_total": u2["pass_seconds_total"],
+                "conservation_ratio": cpu_total / u2["pass_seconds_total"],
+                "canary_cpu_seconds": u2["programs"].get("_canary", {}).get("cpu_seconds"),
+                "report_periods": report["periods"]}
+            # 2. SLO
+            row["slo"] = slo_drill(eng, pub, fault_s, drill_clients)
+            # 3. capture: delay re-published, so its engine is fresh (slot
+            # cursor 0, as a shadow's) when the capture anchors it
+            c, _, b = call(pub, "/programs", urlencode_form(name="delay", program=REG_DELAY))
+            expect(c == 200, f"publish delay: {c} {b!r}")
+            c, out, _ = program_raw(pub, "delay", [5, DELAY_LAST], query="?spread=0")
+            expect(c == 200 and out.tolist() == [0, 5], f"delay first: {c} {out!r}")
+            c, _, b = call(pub, "/programs", urlencode_form(name="delay", program=TELE_DELAY_V2))
+            expect(c == 200 and json.loads(b)["swapped"], f"delay v2: {c} {b!r}")
+            t = time.perf_counter()
+            c, _, b = call(pub, "/captures/start", b"")
+            row_cap = {"start_s": time.perf_counter() - t}
+            st = json.loads(b)
+            expect(c == 200 and st["recording"] and {"default", "delay"} <= set(st["anchors"]),
+                   f"/captures/start: {c} {b!r}")
+            row_cap["anchored"] = sorted(st["anchors"])
+
+            def cap_client(i):
+                for j in range(5):
+                    v = rng_vals[i][j]
+                    check_raw(pub, v)
+
+            rng_vals = [[rng.integers(-1000, 1000, size=64).astype(np.int32) for _ in range(5)]
+                        for _ in range(capture_clients)]
+            th = threading.Thread(target=lambda: row_cap.setdefault(
+                "errors", run_clients(capture_clients, cap_client)[0]))
+            th.start()
+            for i in range(n_delay):
+                # pinned request i lands on instance i mod B of the fresh v2
+                c, out, _ = program_raw(pub, "delay", [i, DELAY_LAST], query="?spread=0")
+                want = [DELAY_LAST if i >= batch else 0, i]
+                expect(c == 200 and out.tolist() == want, f"delay {i}: {out!r} != {want}")
+            th.join()
+            expect(not row_cap["errors"], f"capture clients: {row_cap['errors'][:4]}")
+            dbg = json.loads(http(pub, "/debug/captures?n=0")[1])
+            row_cap.update(records=dbg["records"], ring_bytes=dbg["ring_bytes"],
+                           dropped=dbg["dropped"])
+            expect(call(pub, "/captures/stop", b"")[0] == 200, "/captures/stop")
+            seg = os.path.join(tmp, "captures", "telemetry.mskcap")
+            t = time.perf_counter()
+            c, _, b = call(pub, "/captures/export", urlencode_form(path=seg))
+            row_cap["export_s"] = time.perf_counter() - t
+            exp = json.loads(b)
+            expect(c == 200 and exp["dropped"] == 0, f"export: {c} {b!r}")
+            row_cap["anchor_file_bytes"] = {k: os.path.getsize(v) for k, v in
+                                            exp["anchors"].items()}
+            # every anchored program in one process: add2 and delay green,
+            # tenant-b anchored with nothing recorded
+            rc, lines, secs = run_replay([seg], device)
+            green = {ln.split(":")[0] for ln in lines if "replay green" in ln}
+            expect(rc == 0 and {"default", "delay"} <= green, f"replay: {rc} {lines[-4:]}")
+            replays = {"segment": {"seconds": secs, "lines": lines}}
+            cand = os.path.join(tmp, "add3.json")
+            with open(cand, "w") as f:
+                f.write(add3_topology_json())
+            rc, lines, secs = run_replay([seg, "--program", "default", "--candidate", cand],
+                                         device)
+            expect(rc == 1 and lines[0].startswith("DIVERGENCE offset=0 ")
+                   and "first_diff_index=0 " in lines[0] and "DIVERGED on" in lines[-1],
+                   f"candidate add3: {rc} {lines[:2]} {lines[-1:]}")
+            replays["candidate_add3"] = {"seconds": secs, "first": lines[0], "last": lines[-1]}
+            row_cap["replays"] = replays
+            # the deploy gate
+            t = time.perf_counter()
+            c, _, b = call(pub, "/programs?verify=replay",
+                           urlencode_form(name="delay", program=TELE_DELAY_V3))
+            row_cap["gate_green_s"] = time.perf_counter() - t
+            expect(c == 200 and json.loads(b)["swapped"], f"gate, equivalent: {c} {b!r}")
+            t = time.perf_counter()
+            c, _, b = call(pub, "/programs?verify=replay",
+                           urlencode_form(name="delay", program=REG_ADD10))
+            row_cap["gate_409_s"] = time.perf_counter() - t
+            body = json.loads(b) if c == 409 else {}
+            expect(c == 409 and body.get("diffs") and "diverged" in body.get("error", ""),
+                   f"gate, mutant: {c} {b[:200]!r}")
+            row_cap["gate_409_diffs"] = len(body["diffs"])
+            c, out, _ = program_raw(pub, "delay", [9, DELAY_LAST], query="?spread=0")
+            expect(c == 200 and out.tolist() == [0, 9], f"delay after the 409: {c} {out!r}")
+            row["capture"] = row_cap
+            launches.append(status(eng)["kernel_launches"][fused.KERNEL])
+        # 4. in this process
+        row["in_process"] = capture_memory(batch, device or "cuda", n_delay=n_delay)
+        launches.append(row["in_process"]["kernel_launches"])
+        # 5. the B=1 kernel: the README env, captured and replayed
+        with served_app("telemetry_b1", ADD2_NODES, readme_programs(), None, None, None,
+                        device=device, MISAKA_CAPTURE_DIR=os.path.join(tmp, "captures")) \
+                as (port, _):
+            expect(call(port, "/captures/start", b"")[0] == 200, "B=1 /captures/start")
+            for v in range(n_b1):
+                c, b = post_form(port, "/compute", value=str(v))
+                expect(c == 200 and json.loads(b) == {"value": v + 2}, f"B=1 /compute {v}")
+            seg1 = os.path.join(tmp, "captures", "b1.mskcap")
+            c, _, b = call(port, "/captures/export", urlencode_form(path=seg1))
+            expect(c == 200 and json.loads(b)["records"] == n_b1, f"B=1 export: {c} {b!r}")
+            launches.append(status(port)["kernel_launches"][fused.KERNEL])
+        rc, lines, secs = run_replay([seg1], device)
+        expect(rc == 0 and lines == [f"default: replay green — {n_b1} requests byte-for-byte "
+                                     "identical"], f"B=1 replay: {rc} {lines[-3:]}")
+        row["b1_replay"] = {"records": n_b1, "seconds": secs}
+        # 6. the cost, a b b a
+        cost = [dict(base, label=f"telemetry_cost_{cfg}", autorun=False,
+                     MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}.sock"),
+                     **({"MISAKA_USAGE": "0", "MISAKA_CAPTURE": "0"} if cfg == "a"
+                        else {"MISAKA_SLO": f"p99<{slo_ms}ms"}))
+                for cfg in ("a", "b")]
+        with served_apps(cost) as [(cost_a, _), (cost_b, _)]:
+            for p in (cost_a, cost_b):
+                expect(frontends.wait_ready(p, timeout=30), "the public port does not answer")
+                expect(post_form(p, "/run")[0] == 200, "/run")
+                small_requests(p, n_clients, 2, base=7_000_000)  # warm-up
+                expect(post_form(p, "/pause")[0] == 200, "/pause")
+            expect(call(cost_b, "/captures/start", b"")[0] == 200, "b: /captures/start")
+            turns = [{"config": cfg, **cost_turn(cost_a if cfg == "a" else cost_b, n_clients,
+                                                 per_client, n_quiet)}
+                     for cfg in ("a", "b", "b", "a")]
+            b_cap = json.loads(http(cost_b, "/debug/captures?n=0")[1])
+            expect(b_cap["recording"] and b_cap["records"] > 0, f"b recorded {b_cap}")
+
+            def mean(cfg, k):
+                return float(np.mean([t[k] for t in turns if t["config"] == cfg]))
+
+            row["cost"] = {
+                "turns": turns, "b_ring_bytes": b_cap["ring_bytes"],
+                "b_records": b_cap["records"],
+                "rate_ratio_b_over_a": mean("b", "small_requests_per_s")
+                / mean("a", "small_requests_per_s"),
+                "p50_ratio_b_over_a": mean("b", "p50_ms") / mean("a", "p50_ms"),
+                "p90_ratio_b_over_a": mean("b", "p90_ms") / mean("a", "p90_ms"),
+            }
+            launches += [status(p)["kernel_launches"][fused.KERNEL] for p in (cost_a, cost_b)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["kernel_launches"] = sum(launches)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def cuda_time_ms(fn, reps):
     """Mean device time per call of `fn` after one warm-up call."""
     import torch
@@ -2931,6 +3435,7 @@ def main() -> int:
     fe_row = phase_frontends(card=smi, zero_workers=obs_row)
     edge_row = phase_edge(card=smi)
     registry_row = phase_registry(card=smi)
+    telemetry_row = phase_telemetry(card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -2946,7 +3451,7 @@ def main() -> int:
             "replaces": "misaka_tpu/core/fused.py:80",
             "launches": main_row["kernel_launches"][fused.KERNEL]
             + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
-            + registry_row["kernel_launches"],
+            + registry_row["kernel_launches"] + telemetry_row["kernel_launches"],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -2963,6 +3468,10 @@ def main() -> int:
             # the registry phase's servers, every engine of each, and its
             # in-process registry (counted in `launches` above)
             "registry_launches": registry_row["kernel_launches"],
+            # the telemetry phase's servers (every engine of each) and its
+            # in-process registry (counted in `launches` above); the replay
+            # subprocesses' shadows launch in processes of their own
+            "telemetry_launches": telemetry_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

@@ -10,6 +10,11 @@ The port's twin of misaka_tpu/__main__.py:
                              (misaka_tpu_torch.debug), on the card unless
                              --device cpu (or MISAKA_DEVICE=cpu)
   compute  <v...> [--url]    send values to a running master's /compute
+  replay   <segment|dir>     shadow-replay a captured .mskcap segment
+                             (misaka_tpu_torch/replay.py), on the card
+                             unless --device cpu (or MISAKA_DEVICE=cpu)
+  usage-report [--url]       pull and verify the signed usage export
+                             (GET /usage/export)
 
 <topology> is a baseline config name (add2, acc_loop, ring4, sorter,
 mesh8 -- misaka_tpu_torch/networks.py) or a path to a declarative JSON file
@@ -17,7 +22,7 @@ mesh8 -- misaka_tpu_torch/networks.py) or a path to a declarative JSON file
 
 Not ported yet, each exits with status 2 and names its ROADMAP item:
 `bench` and docker-compose .yml topologies (runtime/compose.py and PyYAML;
-A.10), `replay` and `usage-report` (the telemetry planes; A.4).
+A.10).
 """
 
 from __future__ import annotations
@@ -27,11 +32,11 @@ import json
 import os
 import sys
 
+from misaka_tpu_torch import replay as replay_mod
+
 # command -> why it is missing: each answers with status 2
 NOT_PORTED = {
     "bench": "needs the benchmark harness (ROADMAP A.10)",
-    "replay": "needs the traffic capture plane and tools/replay.py (ROADMAP A.4)",
-    "usage-report": "needs the usage ledger plane (ROADMAP A.4)",
 }
 NOT_PORTED_STATUS = 2
 
@@ -98,6 +103,40 @@ def cmd_compute(args) -> int:
         except urllib.error.URLError as e:
             print(f"error: cannot reach {args.url}: {e.reason}", file=sys.stderr)
             return 1
+    return 0
+
+
+def cmd_usage_report(args) -> int:
+    """Pull the signed usage export from a server, verify every line when
+    a secret is at hand, and print the per-program totals."""
+    import urllib.error
+
+    from misaka_tpu_torch.client import MisakaClient, MisakaClientError
+    from misaka_tpu_torch.runtime import usage as usage_mod
+
+    client = MisakaClient(args.url, timeout=args.timeout, api_key=args.key)
+    try:
+        lines = client.usage_export(since=args.since)
+    except MisakaClientError as e:
+        print(f"error: {e.body}", file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"error: cannot reach {args.url}: {e.reason}", file=sys.stderr)
+        return 1
+    if args.raw:
+        for line in lines:
+            print(json.dumps(line, separators=(",", ":")))
+        return 0
+    try:
+        totals = usage_mod.totals_from_lines(
+            lines, secret=args.secret.encode() if args.secret else None)
+    except usage_mod.UsageExportError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(totals, indent=2, sort_keys=True))
+    if args.secret and not totals.get("verified"):
+        print("error: export carried no signed lines to verify", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -185,6 +224,18 @@ def main(argv=None) -> int:
     p.add_argument("values", nargs="+", type=int)
     p.add_argument("--url", default="http://localhost:8000")
     p.add_argument("--timeout", type=float, default=60.0)
+    p = sub.add_parser("replay", help="shadow-replay a captured .mskcap segment")
+    replay_mod.add_arguments(p)
+    p = sub.add_parser("usage-report",
+                       help="pull + verify the signed billing export (GET /usage/export)")
+    p.add_argument("--url", default="http://localhost:8000")
+    p.add_argument("--since", type=float, default=0.0,
+                   help="unix seconds lower bound on exported periods")
+    p.add_argument("--key", help="admin API key (the route is admin-gated)")
+    p.add_argument("--secret", help="plane secret to verify every line's HMAC")
+    p.add_argument("--raw", action="store_true",
+                   help="print the JSONL lines verbatim instead of totals")
+    p.add_argument("--timeout", type=float, default=60.0)
     for name, why in NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported: {why}")
 
@@ -201,7 +252,8 @@ def main(argv=None) -> int:
         return 0
     try:
         return {"check": cmd_check, "disasm": cmd_disasm, "debug": cmd_debug,
-                "compute": cmd_compute}[args.command](args)
+                "compute": cmd_compute, "replay": replay_mod.run,
+                "usage-report": cmd_usage_report}[args.command](args)
     except NotPorted as e:
         print(f"error: {e}", file=sys.stderr)
         return NOT_PORTED_STATUS

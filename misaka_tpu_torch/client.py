@@ -549,14 +549,19 @@ class MisakaClient:
         unsigned line raises MisakaClientError.  Against a fleet hub the
         stream carries every replica's and peer's lines verbatim behind
         ``{"kind": "source"}`` envelopes."""
-        if verify_secret is not None:
-            raise NotImplementedError(
-                "verify_secret: the usage ledger's signature check is not "
-                "ported yet (ROADMAP A.4)")
         raw = self._request(f"/usage/export?since={since:g}", None, "GET")
         if isinstance(raw, bytes):
             raw = raw.decode()
-        return [json.loads(ln) for ln in raw.splitlines() if ln.strip()]
+        lines = [json.loads(ln) for ln in raw.splitlines() if ln.strip()]
+        if verify_secret is not None:
+            from misaka_tpu_torch.runtime import usage as usage_mod
+
+            sec = verify_secret.encode() if isinstance(verify_secret, str) else verify_secret
+            try:
+                usage_mod.totals_from_lines(lines, secret=sec)
+            except usage_mod.UsageExportError as e:
+                raise MisakaClientError(200, str(e)) from None
+        return lines
 
     def alerts(self) -> dict:
         """The SLO burn-rate engine's state (GET /debug/alerts):

@@ -77,7 +77,7 @@ Environment:
   MISAKA_API_KEYS    the API key file: arms auth on every route but
                      /healthz and /metrics (runtime/edge.py); the app then
                      mints MISAKA_EDGE_INTERNAL_TOKEN unless it is set
-  MISAKA_QUOTA       per-tenant quota default, "rps<100,vps<500000"
+  MISAKA_QUOTA       per-tenant quota default, "rps<100,vps<500000,cpu<0.5"
                      (MISAKA_QUOTA_BURST_S burst window, default 2 s)
   MISAKA_ADMISSION_HIGH  the admission watermark in waiting values
   MISAKA_TOKEN_SECRET[_FILE]  arms signed tenant tokens (POST /edge/token)
@@ -96,15 +96,30 @@ Environment:
                      on by default, probing the public port every
                      MISAKA_CANARY_INTERVAL_S, default 5 s; /healthz
                      `canary`)
+  MISAKA_USAGE       "0" turns the per-program usage ledger off
+                     (runtime/usage.py: GET /debug/usage, /usage/export
+                     signed with MISAKA_USAGE_SECRET, the `cpu` quota
+                     stage of MISAKA_QUOTA; MISAKA_USAGE_LABEL_MAX caps
+                     its program labels, and the SLO engine's)
+  MISAKA_SLO         default objectives ("p99<25ms,err<0.1%") of the SLO
+                     burn-rate engine (utils/slo.py: GET /debug/alerts,
+                     /healthz `slo`); MISAKA_SLO_WINDOWS, _MIN_EVENTS
+  MISAKA_FAULTS      armed chaos points (utils/faults.py; re-armed at POST
+                     /debug/faults)
+  MISAKA_CAPTURE     "0" kills the wire recorder (runtime/capture.py: POST
+                     /captures/start|stop|export, GET /debug/captures);
+                     MISAKA_CAPTURE_MB, _SAMPLE, _DIR,
+                     MISAKA_REPLAY_VERIFY_MAX
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
-MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_QUOTA
-with a `cpu` field (the usage ledger, A.4), MISAKA_FLEET,
-MISAKA_PLANE_TLS_CERT/KEY/CA and a comma-separated MISAKA_PLANE_SOCKET (A.6)
-and MISAKA_COORDINATOR (A.7).
-MISAKA_FAULTS and MISAKA_SLO log one warning each and change nothing
-(A.4).  The reference's native C++ edge (MISAKA_NATIVE_EDGE) is not ported
+MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_TSDB_DIR
+(the durable telemetry tier: usage and capture spools, metric history;
+A.4b), MISAKA_FLEET, MISAKA_PLANE_TLS_CERT/KEY/CA and a comma-separated
+MISAKA_PLANE_SOCKET (A.6) and MISAKA_COORDINATOR (A.7).
+MISAKA_WATCHDOG with rules logs one warning and changes nothing (A.4b);
+MISAKA_TSDB=0, MISAKA_SAMPLER=0 and MISAKA_WATCHDOG=0 are what the port
+does.  The reference's native C++ edge (MISAKA_NATIVE_EDGE) is not ported
 (A.8): the CPython workers take the public port, as the reference's do
 when its native edge is unavailable, with one logged line.
 """
@@ -195,10 +210,10 @@ def check_env(environ=os.environ) -> None:
     if environ.get("MISAKA_MODE") == "distributed":
         _refuse("MISAKA_MODE=distributed: the distributed master (programs in "
                 "per-process peers) is not ported yet (ROADMAP A.5)")
-    if (environ.get("MISAKA_EDGE", "1") != "0" and environ.get("MISAKA_EDGE_QUOTA", "1") != "0"
-            and "cpu" in edge.parse_quota_spec(environ.get("MISAKA_QUOTA"))):
-        _refuse("MISAKA_QUOTA: the `cpu` quota stage reads the usage ledger, not ported yet "
-                "(ROADMAP A.4); give rps and vps only")
+    if environ.get("MISAKA_TSDB_DIR"):
+        # durability the operator asked for must not be dropped in silence
+        _refuse("MISAKA_TSDB_DIR: the durable telemetry tier (usage and capture spools, "
+                "metric history) is not ported yet (ROADMAP A.4b); unset it")
     try:
         frontends.check_plane_addr(plane_path(environ), environ)
     except NotImplementedError as e:
@@ -209,10 +224,9 @@ def check_env(environ=os.environ) -> None:
     if environ.get("MISAKA_COORDINATOR"):
         _refuse("MISAKA_COORDINATOR: multi-host serving is not ported yet "
                 "(ROADMAP A.7)")
-    for name in ("MISAKA_FAULTS", "MISAKA_SLO"):
-        if environ.get(name):
-            log.warning("%s is set but ignored: its plane is not ported yet "
-                        "(ROADMAP A.4)", name)
+    if environ.get("MISAKA_WATCHDOG", "0") != "0":
+        log.warning("MISAKA_WATCHDOG is set but ignored: the regression watchdog is not "
+                    "ported yet (ROADMAP A.4b)")
 
 
 def build_master_from_env(environ=os.environ) -> MasterNode:

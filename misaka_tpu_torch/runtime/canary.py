@@ -34,11 +34,15 @@ Surfaces: ``misaka_canary_success{tier}`` (1/0 per probe),
 and a ``canary`` block on ``/healthz``.  Armed by the app only
 (runtime/app.py), never by a bare make_http_server: tests build many
 servers per process, and a process-global prober aimed at a dead port
-would poison them all.  ``MISAKA_CANARY=0`` is the kill switch.  The
-reference's watchdog rule and dashboard panel over these series wait for
-their planes (ROADMAP A.4), and so does the exclusion of canary traffic
-from the usage ledger and the SLO windows, which the port does not keep
-yet.
+would poison them all.  ``MISAKA_CANARY=0`` is the kill switch.
+
+Canary traffic is tagged by its program name: the usage ledger books it
+under the ``_canary`` account, exempt from the cardinality collapse and
+left out of exports (runtime/usage.py EXEMPT_LABELS); the SLO engine never
+observes it (utils/slo.py EXCLUDED_PROGRAMS); the capture recorder files
+it under ``_canary``, never in a tenant's stream.  The reference's
+watchdog rule and dashboard panel over these series wait for their planes
+(ROADMAP A.4b).
 """
 
 from __future__ import annotations

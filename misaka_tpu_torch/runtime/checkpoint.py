@@ -16,7 +16,8 @@ checkpointing (`CheckpointError`, `_fsync_dir`, `manifest_path`,
 A save is tmp file + fsync, then the manifest tmp + fsync, then the data
 file's atomic rename (the commit point), then the manifest's, then a
 directory fsync.  `verify_checkpoint` rejects a torn or corrupt file before
-anything reads it.
+anything reads it.  The `ckpt_crash` and `ckpt_torn_write` fault points
+(utils/faults.py) break a MasterNode save on demand.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import time
 import zipfile
 
 import numpy as np
+
+from misaka_tpu_torch.utils import faults
 
 log = logging.getLogger("misaka_tpu_torch.checkpoint")
 
@@ -128,9 +131,14 @@ def topology_blob(meta: dict) -> np.ndarray:
     return np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
 
 
-def write_checkpoint(path: str, arrays: dict[str, np.ndarray], batch: int | None) -> None:
+def write_checkpoint(path: str, arrays: dict[str, np.ndarray], batch: int | None,
+                     fault_points: bool = False) -> None:
     """Write `arrays` (field name -> array, `__topology__` included) to
-    `path` durably, with its manifest."""
+    `path` durably, with its manifest.  `fault_points` (MasterNode's
+    save_checkpoint) arms the reference's chaos points there
+    (utils/faults.py): `ckpt_crash` raises between the tmp writes and the
+    replaces, `ckpt_torn_write` truncates the committed file to `value`
+    of its bytes (the torn write the manifest must reject at load)."""
     pid = os.getpid()
     tmp = f"{path}.tmp.{pid}"
     mtmp = f"{manifest_path(path)}.tmp.{pid}"
@@ -150,6 +158,8 @@ def write_checkpoint(path: str, arrays: dict[str, np.ndarray], batch: int | None
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
+        if fault_points and faults.fire("ckpt_crash") is not None:
+            raise OSError("injected ckpt_crash fault (crash before atomic replace)")
         os.replace(tmp, path)  # the commit point
         os.replace(mtmp, manifest_path(path))
     except BaseException:
@@ -160,6 +170,10 @@ def write_checkpoint(path: str, arrays: dict[str, np.ndarray], batch: int | None
                 pass
         raise
     _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    torn = faults.fire("ckpt_torn_write") if fault_points else None
+    if torn is not None:
+        with open(path, "r+b") as f:
+            f.truncate(int(manifest["size"] * max(0.0, min(1.0, torn))))
 
 
 def read_checkpoint(path: str, fields) -> tuple[dict, dict[str, np.ndarray]]:

@@ -28,13 +28,13 @@ MISAKA_EDGE=0 disarms the whole chain.  Every decision is counted in
 misaka_edge_admitted_total{tenant} and misaka_edge_rejected_total{reason,
 tenant}, and a rejected traced request carries an `edge.reject` span.
 
-Left out, each with its ROADMAP item: the `cpu` quota stage reads the usage
-ledger (A.4; the app refuses MISAKA_QUOTA with a `cpu` field, and a chain
-without a `cpu_reader` never runs the stage), the `overload` and
-`quota_exhaust` fault points (utils/faults.py, A.4), the SLO page bit
-(utils/slo.py, A.4: the engine passes False, what the reference computes
-with MISAKA_SLO unset), plane mTLS (A.6) and the native edge's state push
-(A.8).  Stdlib only, plus the port's stdlib-only utils.metrics: the
+The `cpu` quota stage reads a program's cpu_seconds from the usage ledger
+through the `cpu_reader` the engine passes (a chain without one never runs
+the stage); the admission signals carry the SLO engine's page bit
+(utils/slo.py); the `overload[:<tenant>]` and `quota_exhaust` fault points
+(utils/faults.py) force a shed at the admission and quota sites.  Left
+out, each with its ROADMAP item: plane mTLS (A.6) and the native edge's
+state push (A.8).  Stdlib only, plus the port's stdlib-only utils: the
 frontend workers import this module.
 """
 
@@ -51,7 +51,7 @@ import ssl
 import threading
 import time
 
-from misaka_tpu_torch.utils import metrics
+from misaka_tpu_torch.utils import faults, metrics
 
 log = logging.getLogger("misaka_tpu_torch.edge")
 
@@ -503,6 +503,14 @@ class AdmissionGovernor:
     def check(self, tenant: str, values: int) -> EdgeReject | None:
         waiting, page = self._signals()
         now = time.monotonic()
+        if faults.armed():
+            # chaos: `overload` saturates the governor for everyone,
+            # `overload:<tenant>` for one tenant
+            forced = faults.fire("overload")
+            if forced is None:
+                forced = faults.fire(f"overload:{tenant}")
+            if forced is not None:
+                return self._reject(waiting, values, 0, forced=True)
         soft = self.high // 2 if page else self.high
         hard = self.high * 2
         with self._lock:
@@ -520,10 +528,11 @@ class AdmissionGovernor:
             return self._reject(waiting, values, drained)
         return None
 
-    def _reject(self, waiting: int, values: int, drained: int) -> EdgeReject:
+    def _reject(self, waiting: int, values: int, drained: int,
+                forced: bool = False) -> EdgeReject:
         """The typed 429, built outside the lock."""
         rate = max(drained / self.window_s, 1.0)
-        retry = min(5.0, max(0.05, (waiting + values) / rate))
+        retry = 1.0 if forced else min(5.0, max(0.05, (waiting + values) / rate))
         return EdgeReject(
             429, "overload",
             f"admission control: {waiting} values already waiting "
@@ -561,8 +570,8 @@ class EdgeChain:
         self.keyfile = keyfile if auth_enabled else None
         self.quota_defaults = dict(quota_defaults or {})
         self.governor = governor if admission_enabled else None
-        # a program's cumulative cpu_seconds (the usage ledger, ROADMAP
-        # A.4); None: the `cpu` stage never runs
+        # a program's cumulative cpu_seconds (the usage ledger,
+        # runtime/usage.py); None: the `cpu` stage never runs
         self.cpu_reader = cpu_reader
         # armed with no env defaults too: key and program specs may come later
         self.quota_enabled = bool(quota_enabled)
@@ -709,6 +718,8 @@ class EdgeChain:
         return None
 
     def _check_quota(self, tenant, entry, program, values, requests=1) -> EdgeReject | None:
+        if faults.armed() and faults.fire("quota_exhaust") is not None:
+            return EdgeReject(429, "rate", "quota exhausted (injected fault)", retry_after=1.0)
         q = self._effective_quota(entry, program)
         if not q:
             return None
@@ -851,7 +862,7 @@ def keyfile_path(environ=os.environ) -> str | None:
     return None
 
 
-def from_env(signals=None, default_admission_high: int = 65536,
+def from_env(signals=None, cpu_reader=None, default_admission_high: int = 65536,
              environ=os.environ) -> EdgeChain:
     """The process's chain from the env.
 
@@ -861,7 +872,9 @@ def from_env(signals=None, default_admission_high: int = 65536,
     otherwise: the engine passes one that clears the largest legal body);
     MISAKA_QUOTA the env-default spec; MISAKA_QUOTA_BURST_S the bucket
     burst window (2 s); MISAKA_QUOTA_CPU_WINDOW_S the cpu window (60 s).
-    The governor exists only when `signals` is given.  MISAKA_TOKEN_SECRET
+    The governor exists only when `signals` is given, the `cpu` stage
+    only with a `cpu_reader` (a program label -> its cumulative cpu
+    seconds: the usage ledger).  MISAKA_TOKEN_SECRET
     [_FILE] (else the plane secret) arms signed tenant tokens;
     MISAKA_EDGE_INTERNAL_TOKEN the per-boot admin credential."""
     if environ.get("MISAKA_EDGE", "1") == "0":
@@ -880,6 +893,7 @@ def from_env(signals=None, default_admission_high: int = 65536,
         keyfile=keyfile,
         quota_defaults=quota_defaults,
         governor=governor,
+        cpu_reader=cpu_reader,
         auth_enabled=auth_on,
         quota_enabled=quota_on,
         admission_enabled=admission_on,

@@ -29,11 +29,18 @@ Retry-After without a round trip).  With a program registry
 (runtime/registry.py) each frame resolves its engine through a registry
 lease on the frame's program (the seeded default when it names none); an
 unknown program is the typed 404, and without a registry a frame that
-names a program gets the reference's 404.  Left out, each with its ROADMAP
-item: the fleet router across replicas and plane mTLS (A.6: a
-comma-separated plane path and MISAKA_PLANE_TLS_* refuse), the native C++
-edge (A.8), and SLO windows, chaos points and capture recording (A.4): the
-plane runs as the reference's does with those planes disarmed.
+names a program gets the reference's 404.  The telemetry planes ride the
+frames as in the reference: while the SLO engine is armed (or a programs
+dir is set) a worker ships one edge timestamp per request, and the engine
+observes each request's latency from the moment the worker took it
+(utils/slo.py); while the recorder runs, the engine cuts one "plane"
+capture record per frame and ingests the workers' locally terminated
+rejects, which ride the next frame (runtime/capture.py); and the chaos
+points plane_partition, plane_delay, replica_blackhole and worker_exit
+fire at the reference's sites (utils/faults.py).  Left out, each with its
+ROADMAP item: the fleet router across replicas and plane mTLS (A.6: a
+comma-separated plane path and MISAKA_PLANE_TLS_* refuse), and the native
+C++ edge (A.8).
 
 This module imports the standard library and the port's stdlib-only
 modules only: a frontend worker never pays the torch import or its memory.
@@ -59,8 +66,9 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, unquote, urlsplit
 
+from misaka_tpu_torch.runtime import capture as capture_mod
 from misaka_tpu_torch.runtime import edge as edge_mod
-from misaka_tpu_torch.utils import metrics, tracespan, wire
+from misaka_tpu_torch.utils import faults, metrics, slo, tracespan, wire
 from misaka_tpu_torch.utils.backoff import Backoff
 from misaka_tpu_torch.utils.httpfast import fast_parse_request
 
@@ -262,7 +270,7 @@ class _Meta:
     """One compute frame's decoded metadata."""
 
     __slots__ = ("program", "key", "reqs", "shed", "traces", "probe", "shm_arm", "shm_vals",
-                 "shm_seg")
+                 "shm_seg", "edge", "cap")
 
     def __init__(self):
         self.program = None
@@ -274,6 +282,8 @@ class _Meta:
         self.shm_arm = None    # {name, size}: a shared-memory arming request
         self.shm_vals = None   # the payload's count when it rides the segment
         self.shm_seg = None    # (segment, size) of an inline shm frame
+        self.edge = []         # per-request worker receive times (SLO armed)
+        self.cap = None        # {"segs", "rej"} while the recorder runs
 
 
 def _parse_meta(blob: bytes) -> _Meta:
@@ -286,10 +296,12 @@ def _parse_meta(blob: bytes) -> _Meta:
     try:
         obj = json.loads(blob.decode())
         meta = _Meta()
+        edge_raw = ()
         if isinstance(obj, dict):
             meta.program = obj.get("program") or None
             key = obj.get("key") or None
             segs = obj.get("traces", ())
+            edge_raw = obj.get("edge", ())
             meta.probe = bool(obj.get("probe"))
             meta.reqs = max(1, int(obj.get("reqs") or 1))
             meta.shed = obj.get("shed") or []
@@ -327,7 +339,33 @@ def _parse_meta(blob: bytes) -> _Meta:
                 meta.traces.append(tr)
         except (ValueError, TypeError, KeyError, AttributeError):
             log.debug("dropping malformed plane trace metadata")
+    if slo.armed():
+        try:
+            meta.edge = [float(t0) for t0 in edge_raw]
+        except (ValueError, TypeError):
+            log.debug("dropping malformed plane edge metadata")
+    if capture_mod.RECORDING:
+        try:
+            meta.cap = {
+                "segs": [{"id": tracespan.sanitize_id(s.get("id")), "in": bool(s.get("in")),
+                          "off": int(s.get("off", 0)), "len": int(s.get("len", 0))}
+                         for s in segs if isinstance(s, dict)],
+                "rej": (obj.get("caprej") or []) if isinstance(obj, dict) else [],
+            }
+        except (ValueError, TypeError, AttributeError):
+            log.debug("dropping malformed plane capture metadata")
     return meta
+
+
+def _plane_partitioned(path: str) -> bool:
+    """The plane_partition chaos point: bare it black-holes every plane,
+    `plane_partition:<substr>` only the planes whose address holds it."""
+    if faults.fire("plane_partition") is not None:
+        return True
+    for point in faults.active():
+        if point.startswith("plane_partition:") and point[len("plane_partition:"):] in path:
+            return faults.fire(point) is not None
+    return False
 
 
 class ComputePlane:
@@ -348,6 +386,8 @@ class ComputePlane:
         # never imports the registry: an unknown program surfaces as the
         # lease's KeyError (ProgramNotFound), answered as 404.
         self._registry = registry
+        # which fleet replica this plane serves (scopes replica_blackhole)
+        self._replica_label = os.environ.get("MISAKA_FLEET_REPLICA") or None
         self._timeout = timeout
         self._secret = edge_mod.plane_secret()
         self.path = path
@@ -439,6 +479,21 @@ class ComputePlane:
             threading.Thread(target=self._serve_conn, args=(conn,), daemon=True,
                              name="misaka-plane-conn").start()
 
+    def _slo_record(self, program, edge, t_recv: float, error: bool) -> None:
+        """A frame's outcome into its program's SLO windows: per request
+        from the worker's timestamps (queueing in the worker counts), else
+        one observation from the frame's arrival.  4xx never come here."""
+        if not slo.armed():
+            return
+        label = (program.partition("@")[0] if program
+                 else getattr(self._registry, "default_name", None))
+        now = time.monotonic()
+        if edge:
+            for t0 in edge:
+                slo.observe(label, max(0.0, now - t0), error=error)
+        else:
+            slo.observe(label, now - t_recv, error=error)
+
     def _process_frame(self, n: int, meta: _Meta, get_values, reply) -> None:
         """Everything past the metadata for one compute frame: the drain
         check, the scheduler submission and the ordered response through
@@ -453,6 +508,13 @@ class ComputePlane:
                 for tr in traces:
                     tracespan.end(tr, status=PLANE_DRAINING)
                 return
+            bh = faults.fire("replica_blackhole")
+            if bh is None and self._replica_label is not None:
+                bh = faults.fire(f"replica_blackhole:{self._replica_label}")
+            if bh is not None:
+                # chaos: hold the frame unanswered
+                log.warning("replica_blackhole fault: holding frame %.1fs", bh)
+                time.sleep(max(0.0, bh))
             M_PLANE_FRAMES.inc()
             if meta.shm_vals is not None:
                 M_PLANE_SHM_FRAMES.inc()
@@ -465,6 +527,9 @@ class ComputePlane:
                         edge_mod.count_shed(t if isinstance(t, str) else None, str(r), int(cnt))
                 except (ValueError, TypeError):
                     log.debug("dropping malformed shed metadata")
+            if meta.cap is not None and meta.cap["rej"]:
+                # the worker's locally terminated rejects, recorded here
+                capture_mod.ingest("worker", meta.cap["rej"])
             # The edge chain, once per frame (runtime/edge.py): one frame is
             # one (program, tenant), so a frame decision is a tenant
             # decision.  A rejection ships its typed status and a JSON body
@@ -481,6 +546,10 @@ class ComputePlane:
                     rej.tenant = decision.tenant  # the worker's shed cache reports under it
                     body = rej.to_wire()
                     reply(_RESP_HDR.pack(rej.status, len(body)) + body)
+                    if capture_mod.RECORDING:  # terminated here: this surface records it
+                        capture_mod.ingest("plane", [{"program": meta.program, "trace": None,
+                                                      "in": 0, "status": rej.status,
+                                                      "reason": rej.reason}])
                     for tr in traces:
                         tracespan.end(tr, status=rej.status)
                     return
@@ -513,6 +582,7 @@ class ComputePlane:
             except Exception as e:  # an activation failure
                 body = str(e).encode()
                 reply(_RESP_HDR.pack(500, len(body)) + body)
+                self._slo_record(meta.program, meta.edge, t_recv, error=True)
                 for tr in traces:
                     tracespan.end(tr, status=500)
                 return
@@ -528,6 +598,7 @@ class ComputePlane:
             except Exception as e:
                 body = str(e).encode()
                 reply(_RESP_HDR.pack(500, len(body)) + body)
+                self._slo_record(meta.program, meta.edge, t_recv, error=True)
                 for tr in traces:
                     tracespan.add_span(tr, "plane.recv", t_recv, time.monotonic() - t_recv)
                     tracespan.end(tr, status=500)
@@ -545,6 +616,18 @@ class ComputePlane:
                 reply(_RESP_HDR.pack(200, len(payload) // 4))
             else:
                 reply(_RESP_HDR.pack(200, len(payload) // 4) + payload)
+            if capture_mod.RECORDING:
+                # one record per frame (surface "plane"): the raw int32
+                # comparands, and each traced request's slice
+                cap_segs = (meta.cap or {}).get("segs") or None
+                capture_mod.note(
+                    "plane", program=meta.program or getattr(registry, "default_name", None),
+                    trace=cap_segs[0]["id"] if cap_segs else None,
+                    inbound=any(s["in"] for s in cap_segs) if cap_segs else False,
+                    vals=values.tobytes(), resp=payload, status=200,
+                    tick=int(getattr(m, "_ticks_done", 0)), reqs=meta.reqs, op="coalesced",
+                    segs=cap_segs)
+            self._slo_record(meta.program, meta.edge, t_recv, error=False)
             dur = time.monotonic() - t_recv
             for tr in traces:
                 tracespan.add_span(tr, "plane.recv", t_recv, dur, {"frame_values": int(n)})
@@ -786,6 +869,9 @@ class PlaneClient:
         # reach the engine, so their counts ride the next frame's metadata
         # into its misaka_edge_rejected_total
         self._shed: dict[tuple[str, str], int] = {}
+        # the worker's locally terminated capture rows, delivered the same
+        # way; bounded (observability must not grow a quiet worker)
+        self._caprej: list[dict] = []
         self._segs: set = set()  # live shared-memory segments (guarded by _cond)
         self._window_s = float(os.environ.get("MISAKA_PLANE_WINDOW_US", "") or 300) / 1e6
         self._threads = [
@@ -819,6 +905,14 @@ class PlaneClient:
         with self._cond:
             self._shed[k] = self._shed.get(k, 0) + 1
 
+    def report_capture(self, row: dict) -> None:
+        """Queue one worker-terminated capture row ({t, program, trace,
+        in, status, reason}) for the next frame; past 32 waiting rows new
+        ones drop."""
+        with self._cond:
+            if len(self._caprej) < 32:
+                self._caprej.append(row)
+
     def _remerge_shed(self, shed) -> None:
         """The frame carrying these counts was lost: keep them for the next."""
         if shed:
@@ -844,6 +938,8 @@ class PlaneClient:
         return req.out
 
     def _connect(self) -> socket.socket:
+        if faults.armed() and _plane_partitioned(self._path):
+            raise OSError("plane partitioned (injected fault)")
         if time.monotonic() < self._next_dial:
             raise OSError("plane dial backoff (peer recently unreachable)")
         try:
@@ -1050,8 +1146,8 @@ class PlaneClient:
                 pass
 
     def _next_batch(self):
-        """(batch, program, key, total bytes, shed counts) of the next frame,
-        or None when the client closed.  One frame is one (program, key);
+        """(batch, program, key, total bytes, shed counts, capture rows) of
+        the next frame, or None when the client closed.  One frame is one (program, key);
         later requests for others keep their FIFO place."""
         with self._cond:
             while True:
@@ -1088,19 +1184,28 @@ class PlaneClient:
                 if batch:
                     self._inflight += 1
                     shed, self._shed = (self._shed, {}) if self._shed else (None, self._shed)
-                    return batch, program, key, total, shed
+                    caprej, self._caprej = ((self._caprej, []) if self._caprej
+                                            else (None, self._caprej))
+                    return batch, program, key, total, shed, caprej
 
     @staticmethod
-    def _frame_meta(batch, program, key, shed) -> bytes:
+    def _frame_meta(batch, program, key, shed, caprej) -> bytes:
         """The frame's metadata: each traced request's ID, value offset
         and completed spans (http.parse, frontend.coalesce), the key, the
-        fused request count and the shed counts; nothing for one untraced
-        request of the default program."""
+        fused request count, the shed counts, the capture rows and, while
+        SLO may be armed, one receive time per request; nothing for one
+        untraced request of the default program."""
         traced = [r for r in batch if r.trace is not None]
-        if not (traced or program is not None or key is not None or len(batch) > 1 or shed):
+        # Per-program objectives are installed engine-side at upload, out
+        # of this process's sight: a programs dir ships the timestamps too
+        # (the engine's own armed() check decides).
+        slo_armed = slo.armed() or bool(os.environ.get("MISAKA_PROGRAMS_DIR"))
+        if not (traced or program is not None or key is not None or slo_armed
+                or len(batch) > 1 or shed or caprej):
             return b""
         now = time.monotonic()
         entries = []
+        edge = []
         off = 0
         for r in batch:
             if r.trace is not None:
@@ -1111,14 +1216,20 @@ class PlaneClient:
                 if r.trace.inbound:
                     ent["in"] = 1
                 entries.append(ent)
+            if slo_armed:
+                edge.append(round(r.enqueued, 6))  # its SLO clock starts here
             off += len(r.body) // 4
         obj = {"program": program, "traces": entries}
         if key is not None:
             obj["key"] = key
         if len(batch) > 1:
             obj["reqs"] = len(batch)  # the engine bills rps per request
+        if edge:
+            obj["edge"] = edge
         if shed:
             obj["shed"] = [[t, r, n] for (t, r), n in shed.items()]
+        if caprej:
+            obj["caprej"] = caprej  # lost with the frame if its ship fails
         return json.dumps(obj).encode()
 
     def _ship_one(self, seg_box, seg_size, depth, cond, gen, fail_requests, conn_failed,
@@ -1128,8 +1239,8 @@ class PlaneClient:
         nxt = self._next_batch()
         if nxt is None:
             return False
-        batch, program, key, total, shed = nxt
-        meta = self._frame_meta(batch, program, key, shed)
+        batch, program, key, total, shed, caprej = nxt
+        meta = self._frame_meta(batch, program, key, shed, caprej)
         traced = [r for r in batch if r.trace is not None]
         payload_out = b"".join(r.body for r in batch)
         dials = 0
@@ -1202,6 +1313,14 @@ class PlaneClient:
                 gen["outstanding"].append(shp)
                 gen["inherited"] = True
             try:
+                if faults.armed():
+                    delay = faults.fire("plane_delay")
+                    if delay is not None:
+                        time.sleep(delay)  # per-frame latency, outside every lock
+                    if _plane_partitioned(self._path):
+                        # black hole: the frame is never written, so the
+                        # deadline trips, not a connection error
+                        return True
                 sock_now.sendall(frame)
             except OSError as send_exc:  # ConnectionError included
                 conn_failed(gen_id, send_exc)
@@ -1360,7 +1479,18 @@ def make_frontend_server(public_port: int, engine_url: str, plane_path: str,
             self._extra_headers.append(("Retry-After", str(max(1, int(-(-remaining // 1))))))
             self._text(429, rej.message)
             plane.report_shed(rej.tenant, rej.reason)  # rides the next frame
+            self._report_capture(shed_key[0], rej.reason)
             return True
+
+        def _report_capture(self, program, reason: str) -> None:
+            """A 429 this worker answered: the capture row rides the next
+            frame to the engine's recorder (surface "worker")."""
+            if capture_mod.available():
+                tr = tracespan.current()
+                plane.report_capture({"t": time.time(), "program": program,
+                                      "trace": tr.trace_id if tr is not None else None,
+                                      "in": int(tr.inbound) if tr is not None else 0,
+                                      "status": 429, "reason": reason})
 
         def _edge_guard(self) -> bool:
             """The backlog cap; True = proceed.  Over the cap: a 429 with
@@ -1372,6 +1502,7 @@ def make_frontend_server(public_port: int, engine_url: str, plane_path: str,
             self._text(429, f"frontend overloaded: {plane.depth()} plane frames queued "
                             f"(cap {plane_depth_max}); retry after backoff")
             plane.report_shed(None, "overload")  # no tenant is known at the worker
+            self._report_capture(None, "overload")
             return False
 
         def _with_trace(self, inner) -> None:
@@ -1553,6 +1684,16 @@ def frontend_main(argv=None) -> int:
     # many small handler threads share this interpreter: the default 5 ms
     # switch interval turns response waves into convoys
     sys.setswitchinterval(0.001)
+    exit_after = faults.fire("worker_exit")
+    if exit_after is not None:
+        # chaos: hard-exit this worker after N seconds, the failure the
+        # supervisor must absorb
+        def _fault_exit(delay=max(0.0, exit_after)):
+            time.sleep(delay)
+            log.warning("worker_exit fault fired; frontend hard-exiting")
+            os._exit(1)
+
+        threading.Thread(target=_fault_exit, daemon=True).start()
 
     def _terminate(signum, frame):
         raise SystemExit(0)

@@ -42,16 +42,23 @@ POST /edge/gossip, the /healthz `edge` block).  With a program registry
 X-Misaka-Program on the legacy routes), each compute request served by the
 engine a registry lease resolves; without one a named program is the
 reference's typed 404.  /healthz carries the canary's block when the app
-runs one (runtime/canary.py).
+runs one (runtime/canary.py).  The telemetry planes: GET /debug/usage and
+/usage/export (the usage ledger, runtime/usage.py, booked by every pass),
+GET /debug/alerts and the /healthz `slo` state (the SLO burn-rate engine,
+utils/slo.py, observing every compute route), GET and POST /debug/faults
+(utils/faults.py), and GET /debug/captures with POST
+/captures/start|stop|rotate|export (the wire recorder, runtime/capture.py,
+noting every compute route while it records).
 
 Observability (the reference's, for what the port runs): the `M_*`
 series below under the reference's names, types and labels, served at GET
 /metrics (utils/metrics.py); the request spans `http.parse`,
 `serve.queue`, `serve.pass` and the `engine.chunk` tier event
 (utils/tracespan.py); profiles through torch.profiler, begun and ended on
-the device-loop thread (utils/profiling.py::LoopCapture).  Left out: the
-series and hooks of planes not ported (native pool, distributed, SLO,
-usage, capture, fleet: ROADMAP A.4-A.8).
+the device-loop thread (utils/profiling.py::LoopCapture); the
+`misaka_usage_*`, `misaka_slo_*` and `misaka_capture_*` series.  Left
+out: the series and hooks of planes not ported (TSDB, sampler, watchdog,
+native pool, distributed, fleet: ROADMAP A.4b-A.8).
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -107,13 +114,15 @@ from misaka_tpu_torch.core.state import (
 from misaka_tpu_torch.core.trace import TraceRing, decode_trace
 from misaka_tpu_torch.parallel.mesh import ShardedNetwork, gather_state, make_mesh, shard_state
 from misaka_tpu_torch.runtime import canary as canary_mod
+from misaka_tpu_torch.runtime import capture as capture_mod
 from misaka_tpu_torch.runtime import checkpoint as ckpt
 from misaka_tpu_torch.runtime import edge as edge_mod
-from misaka_tpu_torch.runtime.registry import ProgramNotFound, RegistryError
+from misaka_tpu_torch.runtime import usage
+from misaka_tpu_torch.runtime.registry import ProgramNotFound, RegistryError, ReplayDivergence
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
 from misaka_tpu_torch.tis.parser import TISParseError
-from misaka_tpu_torch.utils import buildinfo, metrics, profiling, tracespan, wire
+from misaka_tpu_torch.utils import buildinfo, faults, metrics, profiling, slo, tracespan, wire
 from misaka_tpu_torch.utils.httpfast import fast_parse_request as _fast_parse_request
 from misaka_tpu_torch.utils.textcodec import dec_to_ints, ints_to_dec
 
@@ -266,6 +275,18 @@ _METRIC_ROUTES = frozenset({
     "/captures/start", "/captures/stop", "/captures/export",
     "/captures/rotate", "/usage/export",
 })
+
+
+# The routes whose outcomes feed the per-program SLO windows (utils/slo.py):
+# compute traffic only, never scrapes or debug reads.
+_SLO_ROUTES = frozenset({
+    "/compute", "/compute_batch", "/compute_raw",
+    "/programs/compute", "/programs/compute_batch", "/programs/compute_raw",
+})
+
+# The `watchdog` block of GET /debug/alerts: the reference's disarmed
+# payload (utils/watchdog.py), until the watchdog is ported (ROADMAP A.4b).
+_WATCHDOG_DISARMED = {"enabled": False, "state": "ok", "rules": []}
 
 
 # Program-addressed compute (the registry surface, runtime/registry.py):
@@ -444,6 +465,7 @@ class ServeBatcher:
             self._master._requests_total += 1
         M_COMPUTE_REQS.inc()
         M_COMPUTE_VALUES.inc(arr.size)
+        usage.add_request(self._master.program_label, arr.size)
         if not entry.event.wait(timeout):
             with shared.cond:
                 entry.cancelled = True  # skip the undispatched remainder
@@ -562,6 +584,7 @@ class ServeBatcher:
                     if not e.dispatched:
                         e.dispatched = True
                         M_SERVE_QUEUE_DELAY.observe(now - e.enqueued)
+                        usage.add_queue(master.program_label, now - e.enqueued)
                         for tr in e.traces:
                             tracespan.add_span(tr, "serve.queue", e.enqueued,
                                                now - e.enqueued)
@@ -589,6 +612,15 @@ class ServeBatcher:
         """One pass: stripe, submit, collect, scatter.  Releases `slots`."""
         master = self._master
         shared = self._shared
+        if faults.armed():
+            # chaos (utils/faults.py): `serve_delay` delays every pass,
+            # `serve_delay:<program>` only that program's
+            delay = faults.fire("serve_delay")
+            if delay is None:
+                delay = faults.fire(
+                    f"serve_delay:{master.program_label or usage.DEFAULT_LABEL}")
+            if delay is not None:
+                time.sleep(max(0.0, delay))
         t_pass = time.monotonic()
         if len(segs) == 1:
             e0, s0, ln = segs[0]
@@ -609,11 +641,17 @@ class ServeBatcher:
         with master._waiters_lock:
             master._waiters += 1
 
-        def record_pass_spans() -> None:
+        def record_pass_spans(bill: bool = True) -> None:
             # one serve.pass span per traced request of the pass (coalesced
             # requests share its timing).  Before any event.set(): a woken
             # waiter builds its Server-Timing header from the spans so far.
             dur = time.monotonic() - t_pass
+            if bill:
+                # the usage ledger (runtime/usage.py): this batcher serves
+                # one program, so the whole pass bills to it; a failed
+                # pass bills nothing, the anchor included (conservation)
+                usage.note_pass(dur)
+                usage.add_cpu(master.program_label, dur)
             attrs = {"requests": len(segs), "values": total, "slots": n_used}
             if master.program_label is not None:
                 # which registry program this pass served (the trace-side
@@ -659,7 +697,7 @@ class ServeBatcher:
             for e in done:
                 e.event.set()
         except Exception as exc:
-            record_pass_spans()  # before the failed waiters wake
+            record_pass_spans(bill=False)  # before the failed waiters wake
             msg = f"{exc} (coalesced pass: {len(segs)} request(s), {total} values)"
             failed: list[_BatchEntry] = []
             with shared.cond:
@@ -1066,12 +1104,15 @@ class MasterNode:
             self._requests_total += 1
         M_COMPUTE_REQS.inc()
         M_COMPUTE_VALUES.inc(arr.size)
+        usage.add_request(self.program_label, arr.size)
+        usage.add_queue(self.program_label, time.monotonic() - t_q)
         try:
             if tr is not None:  # the direct lane's queue phase
                 tracespan.add_span(tr, "serve.queue", t_q, time.monotonic() - t_q)
             pass_attrs = {"values": int(arr.size)}
             if self.program_label is not None:
                 pass_attrs["program"] = self.program_label
+            t_pass = time.monotonic()
             with tracespan.span("serve.pass", trace=tr, **pass_attrs):
                 with self._epoch_lock:
                     epoch = self._epoch
@@ -1080,6 +1121,11 @@ class MasterNode:
                 self._work_event.set()
                 deadline = time.monotonic() + timeout
                 parts = self._collect_slot(slot, arr.size, deadline, epoch, timeout)
+            # the direct lane's submit-and-collect window is its pass;
+            # billed on success only, as the scheduler's
+            dur = time.monotonic() - t_pass
+            usage.note_pass(dur)
+            usage.add_cpu(self.program_label, dur)
             out = np.concatenate(parts)
             return out if return_array else out.tolist()
         finally:
@@ -1137,6 +1183,8 @@ class MasterNode:
             self._requests_total += 1
         M_COMPUTE_REQS.inc()
         M_COMPUTE_VALUES.inc(arr.size)
+        usage.add_request(self.program_label, arr.size)
+        t_pass = time.monotonic()
         try:
             pass_attrs = {"values": int(arr.size), "slots": len(owned)}
             if self.program_label is not None:
@@ -1162,6 +1210,9 @@ class MasterNode:
                                 for s2, part2 in list(zip(owned, stripes))[i + 1:]:
                                     self._stale[s2] += part2.size
                         raise
+            dur = time.monotonic() - t_pass  # billed on success only
+            usage.note_pass(dur)
+            usage.add_cpu(self.program_label, dur)
             out = np.concatenate(parts)
             return out if return_array else out.tolist()
         finally:
@@ -1304,7 +1355,7 @@ class MasterNode:
         host under the state lock (on a mesh: the global arrays, in shard
         order).  `include_history` is the reference's switch for its
         metric-history blob (the registry's eviction checkpoints pass
-        False); the port keeps no history yet (ROADMAP A.4), so both
+        False); the port keeps no history yet (ROADMAP A.4b), so both
         values write the same file."""
         t0 = time.perf_counter()
         with self._state_lock:
@@ -1319,7 +1370,7 @@ class MasterNode:
             "out_cap": topo.out_cap,
             "batch": self._batch,
         })
-        ckpt.write_checkpoint(path, arrays, self._batch)
+        ckpt.write_checkpoint(path, arrays, self._batch, fault_points=True)
         self._last_ckpt_mono = time.monotonic()
         M_CKPT_SAVE_SECONDS.observe(time.perf_counter() - t0)
 
@@ -1803,9 +1854,11 @@ def make_http_server(master: MasterNode, port: int = 8000,
                      tls=None, registry=None) -> ThreadingHTTPServer:
     """The reference's client routes (master.go:90-224) plus /compute_batch,
     /compute_raw, /checkpoint, /restore, /profile/start|stop, /fleet/drain,
-    /edge/token, /edge/gossip, GET /status, /metrics, /healthz,
-    /debug/requests, /debug/perfetto and /debug/isa_trace (with /trace, its
-    deprecated alias), with the JAX server's bodies and status codes.  The
+    /edge/token, /edge/gossip, /captures/start|stop|rotate|export,
+    /debug/faults, GET /status, /metrics, /healthz, /debug/requests,
+    /debug/perfetto, /debug/isa_trace (with /trace, its deprecated alias),
+    /debug/usage, /usage/export, /debug/alerts, /debug/faults and
+    /debug/captures, with the JAX server's bodies and status codes.  The
     edge chain (runtime/edge.py), built from the env and installed for the
     compute plane too, runs before every route body; MISAKA_EDGE=0
     disarms it.  The app sets the server's
@@ -1839,9 +1892,10 @@ def make_http_server(master: MasterNode, port: int = 8000,
     # The edge (runtime/edge.py): auth, quota and admission before every
     # route body.  The admission signal is the ServeBatcher's waiting
     # values, read at most every 25 ms (the read takes the scheduler's own
-    # lock); the SLO page bit is False while utils/slo.py is not ported
-    # (ROADMAP A.4), as the reference's is with MISAKA_SLO unset.
+    # lock); the SLO page bit (utils/slo.py: a page halves the soft
+    # watermark) at most every 0.25 s (it walks every program's windows).
     waiting_cache = [0.0, 0]  # (last read, waiting values)
+    page_cache = [0.0, False]  # (last evaluation, page?)
 
     def edge_signals() -> tuple[int, bool]:
         now = time.monotonic()
@@ -1852,12 +1906,16 @@ def make_http_server(master: MasterNode, port: int = 8000,
             else:
                 b = master._batcher
                 waiting_cache[1] = b.waiting_values() if b is not None else 0
-        return waiting_cache[1], False
+        if now - page_cache[0] > 0.25:
+            page_cache[0] = now
+            page_cache[1] = slo.overall_state() == "page"
+        return waiting_cache[1], page_cache[1]
 
     # the default watermark clears two maximum-size legal bodies (int32
     # values x 4): what the body cap admits is never shed right after
     edge_chain = edge_mod.install(edge_mod.from_env(
-        signals=edge_signals, default_admission_high=max(65536, (max_body // 4) * 2)))
+        signals=edge_signals, cpu_reader=lambda label: usage.account(label).cpu_seconds,
+        default_admission_high=max(65536, (max_body // 4) * 2)))
     if registry is not None:
         # persisted per-program quota overrides predate this chain (the
         # registry loads its store at construction, before any server)
@@ -1967,6 +2025,10 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 if code >= 400:
                     M_HTTP_ERRORS.labels(route=route, code=str(code)).inc()
                 M_HTTP_INFLIGHT.dec()
+                if route in _SLO_ROUTES and slo.armed() and (code < 400 or code >= 500):
+                    # the whole handler window into the program's SLO
+                    # windows: 5xx are service errors, 4xx the client's own
+                    slo.observe(self._misaka_program, dur, error=code >= 500)
                 if slow_req_s is not None and dur >= slow_req_s:
                     log.warning(
                         "slow request: %s %.1fms (threshold %.0fms)",
@@ -2007,8 +2069,18 @@ def make_http_server(master: MasterNode, port: int = 8000,
             self.end_headers()
             self.wfile.write(data)
 
-        def _json(self, obj) -> None:
-            self._send(200, (json.dumps(obj) + "\n").encode(), "application/json")
+        def _json(self, obj, code: int = 200) -> None:
+            self._send(code, (json.dumps(obj) + "\n").encode(), "application/json")
+
+        def _capture_note(self, m, vals: bytes, resp: bytes, op: str) -> None:
+            """One capture record (surface "http") for a request this route
+            served; a valid inbound X-Misaka-Trace bypasses sampling."""
+            inbound_id = tracespan.sanitize_id(self.headers.get(tracespan.TRACE_HEADER))
+            tr = self._misaka_trace
+            capture_mod.note("http", program=self._misaka_program,
+                             trace=tr.trace_id if tr is not None else inbound_id,
+                             inbound=inbound_id is not None, vals=vals, resp=resp,
+                             status=200, tick=int(m._ticks_done), op=op)
 
         def _edge_check(self, route: str, method: str, program: str | None = None,
                         values: int = 1) -> bool:
@@ -2069,6 +2141,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     except ProgramNotFound as e:
                         self._text(404, str(e))
                 elif path == "/metrics":
+                    slo.refresh_metrics()  # the misaka_slo_* gauges are results
                     self._send(200, metrics.render().encode(), metrics.CONTENT_TYPE)
                 elif path == "/healthz":
                     self._json(self._healthz())
@@ -2093,11 +2166,57 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     # Chrome trace-event JSON of the recorder (Perfetto,
                     # chrome://tracing), one process per tier
                     self._json(tracespan.perfetto())
+                elif path == "/debug/usage":
+                    self._json(usage.debug_payload())  # the per-program ledger
+                elif path == "/usage/export":
+                    self._usage_export(parsed)
+                elif path == "/debug/alerts":
+                    self._json(self._alerts())
+                elif path == "/debug/faults":
+                    self._json({"armed": sorted(faults.active())})  # what is armed
+                elif path == "/debug/captures":
+                    # the capture ring's status and newest records (payload
+                    # heads only); ?n= caps the listing
+                    q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+                    try:
+                        limit = int(q.get("n", "100"))
+                    except ValueError:
+                        limit = 100
+                    self._json(capture_mod.debug_payload(limit))
                 else:
                     self._text(405, "method GET not allowed")
             except Exception as e:  # a handler crash must not kill the server
                 log.exception("handler error")
                 self._text(500, f"internal error: {e}")
+
+        def _usage_export(self, parsed) -> None:
+            """The signed JSONL export of the ledger (runtime/usage.py);
+            ?since= (unix seconds) bounds the periods."""
+            q = parse_qs(parsed.query)
+            try:
+                since = float((q.get("since") or ["0"])[0])
+            except ValueError:
+                self._text(400, "bad since= (unix seconds)")
+                return
+            try:
+                lines = usage.export_lines(since=since)
+            except usage.UsageExportError as e:
+                self._text(409, str(e))
+                return
+            body = "".join(json.dumps(line, separators=(",", ":")) + "\n" for line in lines)
+            self._send(200, body.encode(), "application/x-ndjson")
+
+        def _alerts(self) -> dict:
+            """GET /debug/alerts: the SLO engine's states, each program not
+            ok with its slowest traces as exemplars, and the watchdog's
+            block (disarmed until ROADMAP A.4b)."""
+            payload = slo.debug_payload()
+            for prog, row in payload.get("programs", {}).items():
+                if row.get("state") != "ok":
+                    row["exemplars"] = (tracespan.slowest_exemplars(program=prog)
+                                        or tracespan.slowest_exemplars())
+            payload["watchdog"] = dict(_WATCHDOG_DISARMED)
+            return payload
 
         def _healthz(self) -> dict:
             """Cheap liveness for load balancers: no state lock and no
@@ -2115,8 +2234,16 @@ def make_http_server(master: MasterNode, port: int = 8000,
             # the frontend supervisor (runtime/app.py sets it): a shrunk or
             # crash-looping worker pool is never silent; `ok` stays liveness
             sup = getattr(self.server, "misaka_supervisor", None)
+            degraded = None
             if sup is not None:
                 payload["frontends"] = sup.state()
+                degraded = payload["frontends"]["degraded"]
+            # the SLO engine (utils/slo.py): a paging burn rate raises the
+            # same `degraded` flag; `ok` stays liveness
+            slo_state = slo.overall_state()
+            if slo_state is not None:
+                payload["slo"] = slo_state
+                degraded = bool(degraded) or slo_state == "page"
             # the synthetic canary (runtime/canary.py), when this process
             # runs one: the last cycle's per-tier outcomes and the first
             # failing tier
@@ -2127,9 +2254,15 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     "consecutive_full_failures": cst["consecutive_full_failures"],
                     "tiers": {t: v.get("ok") for t, v in cst["tiers"].items()},
                 }
-            payload["debug_mem"] = {"trace_bytes": trace_b, "total_bytes": trace_b}
-            if sup is not None:
-                payload["degraded"] = payload["frontends"]["degraded"]
+            # the debug rings' memory: the request tracer's and the capture
+            # ring's (the native flight recorder is ROADMAP A.8: 0)
+            cap_b = capture_mod.mem_bytes()
+            M_DEBUG_MEM.labels(plane="flight").set(0)
+            M_DEBUG_MEM.labels(plane="capture").set(cap_b)
+            payload["debug_mem"] = {"trace_bytes": trace_b, "flight_bytes": 0,
+                                    "capture_bytes": cap_b, "total_bytes": trace_b + cap_b}
+            if degraded is not None:
+                payload["degraded"] = degraded
             if edge_chain.armed:
                 payload["edge"] = edge_chain.debug_payload()  # the stages at the door
             return payload
@@ -2226,6 +2359,9 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
+                if capture_mod.RECORDING:
+                    self._capture_note(m, np.asarray([value], "<i4").tobytes(),
+                                       np.asarray([result], "<i4").tobytes(), "coalesced")
                 self._json({"value": result})
             elif path == "/compute_batch":
                 # form `values`: comma/whitespace-separated ints; `spread=1`
@@ -2241,7 +2377,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
                         if not m.is_running:
                             self._text(400, "network is not running")
                             return
-                        if form.get("spread") == "1":
+                        spread = form.get("spread") == "1"
+                        if spread:
                             result = m.compute_coalesced(values, return_array=True)
                         else:
                             result = m.compute_many(values, return_array=True)
@@ -2251,6 +2388,10 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
+                if capture_mod.RECORDING:
+                    self._capture_note(m, np.asarray(values, "<i4").tobytes(),
+                                       result.astype("<i4").tobytes(),
+                                       "coalesced" if spread else "many")
                 # fixed-width padded tokens: legal JSON whitespace
                 self._send(200, b'{"values": [' + ints_to_dec(result, b",") + b"]}\n",
                            "application/json")
@@ -2271,6 +2412,11 @@ def make_http_server(master: MasterNode, port: int = 8000,
                         topology_json=form.get("topology"), compose=form.get("compose"),
                         slo_spec=form.get("slo"), quota_spec=form.get("quota"),
                         verify=query.get("verify") or form.get("verify") or None)
+                except ReplayDivergence as e:
+                    # the candidate answered captured traffic otherwise: the
+                    # swap was refused, the diffs are the body
+                    self._json({"error": str(e), "diffs": e.diffs}, code=409)
+                    return
                 except (RegistryError, TopologyError, TISParseError, TISLowerError) as e:
                     self._text(400, f"error publishing program: {e}")
                     return
@@ -2294,6 +2440,56 @@ def make_http_server(master: MasterNode, port: int = 8000,
                         self._text(400, f"error restoring checkpoint: {e}")
                         return
                 self._text(200, "Success")
+            elif path == "/captures/start":
+                # arm the wire recorder with one anchor (a state snapshot)
+                # per live program: the default's, then every active
+                # registry engine's
+                self._form()  # drain any body (keep-alive sync)
+                label = (registry.default_name if registry is not None else None) or "default"
+                anchors = {label: capture_mod.anchor_from_master(label, master)}
+                if registry is not None:
+                    for name, m in registry.active_masters():
+                        if name not in anchors:
+                            anchors[name] = capture_mod.anchor_from_master(name, m)
+                try:
+                    capture_mod.start(anchors=anchors)
+                except capture_mod.CaptureError as e:
+                    self._text(409, str(e))
+                    return
+                self._json(capture_mod.status())
+            elif path == "/captures/stop":
+                self._form()  # drain any body (keep-alive sync)
+                capture_mod.stop()
+                self._json(capture_mod.status())
+            elif path == "/captures/rotate":
+                self._form()  # drain any body (keep-alive sync)
+                try:
+                    result = capture_mod.rotate_now()
+                except capture_mod.CaptureError as e:
+                    self._text(409, str(e))
+                    return
+                self._json(result if result is not None
+                           else {"rotated": False, "reason": "empty ring"})
+            elif path == "/captures/export":
+                # the ring and its anchors to a segment on disk (admin-gated
+                # at the edge: a caller-chosen path is an operator's call)
+                form = self._form()
+                try:
+                    result = capture_mod.export(form.get("path") or None)
+                except capture_mod.CaptureError as e:
+                    self._text(409, str(e))
+                    return
+                self._json(result)
+            elif path == "/debug/faults":
+                # (re-)arm the chaos points on a running server (admin-gated
+                # at the edge); spec="" clears them
+                form = self._form()
+                try:
+                    faults.configure(form.get("spec") or None)
+                except faults.FaultSpecError as e:
+                    self._text(400, str(e))
+                    return
+                self._json({"armed": sorted(faults.active())})
             elif path == "/fleet/drain":
                 # drain the compute plane (runtime/frontends.py): new frames
                 # answer the reroute status; report quiescence
@@ -2419,7 +2615,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     if not m.is_running:
                         self._text(400, "network is not running")
                         return
-                    if query.get("spread", "1") == "1":
+                    spread = query.get("spread", "1") == "1"
+                    if spread:
                         result = m.compute_coalesced(values, return_array=True)
                     else:
                         result = m.compute_many(values, return_array=True)
@@ -2430,6 +2627,9 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 self._text(500, str(e))
                 return
             payload = result.astype("<i4").tobytes()
+            if capture_mod.RECORDING:  # the body is already little-endian int32
+                self._capture_note(m, bytes(raw), payload,
+                                   "coalesced" if spread else "many")
             if wire.accepts_binary(self.headers.get("Accept")):
                 self._send(200, wire.header(len(payload) // 4) + payload, wire.CONTENT_TYPE)
             else:

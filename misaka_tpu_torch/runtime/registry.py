@@ -37,12 +37,17 @@ The persistent store (``MISAKA_PROGRAMS_DIR``) survives restarts::
 ``ProgramRegistry(None)`` keeps sources in memory and eviction checkpoints
 in a registry-owned temporary directory.
 
+The telemetry planes reach in as the reference's do: an upload's ``slo``
+spec is installed into the burn-rate engine (utils/slo.py) when its
+version becomes ``latest``; a listing carries each program's usage ledger
+(runtime/usage.py); ``?verify=replay`` gates a publish on a shadow engine,
+built on the registry's device from the capture's anchor, replaying the
+program's captured requests byte for byte (runtime/capture.py); the
+``swap_during_load`` fault point (utils/faults.py) holds the park gate.
 Left out, each answered as the reference answers and naming its ROADMAP
 item: ``compose`` uploads (runtime/compose.py and PyYAML, A.10: a 400),
-``verify=replay`` (the capture plane, A.4: the reference's own
-``verify=replay refused:`` 400), the per-program SLO install and the
-``swap_during_load`` chaos point (A.4: an upload's `slo` field is
-validated and stored, and stays inert), the native spec cache (A.8).
+the gate's sweep of on-disk capture history (A.4b), the native spec cache
+(A.8).
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ import weakref
 from misaka_tpu_torch.runtime import edge as edge_mod
 from misaka_tpu_torch.runtime import usage
 from misaka_tpu_torch.runtime.topology import Topology
-from misaka_tpu_torch.utils import metrics, slo
+from misaka_tpu_torch.utils import faults, metrics, slo
 
 log = logging.getLogger("misaka_tpu_torch.registry")
 
@@ -131,9 +136,9 @@ class RegistryError(ValueError):
 
 class ReplayDivergence(RegistryError):
     """A ``?verify=replay`` publish whose candidate answered captured
-    traffic differently (the reference's 409).  The port has no capture
-    plane yet (ROADMAP A.4), so nothing raises it; the class keeps the
-    reference's error surface."""
+    traffic differently: the swap was refused (the reference's 409).
+    `.diffs` carries the per-request diff dicts (trace ID, record offset,
+    expected and actual heads) the HTTP surface renders as the body."""
 
     def __init__(self, message: str, diffs: list | None = None):
         super().__init__(message)
@@ -325,10 +330,15 @@ class ProgramRegistry:
                 entry.aliases["latest"] = max(
                     entry.versions, key=lambda v: entry.versions[v].get("created_unix", 0))
             self._entries[name] = entry
+            spec = entry.versions[entry.aliases["latest"]].get("slo")
+            if spec:
+                try:  # the latest version's objectives survive restarts
+                    slo.set_objectives(name, spec)
+                except slo.SLOSpecError:
+                    log.warning("registry: ignoring corrupt slo spec on %s@%s",
+                                name, entry.aliases["latest"])
             # persisted quota overrides are installed by install_quotas()
-            # once make_http_server has built the process chain; a stored
-            # slo spec stays inert until the burn-rate engine is ported
-            # (ROADMAP A.4)
+            # once make_http_server has built the process chain
             log.info("registry: loaded program %s (%d version(s), latest %s)",
                      name, len(entry.versions), entry.aliases["latest"])
 
@@ -468,10 +478,12 @@ class ProgramRegistry:
         registry's batch on its device before any bookkeeping mutates, so a
         bad upload is a 400 that touches nothing.  `slo_spec` (MISAKA_SLO
         grammar) and `quota_spec` (MISAKA_QUOTA grammar) are validated
-        here and stored in the version's metadata; the quota override is
-        installed into the edge chain when the version becomes `latest`,
-        the slo spec stays inert until ROADMAP A.4.  verify="replay"
-        refuses: the capture plane is not ported (A.4)."""
+        here and stored in the version's metadata; both overrides are
+        installed (the SLO engine, the edge chain) when the version becomes
+        `latest`.  verify="replay" first replays the program's captured
+        requests on a shadow engine of the candidate (`_verify_replay`):
+        ReplayDivergence on any differing byte, RegistryError when the
+        capture cannot soundly verify it; either touches nothing."""
         if not NAME_RE.match(name):
             raise RegistryError(f"invalid program name {name!r}")
         if verify not in (None, "", "replay"):
@@ -489,8 +501,7 @@ class ProgramRegistry:
         topo = self.parse_source(tis=tis, topology_json=topology_json, compose=compose)
         topo.compile(batch=self._batch, device=self._device)  # raises before any swap
         if verify == "replay":
-            raise RegistryError("verify=replay refused: the capture plane is not ported "
-                                "yet (ROADMAP A.4); publish without verify")
+            self._verify_replay(name, topo)
         canonical = canonical_topology(topo)
         version = version_of(canonical)
         meta = {"source": canonical, "created_unix": round(time.time(), 3)}
@@ -534,9 +545,14 @@ class ProgramRegistry:
                 with self._cond:
                     entry.aliases["latest"] = version
                 self._persist_aliases(name, {"latest": version})
-            # the new `latest` owns this program's quota override: one
-            # without clears any previous override back to the env and
-            # key-file defaults (runtime/edge.py precedence)
+            # the new `latest` owns this program's objectives and quota: a
+            # latest without a spec clears the override back to the env
+            # defaults.  A refused install (the SLO override budget) must
+            # not fail the upload: the program serves under the defaults.
+            try:
+                slo.set_objectives(name, meta.get("slo"))
+            except slo.SLOSpecError as e:
+                log.warning("registry: slo override for %s not installed: %s", name, e)
             try:
                 edge_mod.current().set_program_quota(name, meta.get("quota"))
             except edge_mod.QuotaSpecError as e:
@@ -560,12 +576,18 @@ class ProgramRegistry:
              gate: parked requests resolve the new alias and go;
           4. drain: wait for the old engine's in-flight leases, then
              checkpoint it (`name@<old>` revives with its state) and close
-             it."""
+             it.
+
+        The `swap_during_load` fault point (utils/faults.py) sleeps with
+        the gate closed, widening the parked window."""
         new_master = self._build_master(name, version, fresh=True)
         with self._cond:
             self._swapping.add(name)
         try:
             entry = self._entries[name]
+            delay = faults.fire("swap_during_load")
+            if delay is not None:
+                time.sleep(max(0.0, delay))
             with self._cond:
                 entry.aliases["latest"] = version
                 # Retire only a READY old engine.  A mid-build placeholder
@@ -602,6 +624,52 @@ class ProgramRegistry:
             self._deactivate_engine((name, version), surplus, checkpoint=False)
         if old is not None:
             self._retire(old_key, old)
+
+    def _verify_replay(self, name: str, topo) -> None:
+        """The ``?verify=replay`` deploy gate: drive the program's newest
+        captured requests (MISAKA_REPLAY_VERIFY_MAX) through a shadow
+        engine compiled from the candidate, on the registry's device,
+        restored to the capture's anchor state first.  Any differing byte,
+        or an anchor the candidate cannot hold, raises ReplayDivergence;
+        an unsound capture (no anchor, evicted records, the recorder
+        killed) raises RegistryError.  No live engine is touched, and the
+        shadow's device state is freed when the gate returns (close() and
+        the `del` below drop the last references)."""
+        from misaka_tpu_torch.runtime import capture as capture_mod
+        from misaka_tpu_torch.runtime.master import MasterNode
+
+        try:
+            anchor, recs = capture_mod.verify_bundle(name)
+        except capture_mod.CaptureError as e:
+            raise RegistryError(f"verify=replay refused: {e}") from e
+        shadow = MasterNode(topo, chunk_steps=self._chunk, batch=self._batch,
+                            engine=self._engine, device=self._device)
+        try:
+            try:
+                shadow.restore(anchor["state"])
+            except ValueError as e:
+                # a candidate that cannot hold the anchor state is not
+                # answer-compatible with the capture
+                raise ReplayDivergence(
+                    f"candidate for {name!r} cannot restore the capture anchor: {e}") from e
+            shadow.run()
+            diffs = capture_mod.replay_records(shadow, recs)
+        finally:
+            try:
+                shadow.close()
+            except Exception:
+                log.warning("replay shadow close failed", exc_info=True)
+            # a ReplayDivergence's traceback keeps this frame: it must not
+            # keep the shadow's device state too
+            del shadow
+        if diffs:
+            for d in diffs:
+                log.warning("registry: %s", capture_mod.format_diff(d))
+            raise ReplayDivergence(
+                f"candidate for {name!r} diverged on {len(diffs)}/{len(recs)} captured "
+                f"requests", diffs=diffs)
+        log.info("registry: verify=replay green for %s (%d captured requests byte-identical)",
+                 name, len(recs))
 
     def _retire(self, key: tuple[str, str], eng: _Engine) -> None:
         """Drain a just-replaced engine and deactivate it (checkpoint +
@@ -907,9 +975,8 @@ class ProgramRegistry:
                     "latest": entry.aliases.get("latest"),
                     "pinned": entry.pinned,
                     "default": name == self._default,
-                    # the usage ledger is not ported (ROADMAP A.4): null,
-                    # as the reference's with MISAKA_USAGE=0
-                    "usage": None,
+                    # the usage ledger: None until the program serves
+                    "usage": usage.program_snapshot(name),
                     "versions": {
                         v: {
                             "created_unix": meta.get("created_unix"),

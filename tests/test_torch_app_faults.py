@@ -11,7 +11,8 @@ One test per open fault of ROADMAP C, each failing before the fix:
   served with one, 403 off its scope; behind 0 and 1 frontend workers),
   and so does <MISAKA_PROGRAMS_DIR>/api_keys.json, with the registry
   seeding the boot network as the pinned default program; MISAKA_QUOTA
-  with a `cpu` field refuses (A.4);
+  with a `cpu` field boots and sheds, past its budget, with the JAX app's
+  typed 429 (the stage reads the usage ledger);
 - C.5 MISAKA_AUTOCKPT: auto snapshots written by either package's
   AutoCheckpointer restore in the other, a torn newest snapshot falls back
   to the one before, the interval snapshots rotate to `keep`, and a
@@ -20,7 +21,9 @@ One test per open fault of ROADMAP C, each failing before the fix:
 and the same class at lower stakes: MISAKA_FLEET, MISAKA_PLANE_TLS_CERT, a
 comma-separated MISAKA_PLANE_SOCKET and MISAKA_COORDINATOR refuse, while
 MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX app's
-version ID; MISAKA_FAULTS and MISAKA_SLO log one warning each.
+version ID; MISAKA_FAULTS and MISAKA_SLO arm their planes at boot.
+F.6: MISAKA_TSDB_DIR (the durable telemetry tier) refuses at boot, naming
+A.4b, and MISAKA_WATCHDOG with rules logs one warning.
 (MISAKA_HTTP_WORKERS is served: tests/test_torch_frontends.py.)
 """
 
@@ -301,15 +304,45 @@ def test_c4_programs_dir_keyfile_and_cpu_quota_refuse(tmp_path, monkeypatch, cap
     assert listing["default"]["latest"] == jreg.resolve("default")[1]
     assert sorted(os.listdir(tdir / "default" / "versions")) == sorted(
         os.listdir(jdir / "default" / "versions"))
-    # the cpu stage reads the usage ledger (A.4); with the quota stage off
-    # the spec is inert, as the reference's is
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.4") as exc:
-        app.build_master_from_env({**ADD2_ENV, "MISAKA_QUOTA": "cpu<0.5"})
-    assert exc.value.code == 2
-    assert "A.4" in capsys.readouterr().err
-    for off in ({"MISAKA_EDGE": "0"}, {"MISAKA_EDGE_QUOTA": "0"}):
-        app.check_env({**ADD2_ENV, "MISAKA_QUOTA": "rps<5,cpu<0.5", **off})
-    app.check_env({**ADD2_ENV, "MISAKA_QUOTA": "rps<5,vps<100"})
+    # the `cpu` stage reads the usage ledger: MISAKA_QUOTA with `cpu` boots,
+    # and a budget the first request spends sheds the next ones with the
+    # JAX app's typed 429 and Retry-After
+    for spec in ("cpu<0.5", "rps<5,cpu<0.5", "rps<5,vps<100"):
+        app.check_env({**ADD2_ENV, "MISAKA_QUOTA": spec})
+    assert "A.4" not in capsys.readouterr().err
+    monkeypatch.setenv("MISAKA_QUOTA", "cpu<0.000001")
+    jm = JMaster(JTopology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS, **CAPS),
+                 chunk_steps=32, batch=2, engine="scan")
+    jh = j_http(jm, port=0)
+    try:
+        jm.run()
+        want = _cpu_probe(f"http://127.0.0.1:{_serve(jh)}")
+    finally:
+        _close((jh, jm))
+    proc, base = _boot(tmp_path, {**ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_PIDFILE": "off",
+                                  "MISAKA_IN_CAP": "8", "MISAKA_OUT_CAP": "8",
+                                  "MISAKA_STACK_CAP": "8", "MISAKA_CANARY": "0"}, "cpu_quota")
+    try:
+        got = _cpu_probe(base)
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+    assert got == want
+    assert [g[0] for g in got] == [200, 429, 429] and got[0][1] == b'{"value": 7}\n'
+    assert got[1][1] == b"cpu quota exhausted (1e-06 core-seconds/s over 60s)"
+
+
+def _cpu_probe(base):
+    """(status, body, Retry-After) of three sequential /compute."""
+    out = []
+    for _ in range(3):
+        req = urllib.request.Request(base + "/compute", data=b"value=5", method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                out.append((r.status, r.read(), r.headers.get("Retry-After")))
+        except urllib.error.HTTPError as e:
+            out.append((e.code, e.read(), e.headers.get("Retry-After")))
+    return out
 
 
 # --- C.5 MISAKA_AUTOCKPT ----------------------------------------------------------------
@@ -540,9 +573,52 @@ def test_one_worker_and_zero_fleet_boot():
     app.check_env({**ADD2_ENV, "MISAKA_HTTP_WORKERS": "1", "MISAKA_FLEET": "0"})
 
 
+ARMING = {
+    # var -> (value, the probe route, what the JAX app answers there too)
+    "MISAKA_FAULTS": ("quota_exhaust", "/debug/faults", {"armed": ["quota_exhaust"]}),
+    "MISAKA_SLO": ("p99<250ms", "/debug/alerts", None),
+}
+
+
 @pytest.mark.parametrize("var", ["MISAKA_FAULTS", "MISAKA_SLO"])
-def test_faults_and_slo_warn_once(var, caplog):
+def test_faults_and_slo_warn_once(var, caplog, tmp_path):
+    # each variable arms its plane at boot, no longer a warning: an app
+    # booted with it reports the plane armed, as the JAX modules read it
+    value, route, body = ARMING[var]
     with caplog.at_level(logging.WARNING, logger="misaka_tpu_torch.app"):
-        app.check_env({**ADD2_ENV, var: "x"})
-    hits = [r for r in caplog.records if var in r.getMessage()]
-    assert len(hits) == 1 and "A.4" in hits[0].getMessage()
+        app.check_env({**ADD2_ENV, var: value})
+    assert not [r for r in caplog.records if var in r.getMessage()]
+    proc, base = _boot(tmp_path, {**ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_PIDFILE": "off",
+                                  "MISAKA_CANARY": "0", var: value}, var)
+    try:
+        with urllib.request.urlopen(base + route, timeout=30) as r:
+            got = json.loads(r.read())
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+    if var == "MISAKA_FAULTS":
+        assert got == body
+    else:
+        assert got["enabled"] and got["default_objectives"] == [value]
+        assert health["slo"] == "ok" and health["degraded"] is False
+
+
+def test_f6_tsdb_dir_refuses_naming_a4b(capsys):
+    # F.6: the durable telemetry tier the operator asked for must not be
+    # dropped in silence
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.4b") as exc:
+        app.build_master_from_env({**ADD2_ENV, "MISAKA_TSDB_DIR": "/nonexistent/tsdb"})
+    assert exc.value.code == 2
+    assert "MISAKA_TSDB_DIR" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("value,warns", [("0", False), ("p99-drift=x", True)])
+def test_f6_watchdog_rules_warn_once(value, warns, caplog):
+    with caplog.at_level(logging.WARNING, logger="misaka_tpu_torch.app"):
+        app.check_env({**ADD2_ENV, "MISAKA_WATCHDOG": value, "MISAKA_TSDB": "0",
+                       "MISAKA_SAMPLER": "0"})
+    hits = [r for r in caplog.records if "MISAKA_WATCHDOG" in r.getMessage()]
+    assert len(hits) == int(warns)
+    assert all("A.4b" in r.getMessage() for r in hits)

@@ -197,11 +197,56 @@ def test_cli_debug_scripted_matches_jax():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["bench"], "A.10"), (["replay", "seg.mskcap"], "A.4"),
-    (["usage-report", "--url", "http://x"], "A.4"),
+    (["bench"], "A.10"),
     (["check", "deploy.yml"], "A.10"), (["disasm", "deploy.yaml"], "A.10"),
     (["debug", "deploy.yml", "--device", "cpu"], "A.10")])
 def test_cli_unported_commands_exit_2(capsys, argv, item):
     assert tcli(argv) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: ") and f"ROADMAP {item})" in err
+
+
+def test_cli_replay_and_usage_report_run(capsys, tmp_path, monkeypatch):
+    """The two commands of the telemetry planes, served since the planes
+    were ported: `replay` drives an exported segment green on the CPU (and
+    refuses a compose candidate with status 2, naming A.10), and
+    `usage-report` verifies the signed export and prints the totals the
+    JAX CLI prints for the same server."""
+    import threading
+
+    from misaka_tpu_torch.runtime import capture
+    from misaka_tpu_torch.runtime import master as tmaster
+
+    monkeypatch.setenv("MISAKA_USAGE_SECRET", "k")
+    m = tmaster.MasterNode(tnet.add2(in_cap=8, out_cap=8, stack_cap=8), chunk_steps=16,
+                           batch=2, device="cpu")
+    httpd = tmaster.make_http_server(m, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    m.run()
+    try:
+        capture.start(anchors={"default": capture.anchor_from_master("default", m)})
+        for v in range(3):
+            assert m.compute_coalesced([v]) == [v + 2]
+            capture.note("http", program=None, trace=None, inbound=False,
+                         vals=bytes([v, 0, 0, 0]), resp=bytes([v + 2, 0, 0, 0]), status=200,
+                         tick=0)
+        capture.stop()
+        seg = capture.export(str(tmp_path / "cli.mskcap"))["path"]
+        capsys.readouterr()
+        assert tcli(["replay", seg, "--device", "cpu"]) == 0
+        assert capsys.readouterr().out == "default: replay green — 3 requests byte-for-byte identical\n"
+        assert tcli(["replay", seg, "--candidate", "new.yml", "--device", "cpu"]) == 2
+        assert "ROADMAP A.10)" in capsys.readouterr().err
+        reports = []
+        for cli in (tcli, jcli):
+            assert cli(["usage-report", "--url", base, "--secret", "k"]) == 0
+            reports.append(json.loads(capsys.readouterr().out))
+        assert reports[0] == reports[1] and reports[0]["verified"] is True
+        assert reports[0]["programs"]["default"]["requests"] >= 3
+        assert tcli(["usage-report", "--url", base, "--secret", "wrong"]) == 1
+        assert "failed HMAC verification" in capsys.readouterr().err
+    finally:
+        capture.configure()
+        httpd.shutdown()
+        m.close()

@@ -44,6 +44,7 @@ from misaka_tpu.runtime import frontends as jfe
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
 from misaka_tpu.utils import metrics as jmetrics
+from misaka_tpu.utils import slo as jslo
 from misaka_tpu.utils import tracespan as jtracespan
 from misaka_tpu_torch import networks as tnet
 from misaka_tpu_torch.networks import ADD2_PROGRAMS
@@ -51,6 +52,7 @@ from misaka_tpu_torch.runtime import frontends as tfe
 from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
 from misaka_tpu_torch.utils import metrics as tmetrics
+from misaka_tpu_torch.utils import slo as tslo
 from misaka_tpu_torch.utils import tracespan as ttracespan
 from misaka_tpu_torch.utils import wire
 
@@ -61,7 +63,7 @@ CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 SEED = 20261017
 MAX_BODY = 4096
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"native_edge", "slo", "watchdog", "canary"}
+UNPORTED_BLOCKS = {"native_edge", "watchdog", "canary"}
 FE = {"jax": jfe, "port": tfe}
 METRICS = {"jax": jmetrics, "port": tmetrics}
 ADD2_ENV = {
@@ -76,6 +78,10 @@ def _quiet_jax_daemons(monkeypatch):
     # the JAX server's process-global daemons would outlive a test
     for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG", "MISAKA_CANARY"):
         monkeypatch.setenv(switch, "0")
+    # both SLO engines disarmed, whatever an earlier test in this process
+    # armed: a /healthz `slo` block then means the same in both
+    jslo.configure()
+    tslo.configure()
 
 
 def _serve(httpd):
@@ -333,7 +339,21 @@ def test_draining_plane_answers_the_reroute_status(masters, tmp_path, plane_pkg)
         plane.close()
 
 
+def _settle_http_inflight(timeout=10.0):
+    """Wait (bounded) until no HTTP request of any server in this process
+    is in flight: the route reports the process-wide gauge less itself,
+    and an earlier test's late request (a proxied one a closed worker left
+    behind) would read as this server's."""
+    from misaka_tpu.runtime.master import M_HTTP_INFLIGHT as j_inflight
+    from misaka_tpu_torch.runtime.master import M_HTTP_INFLIGHT as t_inflight
+
+    deadline = time.monotonic() + timeout
+    while (j_inflight.value or t_inflight.value) and time.monotonic() < deadline:
+        time.sleep(0.05)
+
+
 def test_fleet_drain_route_answers_like_the_reference(masters, tmp_path):
+    _settle_http_inflight()
     answers = {}
     for pkg in ("jax", "port"):
         httpd = (j_http if pkg == "jax" else t_http)(masters[pkg], port=0)

@@ -2,9 +2,13 @@
 
 A fresh interpreter imports every module of the port plus chip_smoke.py
 and reports what the imports added to sys.modules; neither `jax` nor
-`misaka_tpu` (or any submodule) may appear.  The frontend worker's modules
-(runtime/frontends.py, client.py, utils/backoff.py) import no torch
-either: a worker process must not pay for it.  chip_smoke.py must refuse to
+`misaka_tpu` (or any submodule), nor the reference's tools/replay.py
+(which the JAX CLI loads by path), may appear: the port's replay is its
+own misaka_tpu_torch/replay.py.  The frontend worker's modules
+(runtime/frontends.py, client.py, utils/backoff.py) and the telemetry
+planes they reach (utils/faults.py, utils/slo.py, runtime/usage.py,
+runtime/capture.py) import no torch either: a worker process must not
+pay for it.  chip_smoke.py must refuse to
 report a result without a card, and when it is alone in a directory.
 """
 
@@ -29,7 +33,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 added = set(sys.modules) - before
-bad = sorted(k for k in added if k.split(".")[0] in ("jax", "jaxlib", "misaka_tpu"))
+bad = sorted(k for k in added
+             if k.split(".")[0] in ("jax", "jaxlib", "misaka_tpu", "tools", "_misaka_replay"))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
 
@@ -52,7 +57,9 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.runtime.edge", "misaka_tpu_torch.runtime.frontends",
               "misaka_tpu_torch.client", "misaka_tpu_torch.utils.backoff",
               "misaka_tpu_torch.runtime.registry", "misaka_tpu_torch.runtime.canary",
-              "misaka_tpu_torch.runtime.usage", "misaka_tpu_torch.utils.slo"):
+              "misaka_tpu_torch.runtime.usage", "misaka_tpu_torch.utils.slo",
+              "misaka_tpu_torch.utils.faults", "misaka_tpu_torch.runtime.capture",
+              "misaka_tpu_torch.replay"):
         assert m in report["modules"]
 
 
@@ -61,6 +68,8 @@ import json, sys
 before = set(sys.modules)
 sys.path.insert(0, sys.argv[1])
 import misaka_tpu_torch.runtime.frontends, misaka_tpu_torch.client, misaka_tpu_torch.utils.backoff
+import misaka_tpu_torch.utils.faults, misaka_tpu_torch.utils.slo, misaka_tpu_torch.runtime.usage
+import misaka_tpu_torch.runtime.capture
 added = set(sys.modules) - before
 print(json.dumps(sorted(k for k in added
                         if k.split(".")[0] in ("torch", "jax", "jaxlib", "misaka_tpu"))))

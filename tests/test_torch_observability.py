@@ -39,6 +39,7 @@ from misaka_tpu.runtime import frontends as _jfrontends  # noqa: F401 (its serie
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
 from misaka_tpu.utils import metrics as jmetrics
+from misaka_tpu.utils import slo as jslo
 from misaka_tpu.utils import tracespan as jtracespan
 from misaka_tpu.utils.jsonlog import JsonFormatter as JJsonFormatter
 from misaka_tpu_torch import networks as tnet
@@ -47,6 +48,7 @@ from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
 from misaka_tpu_torch.utils import metrics as tmetrics
 from misaka_tpu_torch.utils import profiling
+from misaka_tpu_torch.utils import slo as tslo
 from misaka_tpu_torch.utils import tracespan as ttracespan
 from misaka_tpu_torch.utils.jsonlog import JsonFormatter as TJsonFormatter
 
@@ -55,7 +57,7 @@ torch.set_num_threads(1)
 CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 TRACE_ID = "feedc0de12345678"
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"frontends", "native_edge", "slo", "watchdog", "canary", "degraded"}
+UNPORTED_BLOCKS = {"frontends", "native_edge", "watchdog", "canary", "degraded"}
 
 
 @pytest.fixture(autouse=True)
@@ -63,6 +65,10 @@ def _env(monkeypatch):
     # the JAX server's process-global daemons would outlive a test
     for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
         monkeypatch.setenv(switch, "0")
+    # both SLO engines disarmed, whatever an earlier test in this process
+    # armed: a /healthz `slo` block then means the same in both
+    jslo.configure()
+    tslo.configure()
 
 
 def _serve(httpd):
@@ -226,11 +232,16 @@ def test_series_catalog_matches_the_reference():
                      "misaka_frontend_restarts_total", "misaka_frontend_workers_alive",
                      "misaka_edge_admitted_total", "misaka_edge_rejected_total",
                      "misaka_edge_tokens_total", "misaka_edge_gossip_rounds_total",
-                     "misaka_edge_gossip_drained_total"):
+                     "misaka_edge_gossip_drained_total", "misaka_usage_requests_total",
+                     "misaka_usage_cpu_seconds_total", "misaka_serve_pass_wall_seconds_total",
+                     "misaka_slo_state", "misaka_slo_burn_rate", "misaka_slo_p99_seconds",
+                     "misaka_capture_records_total", "misaka_capture_ring_bytes",
+                     "misaka_replay_runs_total", "misaka_replay_divergences_total"):
             assert name in names, name
-        # planes the port has not taken stay absent, not faked
-        assert not any(n.startswith(("misaka_native_", "misaka_slo_", "misaka_usage_",
-                                     "misaka_plane_tls_", "misaka_fleet_", "misaka_capture"))
+        # planes the port has not taken stay absent, not faked (the
+        # durable spools of the usage and capture planes are ROADMAP A.4b)
+        assert not any(n.startswith(("misaka_native_", "misaka_plane_tls_", "misaka_fleet_",
+                                     "misaka_capture_spool_", "misaka_usage_spool_"))
                        for n in names)
     finally:
         p.close()

@@ -16,8 +16,9 @@ Then the cross-package cases: the same uploads give the same canonical
 source and version ID; a MISAKA_PROGRAMS_DIR store written by one package
 boots and serves in the other; the `delay` program evicted by one package
 revives in the other with its sequence intact; GET /programs and
-/programs/<name> bodies are equal apart from `created_unix` (the JAX side
-under MISAKA_USAGE=0, the port's `usage` being null); the typed 400 and
+/programs/<name> bodies are equal apart from `created_unix` and the
+seconds of each `usage` block (both ledgers on: the same requests and
+values per program, null for an idle one); the typed 400 and
 404 bodies are equal; plane frames cross between the packages' clients
 and planes, a `ghost` program's 404 included, while a KeyError out of an
 engine's compute stays a 500 on both; and an evicted engine of the port is
@@ -55,6 +56,7 @@ from misaka_tpu_torch.runtime import checkpoint as tckpt
 from misaka_tpu_torch.runtime import frontends as tfrontends
 from misaka_tpu_torch.runtime import master as tmaster
 from misaka_tpu_torch.runtime import registry as tregistry
+from misaka_tpu_torch.runtime import usage as tusage
 from misaka_tpu_torch.runtime.topology import Topology as TTopology
 from misaka_tpu_torch.tis.parser import TISParseError as TTISParseError
 
@@ -617,13 +619,23 @@ def strip_created(obj):
 
 
 @pytest.fixture
-def usage_off():
-    jusage.configure({"MISAKA_USAGE": "0"})
+def fresh_ledgers():
+    # both ledgers on and empty: each package books only this test's traffic
+    for mod in (jusage, tusage):
+        mod.configure({})
+        mod.reset()
     yield
-    jusage.configure()
 
 
-def test_listing_bodies_equal_across_packages(usage_off):
+def strip_durations(obj):
+    """A listing with each usage block's seconds (durations) dropped."""
+    if isinstance(obj, dict):
+        return {k: ({f: v[f] for f in ("requests", "values")} if k == "usage" and v
+                    else strip_durations(v)) for k, v in obj.items()}
+    return obj
+
+
+def test_listing_bodies_equal_across_packages(fresh_ledgers):
     servers = [serve_registry(p, name="boot") for p in PKGS.values()]
     try:
         bodies = []
@@ -631,12 +643,21 @@ def test_listing_bodies_equal_across_packages(usage_off):
             post(base, "/programs", {"name": "lst", "program": ADD10})
             post(base, "/programs", {"name": "lst2", "program": ADD20})
             assert post(base, "/programs/lst/compute", {"value": "1"}) == (200, b'{"value": 11}\n')
+            assert post(base, "/programs/lst/compute_raw", raw=np.arange(5, dtype="<i4")
+                        .tobytes())[0] == 200
             bodies.append([get(base, p) for p in ("/programs", "/programs/lst",
                                                   "/programs/lst2", "/programs/boot")])
         for (sj, bj), (st, bt) in zip(*bodies):
             assert sj == st == 200
-            assert strip_created(json.loads(bj)) == strip_created(json.loads(bt))
-        assert json.loads(bodies[1][1][1])["usage"] is None
+            assert (strip_durations(strip_created(json.loads(bj)))
+                    == strip_durations(strip_created(json.loads(bt))))
+        # the ledger on in both: `lst` served 2 requests of 6 values; an
+        # idle program has none
+        for b in bodies:
+            lst = json.loads(b[1][1])["usage"]
+            assert (lst["requests"], lst["values"], lst["native_seconds"]) == (2, 6, 0.0)
+            assert lst["cpu_seconds"] > 0
+            assert json.loads(b[2][1])["usage"] is None
     finally:
         for _, master, reg, httpd in servers:
             stop_server(master, reg, httpd)
