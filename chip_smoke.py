@@ -73,12 +73,27 @@ capture exported and replayed on the card by `python -m misaka_tpu_torch
 replay` (green for add2 and a serialized delay line, a divergent candidate
 loud), the ?verify=replay deploy gate's swap and 409, anchors and the
 shadow engine in device memory, an unbatched capture replayed, and the
-planes' cost, a b b a.
+planes' cost, a b b a.  The `observatory` phase serves the same add2
+behind the workers with the always-on and durable planes armed
+(MISAKA_TSDB_DIR, a 1 s collector, the capture spool rotating, the
+watchdog's defaults and a page rule): the integral of /debug/series
+against the /metrics counter, the sampler's and the collector's own cost
+under load, the device-loop thread's folded stacks, the dashboard and the
+flamegraph, the watchdog paging on an injected delay and clearing, a
+rotation under a stream (and device memory across rotations in this
+process), kill -9 and a relaunch over the same directory (series from
+before the kill, the usage export monotone and conserving, the segment
+rotated before the kill replayed green on the card), history restored
+from a checkpoint alone, and the planes' cost, a b b a.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
-the B=1 chunk (kernel, plain loop, traced loop).
-Each phase prints one JSON line; the last line is
+the B=1 chunk (kernel, plain loop, traced loop).  The plain version runs
+once per network, state and tick count, and every variant from that
+state (full, elided, data-parallel, the whole-batch launch) is held to
+that one result.
+Each phase prints one JSON line and a `split` line with its seconds (the
+`done` line repeats them all); the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -259,26 +274,54 @@ def max_abs_err(got, want):
     )
 
 
-def compare(label, net, state, steps, elide=False):
-    """Kernel vs plain version from the same state.  The full kernel must
-    give every field exactly; the elided variant (elide=True) every field
-    but acc_hi/bak_hi of hi-dead lanes, which must equal their entry
-    values.  Also checks the kernel left its input state untouched, and
-    reports the plain version's time (CUDA events, one call) and the
-    instructions the kernel committed (the rise of `retired`), in all and
-    on hi-dead lanes."""
+# plain results shared across phases: (network, state, ticks) label -> plain_result
+PLAIN = {}
+
+
+def main_add2_state(net, rng):
+    """add2's state at the main path's shapes, as phase_timings times it
+    (phase_dp_parity holds its layouts to the same state and plain run)."""
+    return with_random_hi(seeded_inputs(net, rng, MAIN_CAPS["in_cap"]), rng)
+
+
+def plain_result(net, state, steps, key=None):
+    """The plain version's result from `state` (field -> array) and its
+    time (CUDA events, one call): computed once per (network, state,
+    ticks) and held against every variant that starts from that state.
+    With `key`, a later phase takes the same result from PLAIN."""
+    if key is not None and key in PLAIN:
+        return PLAIN[key]
     import torch
 
-    from misaka_tpu_torch.core.state import clone_state, state_to_numpy
+    from misaka_tpu_torch.core.state import state_to_numpy
 
-    before = clone_state(state)
-    got = net.fused_runner(steps, elide_dead_hi=elide)(state)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = net.run(state, steps)
     end.record()
     torch.cuda.synchronize()
-    g, w, b0 = state_to_numpy(got), state_to_numpy(want), state_to_numpy(before)
+    out = state_to_numpy(want), start.elapsed_time(end)
+    if key is not None:
+        PLAIN[key] = out
+    return out
+
+
+def compare(label, net, state, steps, elide=False, plain=None):
+    """Kernel vs plain version from the same state.  The full kernel must
+    give every field exactly; the elided variant (elide=True) every field
+    but acc_hi/bak_hi of hi-dead lanes, which must equal their entry
+    values.  Also checks the kernel left its input state untouched, and
+    reports the plain version's time and the instructions the kernel
+    committed (the rise of `retired`), in all and on hi-dead lanes.
+    `plain` is a `plain_result` of the same (net, state, steps), shared
+    with the other variants; without it the plain version runs here."""
+    from misaka_tpu_torch.core.state import clone_state, state_to_numpy
+
+    before = clone_state(state)
+    got = net.fused_runner(steps, elide_dead_hi=elide)(state)
+    want, plain_ms = plain if plain is not None else plain_result(net, state, steps)
+    w = {f: a.copy() for f, a in want.items()}
+    g, b0 = state_to_numpy(got), state_to_numpy(before)
     a0 = state_to_numpy(state)
     dead = held_to_plain(net, w, a0, elide)
     diverged = diverged_fields(g, w)
@@ -291,7 +334,7 @@ def compare(label, net, state, steps, elide=False):
            "out_wr_min": int(g["out_wr"].min()),
            "stack_full": int((g["stack_top"] >= net.stack_cap).any(axis=1).sum()),
            "commits": int(commits.sum()), "dead_commits": int(commits[:, dead].sum()),
-           "plain_ms": start.elapsed_time(end)}
+           "plain_ms": plain_ms}
     if diverged:
         row["diverged"] = diverged
     if touched:
@@ -398,19 +441,18 @@ def phase_elided_parity():
     return report_parity("elided_parity", rows)
 
 
-def compare_dp(label, net, state, steps, devices, elide=False):
+def compare_dp(label, net, state, steps, devices, plain, elide=False):
     """The data-parallel runner, its shards on `devices` (one per shard,
-    repeats allowed), against its plain version (core/fused.py::plain_run
-    per shard) and against the single whole-batch launch, all from the same
-    state: every field exact (the elided variant: hi-dead lanes' acc_hi /
-    bak_hi at their entry values).  Also checks that neither the state nor
-    its shards were touched, and that the runner launched once per shard
-    under fused.KERNEL_DP.  The plain version's time is host time around
-    work that ends in a synchronise of every card it ran on."""
-    import torch
-
+    repeats allowed), and the single whole-batch launch, both held against
+    `plain` (a `plain_result` of the whole batch from the same state,
+    shared by every variant from it: instances are independent, so the
+    plain version per shard is its rows of the whole batch's): every field
+    exact (the elided variant: hi-dead lanes' acc_hi / bak_hi at their
+    entry values).  Also checks that neither the state nor its shards were
+    touched, and that the runner launched once per shard under
+    fused.KERNEL_DP."""
     from misaka_tpu_torch.core import fused
-    from misaka_tpu_torch.core.state import clone_state, state_to_numpy
+    from misaka_tpu_torch.core.state import state_to_numpy
     from misaka_tpu_torch.parallel.mesh import (
         ShardedNetwork, gather_state, make_mesh, shard_state)
 
@@ -425,17 +467,10 @@ def compare_dp(label, net, state, steps, devices, elide=False):
     launches = fused.launch_counts[fused.KERNEL_DP] - n0
     whole = state_to_numpy(net.fused_runner(steps, elide_dead_hi=elide)(state))
     cards = sorted({d.index for d in mesh.devices})
-    for i in cards:
-        torch.cuda.synchronize(i)
-    t = time.perf_counter()
-    plain = [n.run(clone_state(s), steps) for n, s in zip(sharded.nets, shards)]
-    for i in cards:
-        torch.cuda.synchronize(i)
-    plain_ms = (time.perf_counter() - t) * 1e3
-    want = state_to_numpy(gather_state(plain))
+    want = {f: a.copy() for f, a in plain[0].items()}
     dead = held_to_plain(net, want, entry, elide)
     diverged = diverged_fields(got, want)
-    whole_diverged = diverged_fields(got, whole)
+    whole_diverged = diverged_fields(whole, want)
     touched = diverged_fields(state_to_numpy(state), entry) + diverged_fields(
         state_to_numpy(gather_state(shards)), before)
     commits = (got["retired"] - entry["retired"]).astype(np.int64)
@@ -445,15 +480,15 @@ def compare_dp(label, net, state, steps, devices, elide=False):
            "launches": launches,
            "exact": not diverged and not whole_diverged and not touched
            and launches == len(devices),
-           "max_abs_err": max(max_abs_err(got, want), max_abs_err(got, whole)),
+           "max_abs_err": max(max_abs_err(got, want), max_abs_err(whole, want)),
            "out_wr_min": int(got["out_wr"].min()),
            "stack_full": int((got["stack_top"] >= net.stack_cap).any(axis=1).sum()),
            "commits": int(commits.sum()), "dead_commits": int(commits[:, dead].sum()),
-           "plain_ms": plain_ms}
+           "plain_ms": plain[1]}
     if diverged:
         row["diverged_from_plain"] = diverged
     if whole_diverged:
-        row["diverged_from_whole_batch_launch"] = whole_diverged
+        row["whole_batch_launch_diverged_from_plain"] = whole_diverged
     if touched:
         row["input_mutated"] = touched
     return row
@@ -481,7 +516,11 @@ def phase_dp_parity(batch=MAIN_BATCH, chunk=MAIN_CHUNK):
     at the served shapes: two shards on cuda:0, and one shard per card when
     the host has two or more, on add2, reverse_any (streams that fill its
     stack) and a random network that mixes hi-live and hi-dead lanes, plus
-    add2 through the elided variant (HI_DEAD) on two shards."""
+    add2 through the elided variant (HI_DEAD) on two shards.  Each network
+    and state runs the plain version once (the whole batch), and every
+    layout and variant from that state is held to it; add2's state is the
+    one phase_timings times and reverse_any's the one reverse_any_parity
+    holds at cap 16, so those phases take these plain runs (PLAIN)."""
     import torch
 
     from misaka_tpu_torch import networks
@@ -499,20 +538,25 @@ def phase_dp_parity(batch=MAIN_BATCH, chunk=MAIN_CHUNK):
                       (f"random_mixed/{mixed_seed}", random_topology(
                           mixed_seed, Topology, lanes=(2, 9), **MAIN_CAPS))):
         net = top.compile(batch=batch, device="cuda")
-        if name == "reverse_any":
-            state = reverse_any_state(net, rng)
+        key = ({"add2": "add2/main", "reverse_any": "reverse_any/cap16"}.get(name)
+               if (batch, chunk) == (MAIN_BATCH, MAIN_CHUNK) else None)
+        if name == "add2":  # phase_timings' state: its plain run is this one
+            state = main_add2_state(net, np.random.default_rng(SEED))
+        elif name == "reverse_any":  # reverse_any_parity's cap16 state, likewise
+            state = reverse_any_state(net, np.random.default_rng(SEED + 3))
         else:
             state = with_random_hi(seeded_inputs(net, rng, net.in_cap, -100, 100), rng)
+        plain = plain_result(net, state, chunk, key)  # one plain run per network and state
         for devices in layouts:
             rows.append(compare_dp(f"{name}/{len(devices)}x{len(set(devices))}card",
-                                   net, state, chunk, devices))
+                                   net, state, chunk, devices, plain))
         if name == "add2":
             rows.append(compare_dp("add2/elided/2x1card", net, state, chunk, layouts[0],
-                                   elide=True))
+                                   plain, elide=True))
         if name == "reverse_any" and not 0 < rows[-1]["stack_full"] < batch:
             rows[-1]["exact"] = False
             rows[-1]["why"] = f"{rows[-1]['stack_full']} of {batch} instances filled the stack"
-        del net, state
+        del net, state, plain
     multi = "run" if cards >= 2 else "not run"
     err = report_parity("dp_parity", rows, cards=cards, multi_card=multi,
                         variants=sorted({r["variant"] for r in rows}),
@@ -968,9 +1012,12 @@ def reverse_any_parity(text, batch, chunk):
     for cap in (16, 64):
         net = Topology.from_json(text, **dict(MAIN_CAPS, stack_cap=cap)).compile(
             batch=batch, device="cuda")
-        # the same streams at both caps
+        # the same streams at both caps; at cap 16 phase_dp_parity's plain run
         state = reverse_any_state(net, np.random.default_rng(SEED + 3))
-        row = compare(f"reverse_any/cap{cap}", net, state, chunk)
+        key = f"reverse_any/cap{cap}" if (batch, chunk) == (MAIN_BATCH, MAIN_CHUNK) else None
+        row = compare(f"reverse_any/cap{cap}", net, state, chunk,
+                      plain=plain_result(net, state, chunk, key))
+        PLAIN.pop(key, None)
         if not 0 < row["stack_full"] < batch:
             row["exact"] = False
             row["why"] = f"{row['stack_full']} of {batch} instances filled the stack"
@@ -1223,7 +1270,8 @@ def compare_traced(label, top, batch, steps, rng, instance=7):
 
 def phase_traced(traced_batch=4096, device=None):
     """Tracing: a server with MISAKA_TRACE_CAP=256, unbatched, and one with
-    MISAKA_BATCH=`traced_batch` and MISAKA_TRACE_INSTANCE=7; each serves
+    MISAKA_BATCH=`traced_batch` and MISAKA_TRACE_INSTANCE=7 (booted at once,
+    each run in its turn); each serves
     through the plain version recording (engine "plain-traced", no kernel
     launch), and its /debug/isa_trace is tick-ordered with the programs'
     own lines.  Then in process, `run_traced` on the card against the same
@@ -1234,10 +1282,14 @@ def phase_traced(traced_batch=4096, device=None):
 
     programs = readme_programs()
     rows = {}
-    for label, batch, extra in (("unbatched", None, {}),
-                                ("batched", traced_batch, {"MISAKA_TRACE_INSTANCE": "7"})):
-        with served_app(f"traced_{label}", ADD2_NODES, programs, batch, None, None,
-                        device=device, MISAKA_TRACE_CAP="256", **extra) as (port, boot_s):
+    servers = (("unbatched", None, {}), ("batched", traced_batch, {"MISAKA_TRACE_INSTANCE": "7"}))
+    # both booted at once, paused; each run in its turn
+    specs = [dict(label=f"traced_{label}", node_info=ADD2_NODES, programs=programs, batch=batch,
+                  chunk=None, caps=None, device=device, autorun=False, MISAKA_TRACE_CAP="256",
+                  **extra) for label, batch, extra in servers]
+    with served_apps(specs) as booted:
+        for (label, batch, _), (port, boot_s) in zip(servers, booted):
+            expect(post_form(port, "/run")[0] == 200, f"traced {label} /run")
             t = time.perf_counter()
             for v in (5, -3, 1000):
                 code, body = post_form(port, "/compute", value=str(v))
@@ -1246,11 +1298,12 @@ def phase_traced(traced_batch=4096, device=None):
             compute_s = (time.perf_counter() - t) / 3
             check_raw(port, np.arange(-32, 32, dtype=np.int32))
             entries = check_isa_trace(port, programs)
+            expect(post_form(port, "/pause")[0] == 200, f"traced {label} /pause")
             st = status(port)
-        expect(st["engine"] == "plain-traced" and ("batch" in st) == (batch is not None)
-               and sum(st["kernel_launches"].values()) == 0, f"traced {label} status {st}")
-        rows[label] = {"batch": batch, "boot_s": boot_s, "compute_s": compute_s,
-                       "last_tick": entries[-1]["tick"]}
+            expect(st["engine"] == "plain-traced" and ("batch" in st) == (batch is not None)
+                   and sum(st["kernel_launches"].values()) == 0, f"traced {label} status {st}")
+            rows[label] = {"batch": batch, "boot_s": boot_s, "compute_s": compute_s,
+                           "last_tick": entries[-1]["tick"]}
     parity = []
     if device != "cpu":
         rng = np.random.default_rng(SEED + 8)
@@ -2671,16 +2724,40 @@ def alert_states(port):
     return {p: progs.get(p, {}).get("state") for p in ("tenant-a", "tenant-b", "default")}
 
 
-def run_replay(args, device):
-    """`python -m misaka_tpu_torch replay ...`: (rc, stdout lines, seconds)."""
+def start_replay(args, device):
+    """Start `python -m misaka_tpu_torch replay ...` in the background (the
+    replays of one phase run side by side): a handle for finish_replay."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "misaka_tpu_torch", "replay", *args]
     if device is not None:
         cmd += ["--device", device]
-    t = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    return out.returncode, (out.stdout + out.stderr).splitlines(), time.perf_counter() - t
+    return time.perf_counter(), subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_replay(handle):
+    """(rc, output lines, seconds) of a start_replay."""
+    t, proc = handle
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return proc.returncode, out.splitlines(), time.perf_counter() - t
+
+
+def kill_replays(handles):
+    """Stop the replays a failed phase left running."""
+    for _, proc in handles:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_replay(args, device):
+    """`python -m misaka_tpu_torch replay ...`: (rc, output lines, seconds)."""
+    return finish_replay(start_replay(args, device))
 
 
 def slo_drill(eng, pub, fault_s, n_clients=9, hol_s=4.0):
@@ -2922,6 +2999,7 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
            "chunk_steps": chunk, **MAIN_CAPS}
     t0 = time.perf_counter()
     launches = []
+    replays = []  # the background replays, stopped if the phase fails
     rng = np.random.default_rng(SEED + 11)
     try:
         with served_app("telemetry", MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"),
@@ -3043,20 +3121,23 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
                                             exp["anchors"].items()}
             # every anchored program in one process: add2 and delay green,
             # tenant-b anchored with nothing recorded
-            rc, lines, secs = run_replay([seg], device)
-            green = {ln.split(":")[0] for ln in lines if "replay green" in ln}
-            expect(rc == 0 and {"default", "delay"} <= green, f"replay: {rc} {lines[-4:]}")
-            replays = {"segment": {"seconds": secs, "lines": lines}}
             cand = os.path.join(tmp, "add3.json")
             with open(cand, "w") as f:
                 f.write(add3_topology_json())
-            rc, lines, secs = run_replay([seg, "--program", "default", "--candidate", cand],
-                                         device)
+            # the segment and the add3 candidate, replayed side by side
+            handles = [start_replay([seg], device),
+                       start_replay([seg, "--program", "default", "--candidate", cand], device)]
+            replays += handles
+            rc, lines, secs = finish_replay(handles[0])
+            green = {ln.split(":")[0] for ln in lines if "replay green" in ln}
+            expect(rc == 0 and {"default", "delay"} <= green, f"replay: {rc} {lines[-4:]}")
+            replayed = {"segment": {"seconds": secs, "lines": lines}}
+            rc, lines, secs = finish_replay(handles[1])
             expect(rc == 1 and lines[0].startswith("DIVERGENCE offset=0 ")
                    and "first_diff_index=0 " in lines[0] and "DIVERGED on" in lines[-1],
                    f"candidate add3: {rc} {lines[:2]} {lines[-1:]}")
-            replays["candidate_add3"] = {"seconds": secs, "first": lines[0], "last": lines[-1]}
-            row_cap["replays"] = replays
+            replayed["candidate_add3"] = {"seconds": secs, "first": lines[0], "last": lines[-1]}
+            row_cap["replays"] = replayed
             # the deploy gate
             t = time.perf_counter()
             c, _, b = call(pub, "/programs?verify=replay",
@@ -3090,10 +3171,8 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
             c, _, b = call(port, "/captures/export", urlencode_form(path=seg1))
             expect(c == 200 and json.loads(b)["records"] == n_b1, f"B=1 export: {c} {b!r}")
             launches.append(status(port)["kernel_launches"][fused.KERNEL])
-        rc, lines, secs = run_replay([seg1], device)
-        expect(rc == 0 and lines == [f"default: replay green — {n_b1} requests byte-for-byte "
-                                     "identical"], f"B=1 replay: {rc} {lines[-3:]}")
-        row["b1_replay"] = {"records": n_b1, "seconds": secs}
+        b1_replay = start_replay([seg1], device)  # runs while the cost servers boot
+        replays.append(b1_replay)
         # 6. the cost, a b b a
         cost = [dict(base, label=f"telemetry_cost_{cfg}", autorun=False,
                      MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}.sock"),
@@ -3101,6 +3180,11 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
                         else {"MISAKA_SLO": f"p99<{slo_ms}ms"}))
                 for cfg in ("a", "b")]
         with served_apps(cost) as [(cost_a, _), (cost_b, _)]:
+            rc, lines, secs = finish_replay(b1_replay)
+            expect(rc == 0 and lines == [f"default: replay green — {n_b1} requests "
+                                         "byte-for-byte identical"],
+                   f"B=1 replay: {rc} {lines[-3:]}")
+            row["b1_replay"] = {"records": n_b1, "seconds": secs}
             for p in (cost_a, cost_b):
                 expect(frontends.wait_ready(p, timeout=30), "the public port does not answer")
                 expect(post_form(p, "/run")[0] == 200, "/run")
@@ -3126,11 +3210,485 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
             }
             launches += [status(p)["kernel_launches"][fused.KERNEL] for p in (cost_a, cost_b)]
     finally:
+        kill_replays(replays)
         shutil.rmtree(tmp, ignore_errors=True)
     row["kernel_launches"] = sum(launches)
     row["seconds"] = time.perf_counter() - t0
     emit(row)
     return row
+
+
+# --- the observatory: the always-on and durable planes ---------------------------------
+
+# the watchdog drill's page rule: p99 of the engine's /compute over a bound
+# of the latency buckets (1 s), so an unfaulted request never reads past it
+# and a request held by the injected delay always does
+OBS_HOT_RULE = ("hot=misaka_http_request_duration_seconds:p99{route=/compute}"
+                ">1 for 2s ->page")
+OBS_FAULT_S = 1.5
+
+
+def observatory_rules():
+    """MISAKA_WATCHDOG: the default rules at a 1 s interval, plus the
+    drill's page rule."""
+    from misaka_tpu_torch.utils import watchdog
+
+    return ",".join([r.spec for r in watchdog.default_rules(1.0)] + [OBS_HOT_RULE])
+
+
+def stream_for(port, seconds, n_clients, n_values, rng, gap_s=0.0):
+    """n_clients threads posting /compute_raw of n_values (striped) for
+    `seconds`, every answer checked: [(start, end)] per request (monotonic)
+    and the errors."""
+    vals = [rng.integers(-2**20, 2**20, size=n_values).astype(np.int32)
+            for _ in range(n_clients)]
+    spans = [[] for _ in range(n_clients)]
+    stop_at = time.monotonic() + seconds
+
+    def client(i):
+        while time.monotonic() < stop_at:
+            t = time.monotonic()
+            c, _, b = call(port, "/compute_raw", vals[i].tobytes())
+            if c != 200 or not np.array_equal(np.frombuffer(b, "<i4"), vals[i] + 2):
+                raise RuntimeError(f"/compute_raw: {c} {b[:200]!r}")
+            spans[i].append((t, time.monotonic()))
+            if gap_s:
+                time.sleep(gap_s)
+
+    errors, _ = run_clients(n_clients, client)
+    return [sp for per in spans for sp in per], errors
+
+
+def series_points(port, name, window="15m"):
+    q = json.loads(http(port, f"/debug/series?name={name}&window={window}", timeout=60)[1])
+    return [(row["stage_s"], pt) for row in q["series"] for pt in row["points"]]
+
+
+def series_integral(pts, t0, t1):
+    """The values a counter's rate points (stage width, [slot start, mean
+    rate, max]) account for between t0 and t1: each point's rate over the
+    time since the point before it.  A point's rate is its sample's delta
+    over the collector's true period, which the governor may stretch past
+    the slot width (a stretched period leaves slots empty); the slot
+    starts quantize the sample times by up to one width, an error that
+    telescopes to the two edges of a steady stream."""
+    total, prev = 0.0, None
+    for w, (t, avg, _mx) in sorted(pts, key=lambda p: p[1][0]):
+        if t0 - w <= t <= t1:
+            total += avg * ((t - prev) if prev is not None else w)
+        prev = t
+    return total
+
+
+def device_loop_shares(flame):
+    """The device-loop thread's samples in the folded stacks of
+    /debug/flamegraph: in all, under the kernel's ctypes launch
+    (core/fused.py::_launch), under the synchronising read of the packed
+    outputs (core/engine.py::read_packed), and the commonest leaf frames."""
+    loop = {k: v for k, v in flame["stacks"].items() if "(_device_loop)" in k.split(";")[0]}
+    total = sum(loop.values())
+    leaves = collections.Counter()
+    for k, v in loop.items():
+        leaves[k.split(";")[-1]] += v
+    share = (lambda pat: sum(v for k, v in loop.items() if pat in k) / total) if total else (
+        lambda pat: None)
+    return {"samples": total, "launch_share": share("_launch (fused.py)"),
+            "read_share": share("read_packed (engine.py)"),
+            "top_leaves": [[k, v] for k, v in leaves.most_common(6)]}
+
+
+def spooled(tsdb_dir, prefix, kind):
+    """The frames of `kind` on disk in one spool (read only, as an export)."""
+    from misaka_tpu_torch.utils.spool import SegmentSpool
+
+    out = []
+    SegmentSpool(tsdb_dir, prefix=prefix).read_frames(
+        lambda fr: out.append(fr) if fr.get("k") == kind else None)
+    return out
+
+
+def poll(cond, what, deadline_s=60.0, every=0.25):
+    deadline = time.monotonic() + deadline_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        expect(time.monotonic() < deadline, f"{what}: not within {deadline_s:.0f} s")
+        time.sleep(every)
+
+
+def export_totals(port):
+    from misaka_tpu_torch.runtime import usage
+
+    body = http(port, "/usage/export", timeout=120)[1].decode()
+    return usage.totals_from_lines([json.loads(ln) for ln in body.splitlines() if ln])
+
+
+def rotation_memory(batch, device, rotations=3):
+    """In this process, on the card: an engine at the served shapes with the
+    capture spool armed over it (anchors cut by the same kind of closure
+    the server passes); each rotation's seconds and device memory before
+    and after it (the old anchor must be freed: within 5% of before)."""
+    import torch
+
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.runtime import capture
+    from misaka_tpu_torch.runtime import master as tmaster
+
+    card = device != "cpu"
+    mem = min_allocated if card else (lambda: 0)
+    launch0 = fused.launch_counts[fused.KERNEL]
+    tmp = tempfile.mkdtemp(prefix="rotation-", dir=os.path.join(ROOT, "build"))
+    m = tmaster.MasterNode(networks.add2(**MAIN_CAPS), chunk_steps=MAIN_CHUNK, batch=batch,
+                           device=device)
+    m.run()
+    rows = []
+    try:
+        env = {"MISAKA_TSDB_DIR": tmp, "MISAKA_CAPTURE_SEG_S": "9999",
+               "MISAKA_CAPTURE_DISK_MB": "100000"}
+        expect(capture.ensure_spool(env, anchor_fn=lambda: {
+            "default": capture.anchor_from_master("default", m)}) is not None,
+            "in-process capture spool")
+        vals = np.arange(64, dtype=np.int32)
+        for i in range(rotations):
+            for _ in range(3):
+                out = m.compute_coalesced(vals, return_array=True)
+                capture.note("http", program="default", trace=None, inbound=False,
+                             vals=vals.tobytes(), resp=out.astype("<i4").tobytes(),
+                             status=200, tick=int(m._ticks_done), op="coalesced")
+            before = mem()
+            t = time.perf_counter()
+            res = capture.rotate_now()
+            if card:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            after = mem()
+            expect(res is not None and res["records"] == 3, f"rotation {i}: {res}")
+            rows.append({"seconds": secs, "before": before, "after": after,
+                         "anchor_file_bytes": sum(os.path.getsize(a)
+                                                  for a in res["anchors"].values())})
+            expect(not card or abs(after - before) <= 0.05 * before,
+                   f"device memory across rotation {i}: {before} -> {after}")
+    finally:
+        capture.shutdown_spool()
+        capture.stop()  # the spool re-armed the ring at each rotation
+        capture.start()  # drop the anchors: the ring and its clones go
+        capture.stop()
+        m.close()
+        del m
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"rotations": rows, "kernel_launches": fused.launch_counts[fused.KERNEL] - launch0}
+
+
+def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s=20.0,
+                      stream_clients=8, stream_values=512, drill_clients=4, n_clients=32,
+                      per_client=40, n_quiet=49, seg_s=20, device=None, card=None):
+    """The always-on and durable planes on the main path: add2 at B (the
+    full kernel) behind N frontend workers with MISAKA_PROGRAMS_DIR,
+    MISAKA_TSDB_DIR (a 1 s collector), the capture spool rotating every
+    seg_s, MISAKA_WATCHDOG (the defaults and OBS_HOT_RULE) and a
+    checkpoint dir:
+
+    1. series: a stream on the public port for series_s; the integral of
+       /debug/series for misaka_compute_values_total (series_integral)
+       against the /metrics delta, within 10%: the slot starts quantize
+       the samples' times by up to one 1 s interval, which moves the
+       integral by at most one interval's values at each edge of the
+       stream, 2 of its >= 20 intervals;
+       the sampler's rate and self-cost and the collector's cost per
+       sample read under that load, and the device-loop thread's shares of
+       the launch and of the read in the folded stacks;
+    2. /debug/dashboard filled, /debug/flamegraph in JSON and HTML;
+    3. the watchdog: serve_delay=OBS_FAULT_S over POST /debug/faults pages
+       the rule (onset seconds), /healthz degraded, exemplars resolving at
+       /debug/requests/<id>; cleared, the rule clears (seconds), all with
+       drill_clients on the engine's own port (behind the workers the
+       public traffic rides the plane, not the engine's HTTP histogram);
+    4. rotation: POST /captures/rotate under a stream (its seconds, the
+       longest request overlapping it), and in this process device memory
+       across rotations (rotation_memory);
+    5. POST /checkpoint;
+    6. kill -9 of the app, relaunched over the same MISAKA_TSDB_DIR:
+       /debug/series answers 15m and 7d windows with points from before
+       the kill, the usage export is monotone and conserves against the
+       pass-wall anchor within 5%, and the segment rotated before the
+       kill replays green on the card (`python -m misaka_tpu_torch
+       replay`, run while step 7's servers boot);
+    7. the cost, a b b a behind the workers: a with MISAKA_SAMPLER=0
+       MISAKA_TSDB=0 MISAKA_WATCHDOG=0, b the default boot; b first
+       restores step 5's checkpoint and must answer /debug/series with the
+       points from before it (history through the checkpoint alone: b's
+       TSDB starts empty).
+
+    device="cpu" rehearses it at a small B (no memory checks)."""
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+    from misaka_tpu_torch.runtime import frontends
+
+    workers = workers or frontend_workers()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="observatory-", dir=os.path.join(ROOT, "build"))
+    tsdb_dir, ckpt_dir = os.path.join(tmp, "tsdb"), os.path.join(tmp, "ckpt")
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers),
+                MISAKA_CHECKPOINT_DIR=ckpt_dir)
+    # canary traffic would join the replayed stream; a 64 MiB ring rotated
+    # every seg_s (or at 48 MiB) keeps each segment whole (no eviction)
+    obs = dict(base, MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"), MISAKA_CANARY="0",
+               MISAKA_TSDB_DIR=tsdb_dir, MISAKA_TSDB_INTERVAL_S="1",
+               MISAKA_WATCHDOG=observatory_rules(), MISAKA_WATCHDOG_RECENT_S="3",
+               MISAKA_USAGE_FLUSH_S="1", MISAKA_CAPTURE_SEG_S=str(seg_s),
+               MISAKA_CAPTURE_MB="64", MISAKA_CAPTURE_SEG_KB=str(48 * 1024),
+               MISAKA_CAPTURE_DISK_MB="4096")
+    row = {"phase": "observatory", "card": card, "workers": workers, "batch": batch,
+           "chunk_steps": chunk, **MAIN_CAPS, "hot_rule": OBS_HOT_RULE, "fault_s": OBS_FAULT_S}
+    t0 = time.perf_counter()
+    launches = []
+    replays = []  # the background replay, stopped if the phase fails
+    rng = np.random.default_rng(SEED + 12)
+    try:
+        procs = []
+        with served_app("observatory", procs=procs,
+                        MISAKA_PLANE_SOCKET=os.path.join(tmp, "obs1.sock"), **obs) as (pub,
+                                                                                     boot_s):
+            row["boot_s"] = boot_s
+            eng = engine_port("observatory")
+            expect(frontends.wait_ready(pub, timeout=30), "the public port does not answer")
+            # 1. series
+            c0 = series(scrape(eng), "misaka_compute_values_total")
+            t_a = time.time()
+            time.sleep(2.5)  # quiet intervals: the collector's baseline
+            out = {}
+            th = threading.Thread(target=lambda: out.update(zip(("spans", "errors"), stream_for(
+                pub, series_s, stream_clients, stream_values, rng))))
+            th.start()
+            time.sleep(series_s * 0.8)
+            flame = json.loads(http(eng, "/debug/flamegraph", timeout=60)[1])
+            index = json.loads(http(eng, "/debug/series", timeout=60)[1])
+            th.join()
+            expect(not out["errors"], f"series stream: {out['errors'][:4]}")
+            time.sleep(3.5)  # the last intervals' samples land
+            c1 = series(scrape(eng), "misaka_compute_values_total")
+            t_b = time.time()
+            pts = series_points(eng, "misaka_compute_values_total", "5m")
+            integral = series_integral(pts, t_a, t_b)
+            delta = c1 - c0
+            row["series"] = {
+                "seconds": series_s, "requests": len(out["spans"]), "counter_delta": delta,
+                "integral": integral, "ratio": integral / delta, "tolerance": 0.10,
+                "stage_s": sorted({w for w, _ in pts}),
+                "points": [pt[:2] for _, pt in pts if t_a - 1 <= pt[0] <= t_b],
+                "collector": {k: index[k] for k in ("interval_s", "effective_interval_s",
+                                                    "budget", "sample_cost_us", "samples",
+                                                    "series_count", "dropped_series")},
+                "collector_duty": index["sample_cost_us"] / 1e6 / index["interval_s"],
+                "sampler": {k: flame[k] for k in ("rate_hz", "effective_hz", "budget",
+                                                  "sample_cost_us", "samples",
+                                                  "distinct_stacks")},
+                "sampler_duty": flame["sample_cost_us"] / 1e6 * flame["effective_hz"],
+                "device_loop": device_loop_shares(flame)}
+            expect(delta == len(out["spans"]) * stream_values,
+                   f"counter delta {delta} for {len(out['spans'])} requests")
+            expect(abs(integral - delta) <= 0.10 * delta,
+                   f"series integral {integral} against the counter delta {delta}")
+            # 2. dashboard and flamegraph
+            c, _, page = call(eng, "/debug/dashboard?window=5m")
+            m = re.search(r"const DATA = (.*);\n", page.decode())
+            data = json.loads(m.group(1)) if c == 200 and m else {"panels": []}
+            filled = [p["title"] for p in data["panels"]
+                      if any(r["points"] for r in p["series"])]
+            expect(c == 200 and "Throughput (values/s)" in filled,
+                   f"dashboard: {c}, filled panels {filled}")
+            c, h, html = call(eng, "/debug/flamegraph?html=1")
+            expect(c == 200 and h["Content-Type"].startswith("text/html")
+                   and b"misaka continuous profiler" in html, f"flamegraph html: {c}")
+            row["dashboard"] = {"panels": len(data["panels"]), "filled": filled,
+                                "page_bytes": len(page), "flamegraph_html_bytes": len(html)}
+            # 3. the watchdog
+            row["watchdog"] = watchdog_drill(eng, drill_clients)
+            # 4. rotation under a stream (the ring emptied first)
+            c, _, b = call(eng, "/captures/rotate", b"")
+            expect(c == 200, f"/captures/rotate: {c} {b!r}")
+            out = {}  # a light stream: its records are replayed after the kill
+            th = threading.Thread(target=lambda: out.update(zip(("spans", "errors"), stream_for(
+                pub, 4.0, drill_clients, stream_values, rng, gap_s=0.1))))
+            th.start()
+            time.sleep(1.5)
+            poll(lambda: json.loads(http(eng, "/debug/captures?n=0")[1])["records"] > 0,
+                 "records in the ring", 30, 0.1)
+            r0 = time.monotonic()
+            c, _, b = call(eng, "/captures/rotate", b"")
+            r1 = time.monotonic()
+            th.join()
+            expect(c == 200 and not out["errors"], f"rotation: {c} {b[:200]!r} {out['errors'][:2]}")
+            rotated = json.loads(b)
+            expect(rotated.get("records", 0) > 0, f"rotation: {rotated}")
+            segment = rotated["path"]
+            during = [e - s for s, e in out["spans"] if s < r1 and e > r0]
+            spool = json.loads(http(eng, "/debug/captures?n=0")[1])["spool"]
+            row["rotation"] = {"seconds": r1 - r0, "records": rotated["records"],
+                               "requests_overlapping": len(during),
+                               "longest_overlapping_s": max(during, default=None),
+                               "p50_stream_s": float(np.median([e - s for s, e in out["spans"]])),
+                               "spool": spool}
+            # 5. the checkpoint (history rides it as __tsdb__)
+            t_ckpt = time.time()  # a timestamp, held against the series' points
+            t = time.perf_counter()
+            c, _, b = call(eng, "/checkpoint", urlencode_form(name="obs"))
+            expect(c == 200, f"/checkpoint: {c} {b!r}")
+            row["checkpoint_s"] = time.perf_counter() - t
+            # 6. kill -9, once the traffic's slots and a usage frame are on disk
+            poll(lambda: any(r[0] == "misaka_compute_values_total" and r[3] > 0
+                             for fr in spooled(tsdb_dir, "tsdb-fine", "slots")
+                             for r in fr["rows"]), "values on disk", 30)
+            poll(lambda: any(fr["programs"].get("default", {}).get("values", 0) > 0
+                             for fr in spooled(os.path.join(tsdb_dir, "usage"), "usage",
+                                               "usage")), "usage frame on disk", 30)
+            totals1 = export_totals(eng)
+            launches.append(status(eng)["kernel_launches"][fused.KERNEL])
+            t_kill = time.time()
+            os.kill(procs[0].pid, 9)
+            procs[0].wait(timeout=60)
+        with served_app("observatory_relaunch",
+                        MISAKA_PLANE_SOCKET=os.path.join(tmp, "obs2.sock"), **obs) as (pub,
+                                                                                     boot_s):
+            eng = engine_port("observatory_relaunch")
+            kill = {"relaunch_boot_s": boot_s}
+            for window in ("15m", "7d"):
+                pts = series_points(eng, "misaka_compute_values_total", window)
+                before = [pt for _, pt in pts if pt[0] < t_kill and pt[1] > 0]
+                expect(before, f"window={window}: no points from before the kill in {pts[:4]}")
+                kill[f"points_before_kill_{window}"] = len(before)
+            expect(frontends.wait_ready(pub, timeout=30), "the public port does not answer")
+            spans, errors = stream_for(pub, 2.0, drill_clients, stream_values, rng)
+            expect(not errors, f"after the relaunch: {errors[:4]}")
+            want = totals1["cumulative"]["default"]["values"] + len(spans) * stream_values
+            totals2 = poll(lambda: (lambda t: t if t["cumulative"].get("default", {}).get(
+                "values", 0) >= want else None)(export_totals(eng)), "post-restart accrual", 30)
+            regress = [(p, f) for p, r in totals1["cumulative"].items() for f, v in r.items()
+                       if totals2["cumulative"].get(p, {}).get(f, -1) < v - 1e-6]
+            expect(not regress and totals2["pass_wall_seconds"]
+                   >= totals1["pass_wall_seconds"] - 1e-6, f"usage went back: {regress}")
+            wall, cpu = totals2["pass_wall_seconds"], totals2["cpu_seconds_total"]
+            expect(abs(wall - cpu) <= 0.05 * max(wall, cpu), f"conservation {cpu} / {wall}")
+            kill.update(pass_wall_before=totals1["pass_wall_seconds"], pass_wall_after=wall,
+                        cpu_seconds_after=cpu, conservation_ratio=cpu / wall)
+            launches.append(status(eng)["kernel_launches"][fused.KERNEL])
+        row["kill"] = kill
+        # 4b. device memory across rotations, in this process
+        row["rotation_memory"] = rotation_memory(batch, device or "cuda")
+        launches.append(row["rotation_memory"]["kernel_launches"])
+        # the segment rotated before the kill, replayed while the cost servers boot
+        replay = start_replay([segment], device)
+        replays.append(replay)
+        # 7. the cost, a b b a (b restores the checkpoint of step 5 first)
+        off = {"a": {"MISAKA_SAMPLER": "0", "MISAKA_TSDB": "0", "MISAKA_WATCHDOG": "0"}, "b": {}}
+        cost = [dict(base, label=f"observatory_cost_{cfg}", autorun=False,
+                     MISAKA_PLANE_SOCKET=os.path.join(tmp, f"cost_{cfg}.sock"), **off[cfg])
+                for cfg in ("a", "b")]
+        with served_apps(cost) as [(cost_a, _), (cost_b, _)]:
+            ports = {"a": cost_a, "b": cost_b}
+            rc, lines, secs = finish_replay(replay)
+            expect(rc == 0 and any(ln.startswith("default: replay green") for ln in lines),
+                   f"replay of the segment rotated before the kill: {rc} {lines[-3:]}")
+            kill["replay"] = {"rc": rc, "seconds": secs, "lines": lines}
+            c, _, b = call(cost_b, "/restore", urlencode_form(name="obs"))
+            expect(c == 200, f"b: /restore: {c} {b!r}")
+            # b keeps the default 5 s interval: the checkpoint's 1 s slots
+            # have no ring of that width there, its 60 s slots do (2h)
+            pts = series_points(cost_b, "misaka_compute_values_total", "2h")
+            restored = [pt for _, pt in pts if pt[0] < t_ckpt and pt[1] > 0]
+            expect(restored, f"history from the checkpoint: {pts[:4]}")
+            row["checkpoint_history_points"] = len(restored)
+            for p in ports.values():
+                expect(frontends.wait_ready(p, timeout=30), "the public port does not answer")
+                expect(post_form(p, "/run")[0] == 200, "/run")
+                small_requests(p, n_clients, 2, base=7_000_000)  # warm-up
+                expect(post_form(p, "/pause")[0] == 200, "/pause")
+            turns = [{"config": cfg, **cost_turn(ports[cfg], n_clients, per_client, n_quiet)}
+                     for cfg in ("a", "b", "b", "a")]
+
+            def mean(cfg, k):
+                return float(np.mean([t[k] for t in turns if t["config"] == cfg]))
+
+            def spread(cfg, k):
+                v = [t[k] for t in turns if t["config"] == cfg]
+                return (max(v) - min(v)) / float(np.mean(v))
+
+            metrics_ = (("rate", "small_requests_per_s"), ("p50", "p50_ms"), ("p90", "p90_ms"))
+            row["cost"] = {
+                "turns": turns,
+                **{f"{k}_ratio_b_over_a": mean("b", m_) / mean("a", m_) for k, m_ in metrics_},
+                **{f"{k}_spread_{cfg}": spread(cfg, m_) for k, m_ in metrics_[:2]
+                   for cfg in "ab"}}
+            launches += [status(p)["kernel_launches"][fused.KERNEL] for p in ports.values()]
+    except BaseException:
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)  # what was measured before the failure
+        raise
+    finally:
+        kill_replays(replays)
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["kernel_launches"] = sum(launches)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def watchdog_drill(eng, n_clients, deadline_s=90):
+    """OBS_HOT_RULE fired through the server: n_clients post /compute to
+    the engine's port while serve_delay=OBS_FAULT_S is armed over POST
+    /debug/faults; the seconds until the rule pages (with /healthz
+    degraded and exemplars that resolve), then, the fault cleared, until
+    it clears."""
+    stop = threading.Event()
+
+    def client(i):
+        v = 5_000_000 + i * 100_000
+        while not stop.is_set():
+            c, b = post_form(eng, "/compute", value=str(v))
+            if c != 200 or json.loads(b) != {"value": v + 2}:
+                raise RuntimeError(f"/compute {v} -> {c} {b!r}")
+            v += 1
+
+    def hot():
+        wd = json.loads(http(eng, "/debug/alerts", timeout=60)[1])["watchdog"]
+        return wd, next(r for r in wd["rules"] if r["rule"] == "hot")
+
+    out = {}
+    th = threading.Thread(target=lambda: out.setdefault("errors", run_clients(n_clients,
+                                                                               client)[0]))
+    th.start()
+    try:
+        poll(lambda: "value" in hot()[1], "the hot rule's first value", 30)
+        wd, rule = hot()
+        expect(wd["state"] == "ok", f"watchdog before the fault: {wd['state']}")
+        t = time.monotonic()
+        c, _, b = call(eng, "/debug/faults", urlencode_form(spec=f"serve_delay={OBS_FAULT_S}"))
+        expect(c == 200, f"arm the fault: {c} {b!r}")
+        wd, rule = poll(lambda: (lambda w: w if w[0]["state"] == "page" else None)(hot()),
+                        "the page", deadline_s)
+        onset = time.monotonic() - t
+        health = json.loads(http(eng, "/healthz")[1])
+        ex = (rule.get("exemplars") or [{}])[0]
+        c, _, b = call(eng, ex.get("href", "/debug/requests/none"))
+        expect(rule["state"] == "page" and health["watchdog"] == "page" and health["degraded"]
+               and c == 200 and json.loads(b)["trace_id"] == ex["trace_id"],
+               f"paged: {rule} {health.get('watchdog')} {c}")
+        paged = {"value": rule.get("value"), "exemplar_ms": ex.get("duration_ms")}
+        t = time.monotonic()
+        c, _, b = call(eng, "/debug/faults", urlencode_form(spec=""))
+        expect(c == 200, f"clear the fault: {c} {b!r}")
+        poll(lambda: hot()[0]["state"] == "ok", "the clear", deadline_s)
+        clear = time.monotonic() - t
+        health = json.loads(http(eng, "/healthz")[1])
+        expect(health["watchdog"] == "ok" and not health["degraded"], f"after: {health}")
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    expect(not out.get("errors"), f"drill clients: {out.get('errors', ['hung'])[:4]}")
+    return {"onset_s": onset, "clear_s": clear, **paged}
 
 
 def cuda_time_ms(fn, reps):
@@ -3242,7 +3800,8 @@ def wide_timing(name, top, check_steps=128):
 def phase_timings(smi, dp_check):
     """At the main path's shapes: the full kernel and the elided variant,
     each held against the plain version from the same input state, then
-    timed in turns (full, elided, elided, full) with their bounds; the
+    timed in turns (full, elided, elided, full) with their bounds (one
+    plain run, shared by both checks); the
     data-parallel runner with two shards on cuda:0 from the same state,
     held to the whole-batch launch and timed in turns with it (whole, dp,
     dp, whole), its bound the whole batch's over the one card it runs on
@@ -3256,9 +3815,12 @@ def phase_timings(smi, dp_check):
 
     rng = np.random.default_rng(SEED)
     net = networks.add2(**MAIN_CAPS).compile(batch=MAIN_BATCH, device="cuda")
-    state = with_random_hi(seeded_inputs(net, rng, MAIN_CAPS["in_cap"]), rng)
-    full = compare("main_path/add2", net, state, MAIN_CHUNK)
-    elided = compare("main_path/add2/elided", net, state, MAIN_CHUNK, elide=True)
+    state = main_add2_state(net, rng)
+    # one plain run for both variants: phase_dp_parity's, from this state
+    plain = plain_result(net, state, MAIN_CHUNK, "add2/main")
+    PLAIN.pop("add2/main", None)
+    full = compare("main_path/add2", net, state, MAIN_CHUNK, plain=plain)
+    elided = compare("main_path/add2/elided", net, state, MAIN_CHUNK, elide=True, plain=plain)
     big_net = networks.add2(in_cap=1024, out_cap=1024, stack_cap=1024).compile(
         batch=MAIN_BATCH, device="cuda")
     big_state = seeded_inputs(big_net, rng, 1024)
@@ -3407,15 +3969,26 @@ def main() -> int:
     emit({"phase": "device", "name": name, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    split = {}  # seconds per phase
+
+    def timed(phase, fn, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            split[phase] = time.perf_counter() - t
+            print(json.dumps({"split": phase, "seconds": split[phase]}), flush=True)
+
     t = time.perf_counter()
     build.build(fused.KERNEL)
-    emit({"phase": "build", "kernel": fused.KERNEL, "seconds": time.perf_counter() - t,
+    split["build"] = time.perf_counter() - t
+    emit({"phase": "build", "kernel": fused.KERNEL, "seconds": split["build"],
           "ptxas": ptxas_summary(build.ptxas_report(fused.KERNEL))})
 
-    max_err = phase_parity()
-    max_err_elided = phase_elided_parity()
-    max_err_dp, dp_rows = phase_dp_parity()
-    max_err_unbatched = phase_unbatched_parity()
+    max_err = timed("parity", phase_parity)
+    max_err_elided = timed("elided_parity", phase_elided_parity)
+    max_err_dp, dp_rows = timed("dp_parity", phase_dp_parity)
+    max_err_unbatched = timed("unbatched_parity", phase_unbatched_parity)
 
     # Each served phase runs in a fresh server process, whose launch counts
     # start at 0 when it boots; the counts are read from its /status at the
@@ -3423,27 +3996,30 @@ def main() -> int:
     # process's counts just before it and reads them just after.
     for k in fused.launch_counts:
         fused.launch_counts[k] = 0
-    main_row = phase_main_path()
-    grow_row = phase_autogrow()
-    elided_row = phase_elided_path()
-    dp_row = phase_main_path(data_parallel=count)
-    two_row = phase_two_shards()
-    unbatched_row = phase_unbatched_path()
-    phase_traced()
-    obs_row = phase_observability(card=smi)
-    obs_unbatched_row = phase_unbatched_observability(card=smi)
-    fe_row = phase_frontends(card=smi, zero_workers=obs_row)
-    edge_row = phase_edge(card=smi)
-    registry_row = phase_registry(card=smi)
-    telemetry_row = phase_telemetry(card=smi)
+    main_row = timed("main_path", phase_main_path)
+    grow_row = timed("autogrow", phase_autogrow)
+    elided_row = timed("elided_path", phase_elided_path)
+    dp_row = timed("dp_path", phase_main_path, data_parallel=count)
+    two_row = timed("two_shards", phase_two_shards)
+    unbatched_row = timed("unbatched_path", phase_unbatched_path)
+    timed("traced", phase_traced)
+    obs_row = timed("observability", phase_observability, card=smi)
+    obs_unbatched_row = timed("unbatched_observability", phase_unbatched_observability,
+                              card=smi)
+    fe_row = timed("frontends", phase_frontends, card=smi, zero_workers=obs_row)
+    edge_row = timed("edge", phase_edge, card=smi)
+    registry_row = timed("registry", phase_registry, card=smi)
+    telemetry_row = timed("telemetry", phase_telemetry, card=smi)
+    observatory_row = timed("observatory", phase_observatory, card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
                        "served_values_per_s", "small_requests_per_s")}})
 
-    timing = phase_timings(smi, next(r for r in dp_rows if r["case"] == "add2/2x1card"))
+    timing = timed("timings", phase_timings, smi,
+                   next(r for r in dp_rows if r["case"] == "add2/2x1card"))
     full, elided, big, dp = timing["full"], timing["elided"], timing["cap1024"], timing["dp"]
-    one = phase_unbatched_timings(smi)["chunks"][128]
+    one = timed("unbatched_timings", phase_unbatched_timings, smi)["chunks"][128]
     emit({"kernels": [
         {
             "name": fused.KERNEL, "route": "cuda",
@@ -3451,7 +4027,8 @@ def main() -> int:
             "replaces": "misaka_tpu/core/fused.py:80",
             "launches": main_row["kernel_launches"][fused.KERNEL]
             + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
-            + registry_row["kernel_launches"] + telemetry_row["kernel_launches"],
+            + registry_row["kernel_launches"] + telemetry_row["kernel_launches"]
+            + observatory_row["kernel_launches"],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -3472,6 +4049,9 @@ def main() -> int:
             # in-process registry (counted in `launches` above); the replay
             # subprocesses' shadows launch in processes of their own
             "telemetry_launches": telemetry_row["kernel_launches"],
+            # the observatory phase's servers (the killed one read before
+            # the kill) and its in-process rotation engine
+            "observatory_launches": observatory_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":
@@ -3506,7 +4086,7 @@ def main() -> int:
             "whole_batch_ms": dp["whole_batch_ms"],
         },
     ]})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_all, "split": split})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -110,18 +110,37 @@ Environment:
                      /captures/start|stop|export, GET /debug/captures);
                      MISAKA_CAPTURE_MB, _SAMPLE, _DIR,
                      MISAKA_REPLAY_VERIFY_MAX
+  MISAKA_SAMPLER     "0" turns the always-on stack sampler off
+                     (utils/sampler.py: GET /debug/flamegraph);
+                     MISAKA_SAMPLER_HZ, _MAX_STACKS, _DECAY_S, _BUDGET
+  MISAKA_TSDB        "0" turns the embedded TSDB off (utils/tsdb.py: GET
+                     /debug/series, /debug/dashboard, history in
+                     checkpoints); MISAKA_TSDB_INTERVAL_S (5), _MAX_SERIES,
+                     _BUDGET
+  MISAKA_TSDB_DIR    arms the durable tier: the TSDB's fine and long tiers
+                     (MISAKA_TSDB_DISK_MB, _SEG_KB, _LONG_S, _LONG_SLOTS),
+                     reloaded at boot; the usage ledger's spool under
+                     <dir>/usage (MISAKA_USAGE_SPOOL=0 opts out;
+                     MISAKA_USAGE_DISK_MB, _SEG_KB, _FLUSH_S); the
+                     always-on capture spool under <dir>/capture
+                     (MISAKA_CAPTURE_SPOOL=0 opts out;
+                     MISAKA_CAPTURE_DISK_MB, _SEG_KB, _SEG_S; POST
+                     /captures/rotate), whose newest rotated segments a
+                     ?verify=replay gate also replays
+                     (MISAKA_REPLAY_HISTORY, default 2)
+  MISAKA_WATCHDOG    the regression watchdog's rules (utils/watchdog.py;
+                     "0" off, unset the defaults): /debug/alerts
+                     `watchdog`, a paging rule raises /healthz `degraded`;
+                     MISAKA_WATCHDOG_RECENT_S, _MIN_POINTS
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
-MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_TSDB_DIR
-(the durable telemetry tier: usage and capture spools, metric history;
-A.4b), MISAKA_FLEET, MISAKA_PLANE_TLS_CERT/KEY/CA and a comma-separated
-MISAKA_PLANE_SOCKET (A.6) and MISAKA_COORDINATOR (A.7).
-MISAKA_WATCHDOG with rules logs one warning and changes nothing (A.4b);
-MISAKA_TSDB=0, MISAKA_SAMPLER=0 and MISAKA_WATCHDOG=0 are what the port
-does.  The reference's native C++ edge (MISAKA_NATIVE_EDGE) is not ported
-(A.8): the CPython workers take the public port, as the reference's do
-when its native edge is unavailable, with one logged line.
+MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_FLEET,
+MISAKA_PLANE_TLS_CERT/KEY/CA and a comma-separated MISAKA_PLANE_SOCKET
+(A.6) and MISAKA_COORDINATOR (A.7).  The reference's native C++ edge
+(MISAKA_NATIVE_EDGE) is not ported (A.8): the CPython workers take the
+public port, as the reference's do when its native edge is unavailable,
+with one logged line.
 """
 
 from __future__ import annotations
@@ -198,8 +217,8 @@ def build_topology_from_env(environ=os.environ) -> Topology:
 
 
 def check_env(environ=os.environ) -> None:
-    """Refuse at boot what the reference serves and the port does not yet
-    (each names its ROADMAP item); warn once for what changes nothing."""
+    """Refuse at boot what the reference serves and the port does not yet,
+    each refusal naming its ROADMAP item."""
     node_type = environ.get("NODE_TYPE", "master")
     if node_type in ("program", "stack"):
         _refuse(f"'{node_type}' not a valid node type for this server: the "
@@ -210,10 +229,6 @@ def check_env(environ=os.environ) -> None:
     if environ.get("MISAKA_MODE") == "distributed":
         _refuse("MISAKA_MODE=distributed: the distributed master (programs in "
                 "per-process peers) is not ported yet (ROADMAP A.5)")
-    if environ.get("MISAKA_TSDB_DIR"):
-        # durability the operator asked for must not be dropped in silence
-        _refuse("MISAKA_TSDB_DIR: the durable telemetry tier (usage and capture spools, "
-                "metric history) is not ported yet (ROADMAP A.4b); unset it")
     try:
         frontends.check_plane_addr(plane_path(environ), environ)
     except NotImplementedError as e:
@@ -224,9 +239,6 @@ def check_env(environ=os.environ) -> None:
     if environ.get("MISAKA_COORDINATOR"):
         _refuse("MISAKA_COORDINATOR: multi-host serving is not ported yet "
                 "(ROADMAP A.7)")
-    if environ.get("MISAKA_WATCHDOG", "0") != "0":
-        log.warning("MISAKA_WATCHDOG is set but ignored: the regression watchdog is not "
-                    "ported yet (ROADMAP A.4b)")
 
 
 def build_master_from_env(environ=os.environ) -> MasterNode:

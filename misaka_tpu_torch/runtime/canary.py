@@ -40,9 +40,10 @@ Canary traffic is tagged by its program name: the usage ledger books it
 under the ``_canary`` account, exempt from the cardinality collapse and
 left out of exports (runtime/usage.py EXEMPT_LABELS); the SLO engine never
 observes it (utils/slo.py EXCLUDED_PROGRAMS); the capture recorder files
-it under ``_canary``, never in a tenant's stream.  The reference's
-watchdog rule and dashboard panel over these series wait for their planes
-(ROADMAP A.4b).
+it under ``_canary``, never in a tenant's stream.  The TSDB keeps these
+series' history, the dashboard draws the canary panel, and the
+watchdog's default ``canary-full`` rule (utils/watchdog.py) pages when the
+full tier keeps failing.
 """
 
 from __future__ import annotations

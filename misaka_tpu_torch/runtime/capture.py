@@ -39,9 +39,10 @@ scheduler coalesces concurrent callers nondeterministically, which a
 stateless network does not see and a stateful one does); arm in a quiet
 window.
 
-The always-on spool under MISAKA_TSDB_DIR (rotation, on-disk history,
-the history sweep of a verify gate) is ROADMAP A.4b: the spool functions
-answer as the reference's do with no spool armed.
+The always-on spool (MISAKA_TSDB_DIR): a daemon rotates the ring into
+spool-<seq>.mskcap segments under <dir>/capture (MISAKA_CAPTURE_SEG_KB,
+_SEG_S, _DISK_MB; POST /captures/rotate cuts one), and a verify gate also
+replays the newest rotated segments (MISAKA_REPLAY_HISTORY).
 
 Stdlib and numpy on the record path; torch only where an anchor is read
 back (load_anchor_checkpoint), through the masters handed in otherwise.
@@ -52,6 +53,7 @@ from __future__ import annotations
 import base64
 import hashlib
 import json
+import logging
 import os
 import random
 import struct
@@ -60,6 +62,8 @@ import time
 from collections import deque
 
 from misaka_tpu_torch.utils import metrics
+
+log = logging.getLogger("misaka_tpu_torch.capture")
 
 MAGIC = b"MSKCAP1\n"
 _LEN = struct.Struct("<I")
@@ -618,39 +622,306 @@ def export(path: str | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Continuous spooling: ROADMAP A.4b
+# Continuous spooling (the always-on recorder)
 # ---------------------------------------------------------------------------
 #
-# The reference's always-on recorder under MISAKA_TSDB_DIR rotates the
-# ring into spool-<seq>.mskcap segments.  The port has no durable tier
-# yet (the app refuses MISAKA_TSDB_DIR at boot), so these answer as the
-# reference's do with no spool armed.
+# With MISAKA_TSDB_DIR set (MISAKA_CAPTURE_SPOOL=0 opts this plane out), a
+# rotation daemon arms the ring at boot and, whenever the ring grows past
+# MISAKA_CAPTURE_SEG_KB or ages past MISAKA_CAPTURE_SEG_S, exports it as a
+# finalized ``spool-<seq>.mskcap`` segment (manifest and one anchor per
+# program: each rotated segment replays on its own) and re-arms with fresh
+# anchors cut at the rotation.  Records landing between the export and the
+# ring reset are the rotation's bounded loss, counted on
+# misaka_capture_spool_dropped_total; the oldest segment groups are
+# evicted under MISAKA_CAPTURE_DISK_MB.  A crash loses at most the ring
+# not yet rotated (segments are written atomically).  Each rotation cuts
+# fresh anchors on the engines' devices (MasterNode.snapshot() clones)
+# and drops the old ones with the stopped ring.
+
+M_SPOOL_DROPPED = metrics.counter(
+    "misaka_capture_spool_dropped_total",
+    "Capture records lost at spool rotation boundaries plus on-disk "
+    "segments evicted by the MISAKA_CAPTURE_DISK_MB budget",
+)
+M_SPOOL_ROTATIONS = metrics.counter(
+    "misaka_capture_spool_rotations_total",
+    "Capture spool segment rotations",
+)
+M_SPOOL_BYTES = metrics.gauge(
+    "misaka_capture_spool_bytes",
+    "On-disk footprint of the capture spool (segments + anchors)",
+)
+
+_spool_mu = threading.Lock()
+_spool: dict | None = None
 
 
 def spool_dir(environ=os.environ) -> str | None:
-    return None
+    root = environ.get("MISAKA_TSDB_DIR")
+    if not root or environ.get("MISAKA_CAPTURE_SPOOL", "1") == "0":
+        return None
+    return os.path.join(root, "capture")
+
+
+def _env_float(environ, name: str, default: float) -> float:
+    try:
+        return float(environ.get(name, "") or default)
+    except ValueError:
+        return default
 
 
 def ensure_spool(environ=os.environ, anchor_fn=None) -> dict | None:
-    return None
+    """Arm the rotation daemon (idempotent; None when the master switch
+    is unset or capture is killed).  ``anchor_fn() -> {label: anchor}``
+    cuts fresh per-program anchors at boot and at every rotation — the
+    HTTP server passes the same closure /captures/start uses."""
+    global _spool
+    d = spool_dir(environ)
+    if d is None or _KILLED:
+        return None
+    with _spool_mu:
+        if _spool is not None:
+            return _spool
+        os.makedirs(d, exist_ok=True)
+        # crash hygiene: a kill mid-export leaves only tmp files behind
+        for name in os.listdir(d):
+            if ".tmp." in name:
+                try:
+                    os.unlink(os.path.join(d, name))
+                except OSError:
+                    pass
+        next_seq = 0
+        for seq, _ in _spool_groups(d):
+            next_seq = max(next_seq, seq + 1)
+        st = {
+            "dir": d,
+            "budget_bytes": int(_env_float(
+                environ, "MISAKA_CAPTURE_DISK_MB", 256.0) * (1 << 20)),
+            "seg_bytes": int(_env_float(
+                environ, "MISAKA_CAPTURE_SEG_KB", 4096.0) * 1024),
+            "seg_s": max(0.05, _env_float(
+                environ, "MISAKA_CAPTURE_SEG_S", 300.0)),
+            "anchor_fn": anchor_fn,
+            "next_seq": next_seq,
+            "rotations": 0,
+            "evicted_segments": 0,
+            "last_rotate_mono": time.monotonic(),
+            "stop": threading.Event(),
+        }
+        st["poll_s"] = min(1.0, max(0.05, st["seg_s"] / 4.0))
+        _spool = st
+    if not RECORDING:
+        try:
+            start(anchors=_cut_anchors(st))
+        except CaptureError:
+            pass  # an operator capture already runs; ride it
+    threading.Thread(
+        target=_spool_loop, args=(st,), daemon=True,
+        name="misaka-capture-spool",
+    ).start()
+    return st
+
+
+def _cut_anchors(st: dict) -> dict:
+    fn = st.get("anchor_fn")
+    if fn is None:
+        return {}
+    try:
+        return fn() or {}
+    except Exception:
+        log.warning("capture spool: anchor cut failed", exc_info=True)
+        return {}
+
+
+def _spool_loop(st: dict) -> None:
+    while not st["stop"].wait(st["poll_s"]):
+        try:
+            if not RECORDING and not _KILLED:
+                # always-on: re-arm after an operator stop/export
+                try:
+                    start(anchors=_cut_anchors(st))
+                except CaptureError:
+                    pass
+            with _lock:
+                n, nbytes = len(_ring), _ring_bytes
+            age = time.monotonic() - st["last_rotate_mono"]
+            if n and (nbytes >= st["seg_bytes"] or age >= st["seg_s"]):
+                rotate_now()
+        except Exception:  # pragma: no cover — the recorder must never
+            log.warning("capture spool tick failed", exc_info=True)
+            from misaka_tpu_torch.utils import spool as spool_mod
+
+            spool_mod.M_SPOOL_ERRORS.labels(plane="capture").inc()
 
 
 def rotate_now() -> dict | None:
-    """POST /captures/rotate: the reference's refusal with no spool."""
-    raise CaptureError("capture spool not armed (set MISAKA_TSDB_DIR)")
+    """Finalize the current ring as the next spool segment and re-arm
+    with fresh anchors (the daemon's trigger; POST /captures/rotate for
+    a deterministic operator cut).  None when the ring is empty."""
+    with _spool_mu:
+        st = _spool
+        if st is None:
+            raise CaptureError(
+                "capture spool not armed (set MISAKA_TSDB_DIR)"
+            )
+        with _lock:
+            if not _ring:
+                return None
+        seq = st["next_seq"]
+        st["next_seq"] = seq + 1
+        path = os.path.join(st["dir"], f"spool-{seq:08d}.mskcap")
+        try:
+            result = export(path)
+        except OSError as e:
+            log.warning("capture spool: rotation export failed: %s", e)
+            from misaka_tpu_torch.utils import spool as spool_mod
+
+            spool_mod.M_SPOOL_ERRORS.labels(plane="capture").inc()
+            return None
+        anchors = _cut_anchors(st)
+        with _lock:
+            ring_now = len(_ring)
+        stop()
+        lost = max(0, ring_now - result["records"])
+        try:
+            start(anchors=anchors)
+        except CaptureError:  # pragma: no cover — killed mid-rotation
+            pass
+        if lost:
+            M_SPOOL_DROPPED.inc(lost)
+        M_SPOOL_ROTATIONS.inc()
+        st["rotations"] += 1
+        st["last_rotate_mono"] = time.monotonic()
+        _enforce_spool_budget(st)
+        return result
+
+
+def _spool_groups(directory: str) -> list[tuple[int, list[str]]]:
+    """[(seq, [segment + manifest + anchor paths])] oldest-first."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    groups: dict[int, list[str]] = {}
+    for name in names:
+        if not name.startswith("spool-"):
+            continue
+        stem = name.split(".mskcap")[0]
+        try:
+            seq = int(stem[len("spool-"):])
+        except ValueError:
+            continue
+        groups.setdefault(seq, []).append(os.path.join(directory, name))
+    return sorted((seq, sorted(paths)) for seq, paths in groups.items())
+
+
+def _enforce_spool_budget(st: dict) -> None:
+    groups = _spool_groups(st["dir"])
+    sizes = []
+    total = 0
+    for seq, paths in groups:
+        size = 0
+        for p in paths:
+            try:
+                size += os.path.getsize(p)
+            except OSError:
+                pass
+        sizes.append(size)
+        total += size
+    evicted = 0
+    for (seq, paths), size in zip(groups, sizes):
+        if total <= st["budget_bytes"] or len(groups) - evicted <= 1:
+            break
+        for p in paths:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        total -= size
+        evicted += 1
+    if evicted:
+        st["evicted_segments"] += evicted
+        M_SPOOL_DROPPED.inc(evicted)
+        log.warning(
+            "capture spool: disk budget %.1f MiB exceeded — evicted %d "
+            "oldest segment group(s)",
+            st["budget_bytes"] / (1 << 20), evicted,
+        )
+    M_SPOOL_BYTES.set(total)
 
 
 def spool_status() -> dict | None:
-    return None
+    with _spool_mu:
+        st = _spool
+        if st is None:
+            return None
+        groups = _spool_groups(st["dir"])
+        return {
+            "dir": st["dir"],
+            "segments": len(groups),
+            "rotations": st["rotations"],
+            "evicted_segments": st["evicted_segments"],
+            "budget_bytes": st["budget_bytes"],
+            "segment_bytes": st["seg_bytes"],
+            "segment_seconds": st["seg_s"],
+            "disk_bytes": sum(
+                os.path.getsize(p)
+                for _, paths in groups for p in paths
+                if os.path.exists(p)
+            ),
+        }
 
 
-def history_segments(directory: str | None = None, environ=os.environ) -> list[str]:
-    return []
+def shutdown_spool() -> None:
+    """Tests: stop the rotation daemon (the ring keeps recording)."""
+    global _spool
+    with _spool_mu:
+        if _spool is not None:
+            _spool["stop"].set()
+            _spool = None
+
+
+def history_segments(directory: str | None = None,
+                     environ=os.environ) -> list[str]:
+    """Finalized spool segments oldest-first (the replay sweep's input)."""
+    d = directory or spool_dir(environ)
+    if d is None:
+        return []
+    return [
+        paths[0]
+        for _, paths in _spool_groups(d)
+        if paths and paths[0].endswith(".mskcap")
+    ]
 
 
 def history_bundles(program: str, limit_segments: int = 2,
                     directory: str | None = None) -> list[tuple]:
-    return []
+    """Newest-first [(anchor_path, replayable records, segment_path)]
+    from the on-disk spool history for one program — what widens
+    verify=replay past the in-memory window.  Unsound segments (missing
+    or drop-tainted anchors) are skipped, not fatal: the in-memory
+    bundle is the gate's floor, history is extra evidence."""
+    out: list[tuple] = []
+    for path in reversed(history_segments(directory)):
+        if len(out) >= max(0, limit_segments):
+            break
+        try:
+            header, recs = read_segment(path, verify=True)
+        except CaptureError:
+            continue
+        info = (header.get("anchors") or {}).get(program)
+        if not info or int(info.get("dropped_since_anchor") or 0):
+            continue
+        fname = info.get("file")
+        if not fname:
+            continue
+        apath = os.path.join(os.path.dirname(os.path.abspath(path)), fname)
+        if not os.path.exists(apath):
+            continue
+        sel = replayable([r for r in recs if r["program"] == program])
+        if sel:
+            out.append((apath, sel, path))
+    return out
 
 
 def load_anchor_checkpoint(path: str):

@@ -8,9 +8,9 @@ checkpointing (`CheckpointError`, `_fsync_dir`, `manifest_path`,
 - `<name>.npz`: one member per `NetworkState` field with its dtype (int32,
   bool for `port_full`/`holding`) and `__topology__`, the uint8 bytes of a
   JSON object {nodes, programs, stack_cap, in_cap, out_cap, batch}; an
-  unbatched network writes `"batch": null` and arrays without the B axis.  The
-  port never writes `__tsdb__` (the reference's metric history; its TSDB is
-  not ported) and ignores it when reading.
+  unbatched network writes `"batch": null` and arrays without the B axis;
+  and `__tsdb__` (TSDB_KEY), the uint8 bytes of utils/tsdb.py's history
+  snapshot, when the saver includes history.
 - `<name>.npz.manifest`: JSON {format: 1, sha256, size, saved_unix, batch}.
 
 A save is tmp file + fsync, then the manifest tmp + fsync, then the data
@@ -36,6 +36,7 @@ from misaka_tpu_torch.utils import faults
 log = logging.getLogger("misaka_tpu_torch.checkpoint")
 
 TOPOLOGY_KEY = "__topology__"
+TSDB_KEY = "__tsdb__"
 
 
 class CheckpointError(ValueError):

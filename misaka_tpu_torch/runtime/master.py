@@ -48,7 +48,14 @@ GET /debug/alerts and the /healthz `slo` state (the SLO burn-rate engine,
 utils/slo.py, observing every compute route), GET and POST /debug/faults
 (utils/faults.py), and GET /debug/captures with POST
 /captures/start|stop|rotate|export (the wire recorder, runtime/capture.py,
-noting every compute route while it records).
+noting every compute route while it records).  The always-on planes,
+started by every server: GET /debug/flamegraph (the stack sampler,
+utils/sampler.py), GET /debug/series and /debug/dashboard (the TSDB,
+utils/tsdb.py and utils/dashboard.py; its history rides the checkpoints
+as `__tsdb__`), and the watchdog's rules (utils/watchdog.py: /healthz
+`watchdog`, the `watchdog` block of /debug/alerts).  MISAKA_TSDB_DIR arms
+the durable tier: the TSDB's spooled history, the usage ledger's spool
+and the always-on capture spool.
 
 Observability (the reference's, for what the port runs): the `M_*`
 series below under the reference's names, types and labels, served at GET
@@ -56,9 +63,9 @@ series below under the reference's names, types and labels, served at GET
 `serve.queue`, `serve.pass` and the `engine.chunk` tier event
 (utils/tracespan.py); profiles through torch.profiler, begun and ended on
 the device-loop thread (utils/profiling.py::LoopCapture); the
-`misaka_usage_*`, `misaka_slo_*` and `misaka_capture_*` series.  Left
-out: the series and hooks of planes not ported (TSDB, sampler, watchdog,
-native pool, distributed, fleet: ROADMAP A.4b-A.8).
+`misaka_usage_*`, `misaka_slo_*`, `misaka_capture_*`, `misaka_tsdb_*`
+and `misaka_spool_errors_total` series.  Left out: the series and hooks
+of planes not ported (native pool, distributed, fleet: ROADMAP A.5-A.8).
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -123,6 +130,10 @@ from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
 from misaka_tpu_torch.tis.parser import TISParseError
 from misaka_tpu_torch.utils import buildinfo, faults, metrics, profiling, slo, tracespan, wire
+from misaka_tpu_torch.utils import dashboard as dashboard_mod
+from misaka_tpu_torch.utils import sampler as sampler_mod
+from misaka_tpu_torch.utils import tsdb as tsdb_mod
+from misaka_tpu_torch.utils import watchdog as watchdog_mod
 from misaka_tpu_torch.utils.httpfast import fast_parse_request as _fast_parse_request
 from misaka_tpu_torch.utils.textcodec import dec_to_ints, ints_to_dec
 
@@ -283,10 +294,6 @@ _SLO_ROUTES = frozenset({
     "/compute", "/compute_batch", "/compute_raw",
     "/programs/compute", "/programs/compute_batch", "/programs/compute_raw",
 })
-
-# The `watchdog` block of GET /debug/alerts: the reference's disarmed
-# payload (utils/watchdog.py), until the watchdog is ported (ROADMAP A.4b).
-_WATCHDOG_DISARMED = {"enabled": False, "state": "ok", "rules": []}
 
 
 # Program-addressed compute (the registry surface, runtime/registry.py):
@@ -1353,10 +1360,12 @@ class MasterNode:
         """Whole-network state + topology to one .npz in the JAX package's
         format, durably (runtime/checkpoint.py).  The fields are read to the
         host under the state lock (on a mesh: the global arrays, in shard
-        order).  `include_history` is the reference's switch for its
-        metric-history blob (the registry's eviction checkpoints pass
-        False); the port keeps no history yet (ROADMAP A.4b), so both
-        values write the same file."""
+        order).  The TSDB's retained history (utils/tsdb.py) rides as
+        `__tsdb__`, so a relaunch from this file answers /debug/series
+        with the history before it; `include_history=False` (the
+        registry's eviction checkpoints) leaves it out: history is
+        process-wide, and the strictly-newer merge would discard each
+        evicted program's copy anyway."""
         t0 = time.perf_counter()
         with self._state_lock:
             state = self._state if self._mesh is None else gather_state(self._state)
@@ -1370,6 +1379,10 @@ class MasterNode:
             "out_cap": topo.out_cap,
             "batch": self._batch,
         })
+        if include_history:
+            blob = tsdb_mod.snapshot_bytes()
+            if blob:
+                arrays[ckpt.TSDB_KEY] = np.frombuffer(blob, dtype=np.uint8)
         ckpt.write_checkpoint(path, arrays, self._batch, fault_points=True)
         self._last_ckpt_mono = time.monotonic()
         M_CKPT_SAVE_SECONDS.observe(time.perf_counter() - t0)
@@ -1381,13 +1394,21 @@ class MasterNode:
         corrupt file), then the batch check, then the compile: nothing is
         swapped until all three pass.  Capacities travel in the checkpoint,
         and the arrays are global: any mesh of the same batch loads them.
-        Leaves the network paused, as the JAX master does."""
+        A `__tsdb__` history blob merges into the TSDB (strictly newer
+        slots win), best effort: an unreadable blob never fails the
+        restore.  Leaves the network paused, as the JAX master does."""
         t0 = time.perf_counter()
         try:
-            meta, arrays = ckpt.read_checkpoint(path, NetworkState._fields)
+            meta, arrays = ckpt.read_checkpoint(path, (*NetworkState._fields, ckpt.TSDB_KEY))
         except ckpt.CheckpointError:
             M_CKPT_REJECTED.inc()
             raise
+        blob = arrays.pop(ckpt.TSDB_KEY, None)
+        if blob is not None:
+            try:
+                tsdb_mod.restore_bytes(blob.tobytes())
+            except Exception:
+                log.warning("checkpoint %s: tsdb history blob ignored (unreadable)", path)
         ckpt_batch = meta.get("batch")
         if ckpt_batch != self._batch:
             raise ValueError(
@@ -1857,8 +1878,11 @@ def make_http_server(master: MasterNode, port: int = 8000,
     /edge/token, /edge/gossip, /captures/start|stop|rotate|export,
     /debug/faults, GET /status, /metrics, /healthz, /debug/requests,
     /debug/perfetto, /debug/isa_trace (with /trace, its deprecated alias),
-    /debug/usage, /usage/export, /debug/alerts, /debug/faults and
-    /debug/captures, with the JAX server's bodies and status codes.  The
+    /debug/usage, /usage/export, /debug/alerts, /debug/faults,
+    /debug/captures, /debug/series, /debug/dashboard and /debug/flamegraph,
+    with the JAX server's bodies and status codes.  Starts the process-wide
+    sampler, TSDB and watchdog, and arms the usage and capture spools
+    under MISAKA_TSDB_DIR, as the reference's does.  The
     edge chain (runtime/edge.py), built from the env and installed for the
     compute plane too, runs before every route body; MISAKA_EDGE=0
     disarms it.  The app sets the server's
@@ -1888,6 +1912,39 @@ def make_http_server(master: MasterNode, port: int = 8000,
     profiler = profiling.Profiler(master.profiling)
     boot_mono = time.monotonic()  # /healthz uptime anchor (server, not master)
     buildinfo.install_metric()
+
+    # The always-on planes, process-wide (one thread each however many
+    # servers a process builds): the stack sampler (GET /debug/flamegraph),
+    # the TSDB's collector (GET /debug/series, /debug/dashboard, the
+    # checkpoints' history) and the watchdog on its tick.  MISAKA_SAMPLER=0,
+    # MISAKA_TSDB=0 and MISAKA_WATCHDOG=0 disarm them.
+    sampler_mod.ensure_started()
+    tsdb_mod.ensure_started()
+    watchdog_mod.ensure_started()
+
+    # The durable tier (MISAKA_TSDB_DIR, armed for the TSDB above): the
+    # usage ledger's spool under <dir>/usage, and the always-on capture
+    # spool under <dir>/capture, whose rotations cut fresh anchors with the
+    # closure POST /captures/start uses.
+    usage.ensure_spool()
+
+    def live_anchors() -> dict:
+        """One anchor per live program: the default's, then every active
+        registry engine's."""
+        label = (registry.default_name if registry is not None else None) or "default"
+        anchors = {}
+        a = capture_mod.anchor_from_master(label, master)
+        if a is not None:
+            anchors[label] = a
+        if registry is not None:
+            for name, m in registry.active_masters():
+                if name not in anchors:
+                    a = capture_mod.anchor_from_master(name, m)
+                    if a is not None:
+                        anchors[name] = a
+        return anchors
+
+    capture_mod.ensure_spool(anchor_fn=live_anchors)
 
     # The edge (runtime/edge.py): auth, quota and admission before every
     # route body.  The admission signal is the ServeBatcher's waiting
@@ -2174,6 +2231,19 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     self._json(self._alerts())
                 elif path == "/debug/faults":
                     self._json({"armed": sorted(faults.active())})  # what is armed
+                elif path == "/debug/series":
+                    self._series(parsed)
+                elif path == "/debug/dashboard":
+                    self._dashboard(parsed)
+                elif path == "/debug/flamegraph":
+                    # the continuous profiler (utils/sampler.py): folded
+                    # stacks; ?html=1 answers the self-contained viewer
+                    q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+                    if q.get("html") == "1":
+                        self._send(200, sampler_mod.render_html().encode(),
+                                   "text/html; charset=utf-8")
+                    else:
+                        self._json(sampler_mod.debug_payload())
                 elif path == "/debug/captures":
                     # the capture ring's status and newest records (payload
                     # heads only); ?n= caps the listing
@@ -2206,16 +2276,53 @@ def make_http_server(master: MasterNode, port: int = 8000,
             body = "".join(json.dumps(line, separators=(",", ":")) + "\n" for line in lines)
             self._send(200, body.encode(), "application/x-ndjson")
 
+        def _series(self, parsed) -> None:
+            """GET /debug/series: the TSDB's retained history (utils/tsdb.py);
+            ?name=<series>[&label=k=v...][&window=5m] queries one family, a
+            bare GET lists the catalog."""
+            try:
+                name, labels, window_s = tsdb_mod.parse_query(parse_qs(parsed.query))
+            except tsdb_mod.TSDBError as e:
+                self._text(400, str(e))
+                return
+            if name is None:
+                self._json(tsdb_mod.index_payload())
+                return
+            self._json(tsdb_mod.query_payload(name, labels, window_s))
+
+        def _dashboard(self, parsed) -> None:
+            """GET /debug/dashboard: golden-signal sparklines over the TSDB
+            (utils/dashboard.py), one self-contained page."""
+            q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+            try:
+                window_s = tsdb_mod.parse_window(q.get("window", "1h"))
+            except tsdb_mod.TSDBError as e:
+                self._text(400, str(e))
+                return
+            extra = {"watchdog": watchdog_mod.debug_payload()}
+            cst = canary_mod.state_payload()
+            if cst is not None:
+                extra["canary"] = cst
+            html = dashboard_mod.render_html(
+                lambda n, w: tsdb_mod.query(n, window_s=w), window_s, extra)
+            self._send(200, html.encode(), "text/html; charset=utf-8")
+
         def _alerts(self) -> dict:
-            """GET /debug/alerts: the SLO engine's states, each program not
-            ok with its slowest traces as exemplars, and the watchdog's
-            block (disarmed until ROADMAP A.4b)."""
+            """GET /debug/alerts: the SLO engine's states and the watchdog's
+            findings (utils/watchdog.py), each program or rule not ok with
+            the slowest traces as exemplars."""
             payload = slo.debug_payload()
             for prog, row in payload.get("programs", {}).items():
                 if row.get("state") != "ok":
                     row["exemplars"] = (tracespan.slowest_exemplars(program=prog)
                                         or tracespan.slowest_exemplars())
-            payload["watchdog"] = dict(_WATCHDOG_DISARMED)
+            wd = watchdog_mod.debug_payload()
+            for rule in wd.get("rules", ()):
+                if rule.get("state") != "ok":
+                    prog = (rule.get("labels") or {}).get("program")
+                    rule["exemplars"] = (tracespan.slowest_exemplars(program=prog)
+                                         if prog else tracespan.slowest_exemplars())
+            payload["watchdog"] = wd
             return payload
 
         def _healthz(self) -> dict:
@@ -2244,6 +2351,12 @@ def make_http_server(master: MasterNode, port: int = 8000,
             if slo_state is not None:
                 payload["slo"] = slo_state
                 degraded = bool(degraded) or slo_state == "page"
+            # the regression watchdog (utils/watchdog.py): a paging rule
+            # raises the same flag
+            wd_state = watchdog_mod.overall_state()
+            if wd_state is not None:
+                payload["watchdog"] = wd_state
+                degraded = bool(degraded) or wd_state == "page"
             # the synthetic canary (runtime/canary.py), when this process
             # runs one: the last cycle's per-tier outcomes and the first
             # failing tier
@@ -2445,14 +2558,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 # per live program: the default's, then every active
                 # registry engine's
                 self._form()  # drain any body (keep-alive sync)
-                label = (registry.default_name if registry is not None else None) or "default"
-                anchors = {label: capture_mod.anchor_from_master(label, master)}
-                if registry is not None:
-                    for name, m in registry.active_masters():
-                        if name not in anchors:
-                            anchors[name] = capture_mod.anchor_from_master(name, m)
                 try:
-                    capture_mod.start(anchors=anchors)
+                    capture_mod.start(anchors=live_anchors())
                 except capture_mod.CaptureError as e:
                     self._text(409, str(e))
                     return

@@ -42,11 +42,12 @@ spec is installed into the burn-rate engine (utils/slo.py) when its
 version becomes ``latest``; a listing carries each program's usage ledger
 (runtime/usage.py); ``?verify=replay`` gates a publish on a shadow engine,
 built on the registry's device from the capture's anchor, replaying the
-program's captured requests byte for byte (runtime/capture.py); the
-``swap_during_load`` fault point (utils/faults.py) holds the park gate.
-Left out, each answered as the reference answers and naming its ROADMAP
-item: ``compose`` uploads (runtime/compose.py and PyYAML, A.10: a 400),
-the gate's sweep of on-disk capture history (A.4b), the native spec cache
+program's captured requests byte for byte (runtime/capture.py), and
+with the capture spool armed the newest rotated segments too
+(MISAKA_REPLAY_HISTORY); the ``swap_during_load`` fault point
+(utils/faults.py) holds the park gate.  Left out, each answered as the
+reference answers and naming its ROADMAP item: ``compose`` uploads
+(runtime/compose.py and PyYAML, A.10: a 400), the native spec cache
 (A.8).
 """
 
@@ -670,6 +671,52 @@ class ProgramRegistry:
                 f"requests", diffs=diffs)
         log.info("registry: verify=replay green for %s (%d captured requests byte-identical)",
                  name, len(recs))
+        self._verify_replay_history(name, topo, capture_mod, MasterNode)
+
+    def _verify_replay_history(self, name, topo, capture_mod, MasterNode) -> None:
+        """With the capture spool armed, widen the gate past the live ring:
+        replay the newest MISAKA_REPLAY_HISTORY rotated segments (default
+        2) against the candidate too, each on a shadow restored to that
+        segment's anchor.  Unsound segments are skipped (the ring's bundle
+        above is the gate's floor); a divergence on any swept segment
+        refuses the deploy as loudly."""
+        try:
+            depth = int(os.environ.get("MISAKA_REPLAY_HISTORY", "") or 2)
+        except ValueError:
+            depth = 2
+        if depth <= 0 or capture_mod.spool_status() is None:
+            return
+        for apath, hrecs, seg in capture_mod.history_bundles(name, limit_segments=depth):
+            try:
+                _meta, state = capture_mod.load_anchor_checkpoint(apath)
+            except Exception as e:
+                log.warning("registry: history anchor %s unreadable: %s", apath, e)
+                continue
+            shadow = MasterNode(topo, chunk_steps=self._chunk, batch=self._batch,
+                                engine=self._engine, device=self._device)
+            try:
+                try:
+                    shadow.restore(state)
+                except ValueError as e:
+                    raise ReplayDivergence(
+                        f"candidate for {name!r} cannot restore the history anchor "
+                        f"from {seg}: {e}") from e
+                shadow.run()
+                diffs = capture_mod.replay_records(shadow, hrecs)
+            finally:
+                try:
+                    shadow.close()
+                except Exception:
+                    log.warning("replay shadow close failed", exc_info=True)
+                del shadow
+            if diffs:
+                for d in diffs:
+                    log.warning("registry: %s", capture_mod.format_diff(d))
+                raise ReplayDivergence(
+                    f"candidate for {name!r} diverged on {len(diffs)}/{len(hrecs)} requests "
+                    f"from history segment {seg}", diffs=diffs)
+            log.info("registry: verify=replay history green for %s over %s (%d requests)",
+                     name, os.path.basename(seg), len(hrecs))
 
     def _retire(self, key: tuple[str, str], eng: _Engine) -> None:
         """Drain a just-replaced engine and deactivate it (checkpoint +

@@ -27,10 +27,13 @@ synthetic canary books under `_canary`, exempt from the cardinality
 collapse and left out of every export (EXEMPT_LABELS), while the
 conservation totals cover it.
 
-The durable tier (MISAKA_TSDB_DIR: a spool of cumulative frames that
-survives restarts) is ROADMAP A.4b: `spool_dir` answers None and an
-export is the one process-lifetime period, as the reference's are with
-MISAKA_TSDB_DIR unset; the app refuses that variable at boot.
+The durable ledger (MISAKA_TSDB_DIR, `ensure_spool`): a flusher thread
+appends cumulative per-program frames (the live accounts plus the base
+reloaded from the previous process) to utils/spool.py segments under
+<dir>/usage, so a restart, even a kill -9, never makes an exported
+number go back; the pass-wall anchor rides the same frames.  An export
+is then one period per pair of retained frames.  Unset (or
+MISAKA_USAGE_SPOOL=0), an export is the one process-lifetime period.
 
 The module also owns the per-request program context (a contextvar the
 registry lease sets): utils/jsonlog.py writes `current_program()` as
@@ -228,39 +231,168 @@ def reset() -> None:
 
 
 def debug_payload() -> dict:
-    """The GET /debug/usage body."""
+    """The GET /debug/usage body (with the durable ledger armed, its
+    restart-spanning `cumulative` view too)."""
     programs = snapshot()
-    return {
+    payload = {
         "enabled": _ENABLED,
         "programs": programs,
         "pass_seconds_total": round(pass_seconds_total(), 6),
         "cpu_seconds_total": round(sum(p["cpu_seconds"] for p in programs.values()), 6),
     }
+    if _spool is not None:
+        payload["cumulative"] = cumulative_snapshot()
+    return payload
 
 
-# --- exports ------------------------------------------------------------------
+# --- the durable ledger -------------------------------------------------------
+
+M_USAGE_SPOOL_DROPPED = metrics.counter(
+    "misaka_usage_spool_dropped_total",
+    "Usage ledger spool segments evicted by the MISAKA_USAGE_DISK_MB "
+    "budget (billing periods older than the retained window are lost)",
+)
 
 
 class UsageExportError(RuntimeError):
     """Unusable or tampered usage export content."""
 
 
-def spool_dir(environ=os.environ) -> str | None:
-    """The durable ledger's directory: None, the durable tier being
-    ROADMAP A.4b (the reference's answer with MISAKA_TSDB_DIR unset)."""
-    return None
+_spool = None  # utils/spool.SegmentSpool once armed
+_spool_lock = threading.Lock()
+_base: dict[str, dict] = {}
+_pass_base = 0.0
+# the live values when the spool armed: cumulative = base + (live -
+# offset), so what other servers of this process booked before is never
+# counted twice against the reloaded base
+_live_offset: dict[str, dict] = {}
+_pass_offset = 0.0
+_last_flushed: tuple | None = None
+_flush_stop: threading.Event | None = None
 
 
 def cumulative_snapshot() -> dict:
-    """The monotone counters an export publishes: with no durable base,
-    the live accounts and the anchor."""
+    """The monotone counters an export publishes: the base reloaded from
+    the previous process plus the live accrual since the spool armed."""
+    live = snapshot()
+    programs: dict[str, dict] = {}
+    for label in set(_base) | set(live):
+        b = _base.get(label) or {}
+        v = live.get(label) or {}
+        o = _live_offset.get(label) or {}
+        programs[label] = {
+            f: round(float(b.get(f, 0)) + max(0.0, float(v.get(f, 0)) - float(o.get(f, 0))), 6)
+            for f in FIELDS
+        }
     return {
-        "programs": {
-            label: {f: round(float(row[f]), 6) for f in FIELDS}
-            for label, row in snapshot().items()
-        },
-        "pass_wall_seconds": round(pass_seconds_total(), 6),
+        "programs": programs,
+        "pass_wall_seconds": round(_pass_base + max(0.0, pass_seconds_total() - _pass_offset), 6),
     }
+
+
+def spool_dir(environ=os.environ) -> str | None:
+    """<MISAKA_TSDB_DIR>/usage, or None (unset, or MISAKA_USAGE_SPOOL=0)."""
+    root = environ.get("MISAKA_TSDB_DIR")
+    if not root or environ.get("MISAKA_USAGE_SPOOL", "1") == "0":
+        return None
+    return os.path.join(root, "usage")
+
+
+def ensure_spool(environ=os.environ):
+    """Arm the durable ledger (idempotent; None when MISAKA_TSDB_DIR is
+    unset): reload the newest retained frame as the cumulative base,
+    write a boot frame, start the flusher (MISAKA_USAGE_FLUSH_S)."""
+    global _spool, _pass_base, _pass_offset, _flush_stop
+    d = spool_dir(environ)
+    if d is None or not _ENABLED:
+        return None
+    with _spool_lock:
+        if _spool is not None:
+            return _spool
+        from misaka_tpu_torch.utils import spool as spool_mod
+        from misaka_tpu_torch.utils.tsdb import env_float
+
+        sp = spool_mod.SegmentSpool(
+            d, prefix="usage",
+            budget_bytes=int(env_float(environ, "MISAKA_USAGE_DISK_MB", 16.0) * (1 << 20)),
+            segment_bytes=int(env_float(environ, "MISAKA_USAGE_SEG_KB", 256.0) * 1024),
+            on_evict=M_USAGE_SPOOL_DROPPED.inc,
+            on_error=lambda: spool_mod.M_SPOOL_ERRORS.labels(plane="usage").inc(),
+        )
+        last: list = [None]
+
+        def _keep_last(frame):
+            if frame.get("k") == "usage":
+                last[0] = frame
+
+        sp.reload(_keep_last)
+        if last[0] is not None:
+            _base.clear()
+            for label, row in (last[0].get("programs") or {}).items():
+                _base[str(label)] = {f: float(row.get(f, 0)) for f in FIELDS}
+            _pass_base = float(last[0].get("pass_wall", 0.0))
+        _live_offset.clear()
+        _live_offset.update(snapshot())
+        _pass_offset = pass_seconds_total()
+        _spool = sp
+        _flush_stop = threading.Event()
+        interval = max(0.05, env_float(environ, "MISAKA_USAGE_FLUSH_S", 15.0))
+        threading.Thread(target=_flush_loop, args=(_flush_stop, interval),
+                         daemon=True, name="misaka-usage-spool").start()
+    flush_now(force=True)  # the boot frame: the first period's baseline
+    return _spool
+
+
+def _flush_loop(stop: threading.Event, interval: float) -> None:
+    while not stop.wait(interval):
+        try:
+            flush_now()
+        except Exception:  # pragma: no cover -- a flush must never take the process down
+            pass
+
+
+def flush_now(force: bool = False) -> bool:
+    """Append one cumulative frame and fsync.  A frame equal to the last
+    is elided (an idle box must not grow its ledger) unless `force` (the
+    boot frame; an export, which must include the accrual up to the
+    call)."""
+    global _last_flushed
+    with _spool_lock:
+        if _spool is None:
+            return False
+        snap = cumulative_snapshot()
+        fingerprint = (
+            snap["pass_wall_seconds"],
+            tuple(sorted((p, row["requests"], row["cpu_seconds"])
+                         for p, row in snap["programs"].items())),
+        )
+        if not force and fingerprint == _last_flushed:
+            return False
+        _last_flushed = fingerprint
+        _spool.append({"k": "usage", "t": round(time.time(), 3),
+                       "pass_wall": snap["pass_wall_seconds"], "programs": snap["programs"]})
+        _spool.flush()
+        return True
+
+
+def shutdown_spool() -> None:
+    """Tests: stop the flusher and drop the armed spool and its bases."""
+    global _spool, _pass_base, _pass_offset, _last_flushed, _flush_stop
+    with _spool_lock:
+        if _flush_stop is not None:
+            _flush_stop.set()
+            _flush_stop = None
+        if _spool is not None:
+            _spool.close()
+            _spool = None
+        _base.clear()
+        _live_offset.clear()
+        _pass_base = 0.0
+        _pass_offset = 0.0
+        _last_flushed = None
+
+
+# --- exports ------------------------------------------------------------------
 
 
 def export_secret(environ=os.environ) -> bytes | None:
@@ -298,16 +430,24 @@ def verify_line(obj: dict, secret: bytes) -> bool:
 
 
 def export_lines(since: float = 0.0, environ=os.environ) -> list[dict]:
-    """The GET /usage/export body: one delta line per program for the
-    process-lifetime period (end > `since`), then one cumulative totals
-    line; signed when a secret is configured.  EXEMPT_LABELS stay out of
-    the lines and inside the totals' cpu_seconds_total."""
-    snap = cumulative_snapshot()
-    frames = [
-        {"t": 0.0, "pass_wall": 0.0, "programs": {}},
-        {"t": round(time.time(), 3), "pass_wall": snap["pass_wall_seconds"],
-         "programs": snap["programs"]},
-    ]
+    """The GET /usage/export body: one delta line per (period, program)
+    between consecutive retained frames with end > `since`, then one
+    cumulative totals line; signed when a secret is configured.  With no
+    spool armed, the one process-lifetime period.  EXEMPT_LABELS stay
+    out of the lines and inside the totals' cpu_seconds_total."""
+    frames: list[dict] = []
+    with _spool_lock:
+        sp = _spool
+    if sp is not None:
+        flush_now(force=True)
+        sp.read_frames(lambda fr: frames.append(fr) if fr.get("k") == "usage" else None)
+    if not frames:
+        snap = cumulative_snapshot()
+        frames = [
+            {"t": 0.0, "pass_wall": 0.0, "programs": {}},
+            {"t": round(time.time(), 3), "pass_wall": snap["pass_wall_seconds"],
+             "programs": snap["programs"]},
+        ]
     lines: list[dict] = []
     for prev, cur in zip(frames, frames[1:]):
         t1 = float(cur.get("t", 0.0))

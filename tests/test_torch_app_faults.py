@@ -22,8 +22,9 @@ and the same class at lower stakes: MISAKA_FLEET, MISAKA_PLANE_TLS_CERT, a
 comma-separated MISAKA_PLANE_SOCKET and MISAKA_COORDINATOR refuse, while
 MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX app's
 version ID; MISAKA_FAULTS and MISAKA_SLO arm their planes at boot.
-F.6: MISAKA_TSDB_DIR (the durable telemetry tier) refuses at boot, naming
-A.4b, and MISAKA_WATCHDOG with rules logs one warning.
+F.6: MISAKA_TSDB_DIR (the durable telemetry tier) was dropped in silence;
+it now arms the TSDB's, the usage ledger's and the capture spools, and
+MISAKA_WATCHDOG's rules arm the watchdog, as in the JAX app.
 (MISAKA_HTTP_WORKERS is served: tests/test_torch_frontends.py.)
 """
 
@@ -605,20 +606,66 @@ def test_faults_and_slo_warn_once(var, caplog, tmp_path):
         assert health["slo"] == "ok" and health["degraded"] is False
 
 
-def test_f6_tsdb_dir_refuses_naming_a4b(capsys):
-    # F.6: the durable telemetry tier the operator asked for must not be
-    # dropped in silence
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.4b") as exc:
-        app.build_master_from_env({**ADD2_ENV, "MISAKA_TSDB_DIR": "/nonexistent/tsdb"})
-    assert exc.value.code == 2
-    assert "MISAKA_TSDB_DIR" in capsys.readouterr().err
+def test_f6_tsdb_dir_refuses_naming_a4b(tmp_path):
+    # F.6 was a silent drop of MISAKA_TSDB_DIR, then a refusal: the
+    # variable now arms the durable tier, as in the JAX app (the TSDB's
+    # spooled tiers, the usage ledger's spool, the capture spool)
+    tsdb_dir = tmp_path / "tsdb"
+    env = {**ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_TSDB_DIR": str(tsdb_dir)}
+    app.check_env(env)  # no refusal
+    proc, base = _boot(tmp_path, {**env, "MISAKA_TSDB": "1", "MISAKA_CANARY": "0",
+                                  "MISAKA_PIDFILE": "off", "MISAKA_TSDB_INTERVAL_S": "0.2"},
+                       "tsdb")
+    try:
+        assert _compute_batch(base, [1, 2, 3]) == [3, 4, 5]
+        with urllib.request.urlopen(base + "/debug/usage", timeout=30) as r:
+            assert "cumulative" in json.loads(r.read())
+        with urllib.request.urlopen(base + "/debug/captures", timeout=30) as r:
+            spool = json.loads(r.read())["spool"]
+        assert spool["dir"] == str(tsdb_dir / "capture")
+        deadline = time.monotonic() + 30
+        while not any(n.startswith("tsdb-fine") for n in os.listdir(tsdb_dir)):
+            assert time.monotonic() < deadline, "no TSDB segment within 30 s"
+            time.sleep(0.1)
+        assert {"usage", "capture"} <= set(os.listdir(tsdb_dir))
+        req = urllib.request.Request(base + "/captures/rotate", data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert json.loads(r.read())["path"].startswith(str(tsdb_dir / "capture" / "spool-"))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
 
 
 @pytest.mark.parametrize("value,warns", [("0", False), ("p99-drift=x", True)])
-def test_f6_watchdog_rules_warn_once(value, warns, caplog):
+def test_f6_watchdog_rules_warn_once(value, warns, caplog, monkeypatch):
+    # the rules are armed now, as the JAX app arms them: no warning, and
+    # the port's watchdog answers the JAX one's payload (`warns`: the
+    # spec is set, so a watchdog runs; this one is malformed, which both
+    # report and answer with the default rules)
+    from misaka_tpu.utils import tsdb as jtsdb
+    from misaka_tpu.utils import watchdog as jwatchdog
+    from misaka_tpu_torch.utils import tsdb as ttsdb
+    from misaka_tpu_torch.utils import watchdog as twatchdog
+
+    env = {**ADD2_ENV, "MISAKA_WATCHDOG": value, "MISAKA_TSDB": "1", "MISAKA_SAMPLER": "0"}
     with caplog.at_level(logging.WARNING, logger="misaka_tpu_torch.app"):
-        app.check_env({**ADD2_ENV, "MISAKA_WATCHDOG": value, "MISAKA_TSDB": "0",
-                       "MISAKA_SAMPLER": "0"})
-    hits = [r for r in caplog.records if "MISAKA_WATCHDOG" in r.getMessage()]
-    assert len(hits) == int(warns)
-    assert all("A.4b" in r.getMessage() for r in hits)
+        app.check_env(env)
+    assert not [r for r in caplog.records if "MISAKA_WATCHDOG" in r.getMessage()]
+    payloads = []
+    try:
+        for tsdb_mod, wd_mod in ((jtsdb, jwatchdog), (ttsdb, twatchdog)):
+            wd_mod.shutdown()
+            armed = wd_mod.ensure_started(env)
+            assert (armed is not None) == warns
+            payloads.append((wd_mod.overall_state(), wd_mod.debug_payload()))
+    finally:
+        for tsdb_mod, wd_mod in ((jtsdb, jwatchdog), (ttsdb, twatchdog)):
+            wd_mod.shutdown()
+            tsdb_mod.shutdown()
+    assert payloads[0] == payloads[1]
+    if warns:
+        state, payload = payloads[1]
+        assert state == "ok" and "p99-drift=x" in payload["spec_error"]
+        assert [r["rule"] for r in payload["rules"]][0] == "canary-full"
+    else:
+        assert payloads[1] == (None, {"enabled": False, "state": "ok", "rules": []})

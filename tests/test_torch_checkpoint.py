@@ -35,6 +35,7 @@ from misaka_tpu_torch.core.state import NetworkState, state_from_numpy, state_to
 from misaka_tpu_torch.runtime.checkpoint import CheckpointError, manifest_path
 from misaka_tpu_torch.runtime.master import MasterNode, make_http_server
 from misaka_tpu_torch.runtime.topology import Topology
+from misaka_tpu_torch.utils import tsdb as ttsdb
 
 torch.set_num_threads(1)
 
@@ -109,6 +110,10 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
 
 
 def test_port_checkpoint_loads_into_jax(tmp_path):
+    # no collector in this process (an earlier test's may run): no history
+    # blob, as the JAX master writes none without one (a checkpoint with
+    # history crosses both ways in tests/test_torch_observatory.py)
+    ttsdb.shutdown()
     jm, tm = jax_master(), port_master()
     try:
         serve_some(tm, 2)

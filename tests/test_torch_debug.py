@@ -218,6 +218,10 @@ def test_cli_replay_and_usage_report_run(capsys, tmp_path, monkeypatch):
     from misaka_tpu_torch.runtime import master as tmaster
 
     monkeypatch.setenv("MISAKA_USAGE_SECRET", "k")
+    # a server starts the process-wide sampler, TSDB and watchdog, which
+    # would outlive the test
+    for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
+        monkeypatch.setenv(switch, "0")
     m = tmaster.MasterNode(tnet.add2(in_cap=8, out_cap=8, stack_cap=8), chunk_steps=16,
                            batch=2, device="cpu")
     httpd = tmaster.make_http_server(m, port=0)

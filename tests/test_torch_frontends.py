@@ -45,6 +45,7 @@ from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
 from misaka_tpu.utils import metrics as jmetrics
 from misaka_tpu.utils import slo as jslo
+from misaka_tpu.utils import watchdog as jwatchdog
 from misaka_tpu.utils import tracespan as jtracespan
 from misaka_tpu_torch import networks as tnet
 from misaka_tpu_torch.networks import ADD2_PROGRAMS
@@ -53,6 +54,7 @@ from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
 from misaka_tpu_torch.utils import metrics as tmetrics
 from misaka_tpu_torch.utils import slo as tslo
+from misaka_tpu_torch.utils import watchdog as twatchdog
 from misaka_tpu_torch.utils import tracespan as ttracespan
 from misaka_tpu_torch.utils import wire
 
@@ -63,7 +65,7 @@ CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 SEED = 20261017
 MAX_BODY = 4096
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"native_edge", "watchdog", "canary"}
+UNPORTED_BLOCKS = {"native_edge", "canary"}
 FE = {"jax": jfe, "port": tfe}
 METRICS = {"jax": jmetrics, "port": tmetrics}
 ADD2_ENV = {
@@ -79,9 +81,12 @@ def _quiet_jax_daemons(monkeypatch):
     for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG", "MISAKA_CANARY"):
         monkeypatch.setenv(switch, "0")
     # both SLO engines disarmed, whatever an earlier test in this process
-    # armed: a /healthz `slo` block then means the same in both
+    # armed: a /healthz `slo` block then means the same in both; so are
+    # both watchdogs (a `watchdog` block)
     jslo.configure()
     tslo.configure()
+    jwatchdog.shutdown()
+    twatchdog.shutdown()
 
 
 def _serve(httpd):

@@ -8,7 +8,9 @@ own misaka_tpu_torch/replay.py.  The frontend worker's modules
 (runtime/frontends.py, client.py, utils/backoff.py) and the telemetry
 planes they reach (utils/faults.py, utils/slo.py, runtime/usage.py,
 runtime/capture.py) import no torch either: a worker process must not
-pay for it.  chip_smoke.py must refuse to
+pay for it; nor do the always-on and durable planes, stdlib only as in
+the reference (utils/spool.py, tsdb.py, watchdog.py, sampler.py and
+dashboard.py).  chip_smoke.py must refuse to
 report a result without a card, and when it is alone in a directory.
 """
 
@@ -59,7 +61,9 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.runtime.registry", "misaka_tpu_torch.runtime.canary",
               "misaka_tpu_torch.runtime.usage", "misaka_tpu_torch.utils.slo",
               "misaka_tpu_torch.utils.faults", "misaka_tpu_torch.runtime.capture",
-              "misaka_tpu_torch.replay"):
+              "misaka_tpu_torch.replay", "misaka_tpu_torch.utils.spool",
+              "misaka_tpu_torch.utils.tsdb", "misaka_tpu_torch.utils.watchdog",
+              "misaka_tpu_torch.utils.sampler", "misaka_tpu_torch.utils.dashboard"):
         assert m in report["modules"]
 
 
@@ -70,6 +74,8 @@ sys.path.insert(0, sys.argv[1])
 import misaka_tpu_torch.runtime.frontends, misaka_tpu_torch.client, misaka_tpu_torch.utils.backoff
 import misaka_tpu_torch.utils.faults, misaka_tpu_torch.utils.slo, misaka_tpu_torch.runtime.usage
 import misaka_tpu_torch.runtime.capture
+import misaka_tpu_torch.utils.spool, misaka_tpu_torch.utils.tsdb, misaka_tpu_torch.utils.watchdog
+import misaka_tpu_torch.utils.sampler, misaka_tpu_torch.utils.dashboard
 added = set(sys.modules) - before
 print(json.dumps(sorted(k for k in added
                         if k.split(".")[0] in ("torch", "jax", "jaxlib", "misaka_tpu"))))

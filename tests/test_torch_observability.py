@@ -36,20 +36,27 @@ import torch
 
 from misaka_tpu import networks as jnet
 from misaka_tpu.runtime import frontends as _jfrontends  # noqa: F401 (its series)
+from misaka_tpu.runtime import canary as _jcanary  # noqa: F401 (its series)
+from misaka_tpu.runtime import capture as jcapture
+from misaka_tpu.runtime import usage as jusage
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
 from misaka_tpu.utils import metrics as jmetrics
 from misaka_tpu.utils import slo as jslo
 from misaka_tpu.utils import tracespan as jtracespan
+from misaka_tpu.utils import watchdog as jwatchdog
 from misaka_tpu.utils.jsonlog import JsonFormatter as JJsonFormatter
 from misaka_tpu_torch import networks as tnet
 from misaka_tpu_torch.runtime import frontends as _tfrontends  # noqa: F401 (its series)
+from misaka_tpu_torch.runtime import capture as tcapture
+from misaka_tpu_torch.runtime import usage as tusage
 from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
 from misaka_tpu_torch.utils import metrics as tmetrics
 from misaka_tpu_torch.utils import profiling
 from misaka_tpu_torch.utils import slo as tslo
 from misaka_tpu_torch.utils import tracespan as ttracespan
+from misaka_tpu_torch.utils import watchdog as twatchdog
 from misaka_tpu_torch.utils.jsonlog import JsonFormatter as TJsonFormatter
 
 torch.set_num_threads(1)
@@ -57,7 +64,7 @@ torch.set_num_threads(1)
 CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 TRACE_ID = "feedc0de12345678"
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"frontends", "native_edge", "watchdog", "canary", "degraded"}
+UNPORTED_BLOCKS = {"frontends", "native_edge", "canary", "degraded"}
 
 
 @pytest.fixture(autouse=True)
@@ -65,10 +72,13 @@ def _env(monkeypatch):
     # the JAX server's process-global daemons would outlive a test
     for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
         monkeypatch.setenv(switch, "0")
-    # both SLO engines disarmed, whatever an earlier test in this process
-    # armed: a /healthz `slo` block then means the same in both
+    # both SLO engines and both watchdogs disarmed, whatever an earlier
+    # test in this process armed: a /healthz `slo` or `watchdog` block
+    # then means the same in both
     jslo.configure()
     tslo.configure()
+    jwatchdog.shutdown()
+    twatchdog.shutdown()
 
 
 def _serve(httpd):
@@ -201,9 +211,14 @@ def test_same_session_same_series_counters_and_headers(batch):
         p.close()
 
 
-def test_series_catalog_matches_the_reference():
+def test_series_catalog_matches_the_reference(monkeypatch, tmp_path):
+    # MISAKA_TSDB_DIR arms the usage and capture spools of both servers
+    monkeypatch.setenv("MISAKA_TSDB_DIR", str(tmp_path))
+    monkeypatch.setenv("MISAKA_CAPTURE_SEG_S", "3600")
     p = Pair(8)  # a master and a server register every series
     try:
+        assert tusage.spool_dir() == str(tmp_path / "usage")
+        assert tcapture.spool_status()["dir"] == str(tmp_path / "capture")
         ported = tmetrics.REGISTRY.all_metrics()
         names = {m.name for m in ported}
         for m in ported:
@@ -238,13 +253,25 @@ def test_series_catalog_matches_the_reference():
                      "misaka_capture_records_total", "misaka_capture_ring_bytes",
                      "misaka_replay_runs_total", "misaka_replay_divergences_total"):
             assert name in names, name
-        # planes the port has not taken stay absent, not faked (the
-        # durable spools of the usage and capture planes are ROADMAP A.4b)
-        assert not any(n.startswith(("misaka_native_", "misaka_plane_tls_", "misaka_fleet_",
-                                     "misaka_capture_spool_", "misaka_usage_spool_"))
+        # the durable tier's series (MISAKA_TSDB_DIR arms their spools)
+        for name in ("misaka_capture_spool_dropped_total", "misaka_capture_spool_rotations_total",
+                     "misaka_capture_spool_bytes", "misaka_usage_spool_dropped_total",
+                     "misaka_tsdb_spool_dropped_total", "misaka_tsdb_spool_bytes",
+                     "misaka_spool_errors_total"):
+            assert name in names, name
+        # planes the port has not taken stay absent, not faked
+        assert not any(n.startswith(("misaka_native_", "misaka_plane_tls_", "misaka_fleet_"))
                        for n in names)
+        scraped = tmetrics.parse_text(request(p.tb, "/metrics", method="GET")[2].decode())
+        for series in ("misaka_usage_spool_dropped_total", "misaka_capture_spool_bytes",
+                       "misaka_tsdb_spool_bytes"):
+            assert series in scraped, series
     finally:
         p.close()
+        for cap, use in ((jcapture, jusage), (tcapture, tusage)):
+            cap.shutdown_spool()
+            cap.stop()
+            use.shutdown_spool()
 
 
 def test_debug_requests_and_perfetto_match_the_reference():

@@ -334,6 +334,10 @@ def test_close_ends_the_workers():
 @pytest.fixture
 def served(monkeypatch):
     monkeypatch.setenv("MISAKA_MAX_BODY", "64")
+    # a server starts the process-wide sampler, TSDB and watchdog, which
+    # would outlive the test
+    for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
+        monkeypatch.setenv(switch, "0")
     m = _master(batch=2)
     m.run()
     httpd = make_http_server(m, port=0)

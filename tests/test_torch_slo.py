@@ -37,6 +37,7 @@ from misaka_tpu.runtime import master as jmaster
 from misaka_tpu.runtime import registry as jregistry
 from misaka_tpu.utils import faults as jfaults
 from misaka_tpu.utils import slo as jslo
+from misaka_tpu.utils import watchdog as jwatchdog
 from misaka_tpu_torch import networks as tnetworks
 from misaka_tpu_torch.runtime import frontends as tfrontends
 from misaka_tpu_torch.runtime import master as tmaster
@@ -44,6 +45,7 @@ from misaka_tpu_torch.runtime import registry as tregistry
 from misaka_tpu_torch.utils import faults as tfaults
 from misaka_tpu_torch.utils import metrics as tmetrics
 from misaka_tpu_torch.utils import slo as tslo
+from misaka_tpu_torch.utils import watchdog as twatchdog
 
 torch.set_num_threads(1)
 
@@ -286,11 +288,19 @@ def _stop(m, reg, httpd):
 
 
 def test_tenant_fault_pages_only_that_tenant(monkeypatch, clock):
-    """The drill of tests/test_slo.py on both packages' servers: 250 ms
-    objective, a 0.3 s delay on ten-b's passes only.  The windows' clock
-    is the injected one, so nothing waits for a window but the faulted
-    requests themselves."""
-    _arm(monkeypatch, spec="p99<250ms", windows="3,6,12,24", min_events=3)
+    """The drill of tests/test_slo.py on both packages' servers: a p99
+    objective and a delay on ten-b's passes only.  The windows' clock is
+    the injected one, so nothing waits for a window but the faulted
+    requests themselves.
+
+    The objective sits on a bound of the latency buckets (2.154 s,
+    utils/metrics.py DURATION_BUCKETS), where the bad-event estimate is
+    exact: a request counts as bad only past the bound.  An unfaulted
+    request on the port's CPU engine takes 0.1-0.3 s unloaded (a 250 ms
+    objective inside the (0.2154, 0.4642] bucket paged on one of them
+    under load), so it stays good at 7x that; every faulted one takes
+    the 2.5 s delay and more, so it is always bad."""
+    _arm(monkeypatch, spec="p99<2.154s", windows="3,6,12,24", min_events=3)
     drills = {}
     for name, p in PKGS.items():
         base, m, reg, httpd = _serve(p)
@@ -321,7 +331,7 @@ def test_tenant_fault_pages_only_that_tenant(monkeypatch, clock):
             drive(4)
             clock.t += 0.3  # past the evaluation cache
             steps.append(states()[0])
-            assert _call(base, "/debug/faults", {"spec": "serve_delay:ten-b=0.3"})[0] == 200
+            assert _call(base, "/debug/faults", {"spec": "serve_delay:ten-b=2.5"})[0] == 200
             drive(4)
             clock.t += 0.3
             faulted, exemplars = states()
@@ -392,6 +402,9 @@ def test_plane_frames_feed_the_windows(monkeypatch, tmp_path):
 
 def test_alerts_bodies_and_gauges_equal_jax(monkeypatch, clock):
     _arm(monkeypatch)
+    # both watchdogs disarmed, whatever an earlier test in this process armed
+    jwatchdog.shutdown()
+    twatchdog.shutdown()
     bodies = []
     for p in PKGS.values():
         for _ in range(20):
@@ -408,10 +421,7 @@ def test_alerts_bodies_and_gauges_equal_jax(monkeypatch, clock):
     (ja, jtext), (ta, ttext) = bodies
     assert ta[0] == ja[0] == 200
     body, jbody = json.loads(ta[1]), json.loads(ja[1])
-    # the watchdog block: the port's is the reference's disarmed payload
-    # (ROADMAP A.4b); the JAX one is process-global state of its own
-    jbody.pop("watchdog")
-    assert {k: v for k, v in body.items() if k != "watchdog"} == jbody
+    assert body == jbody  # the watchdog blocks too: both disarmed (MISAKA_WATCHDOG=0)
     assert body["enabled"] is True and body["programs"]["gauge-prog"]["state"] == "ok"
     assert body["watchdog"] == {"enabled": False, "state": "ok", "rules": []}
     parsed = tmetrics.parse_text(ttext)
