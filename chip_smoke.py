@@ -84,7 +84,16 @@ rotation under a stream (and device memory across rotations in this
 process), kill -9 and a relaunch over the same directory (series from
 before the kill, the usage export monotone and conserving, the segment
 rotated before the kill replayed green on the card), history restored
-from a checkpoint alone, and the planes' cost, a b b a.
+from a checkpoint alone, and the planes' cost, a b b a.  The `fleet`
+phase serves the same add2 from MISAKA_FLEET=2 replicas behind the
+workers (runtime/fleet.py) with a remote peer on a TCP plane in mTLS: a
+quiescent roll whose restored states equal the roll checkpoints (device
+memory per replica pid around it), the load's rate and each replica's
+share of frames, the flooded tenant's admissions under usage gossip, the
+peer served, refused in plaintext and rolled; on a second fleet beside
+it the replica_kill fault, kill -9 of a replica and POST /fleet/roll
+under load (zero client errors each), and last the fleet's cost against
+one engine, a b b a.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -110,6 +119,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -725,8 +735,9 @@ ADD2_NODES = {"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
 
 def _start_app(label, node_info, programs, batch, chunk, caps, device=None, autorun=True,
                **env_extra):
-    """Spawn `python -m misaka_tpu_torch.runtime.app`: (Popen, port, t_boot)."""
-    port = free_port()
+    """Spawn `python -m misaka_tpu_torch.runtime.app`: (Popen, port, t_boot).
+    MISAKA_PORT among the extra env pins the port, else a free one."""
+    port = int(env_extra.pop("MISAKA_PORT", 0)) or free_port()
     env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
     env.update(
         NODE_INFO=json.dumps(node_info), MISAKA_PROGRAMS=json.dumps(programs),
@@ -2113,8 +2124,8 @@ def cost_turn(port, n_clients, per_client, n_quiet):
     return {"small_requests_per_s": n / secs, **latency_ms(lat)}
 
 
-def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=40,
-               n_quiet=49, flooders=6, flood_s=5.0, device=None, card=None):
+def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=20,
+               n_quiet=25, flooders=6, flood_s=5.0, device=None, card=None):
     """The edge on the main path (add2 at B, the full kernel) behind N
     frontend workers, in three sets of servers, each set booted at once:
 
@@ -2134,7 +2145,7 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
       launches;
     - the edge's cost: the default env (the chain armed with an empty
       quota, as the reference's default boot) against MISAKA_EDGE=0, in
-      turns a b b a, behind the workers and with none: 32 x 40 one-value
+      turns a b b a, behind the workers and with none: 32 x 20 one-value
       /compute and quiet /compute p50/p90.  The servers not measured are
       paused.
 
@@ -2416,7 +2427,7 @@ def registry_memory(batch, device):
 
 
 def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32,
-                   per_client=40, n_quiet=49, swap_clients=32, n_stream=20_000, device=None,
+                   per_client=20, n_quiet=25, swap_clients=32, n_stream=20_000, device=None,
                    card=None):
     """The program registry on the main path: add2 at B (the full kernel)
     behind N frontend workers with MISAKA_PROGRAMS_DIR (a fresh directory
@@ -2953,7 +2964,7 @@ def capture_memory(batch, device, n_delay=40):
 
 
 def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32,
-                    per_client=40, n_raw_clients=32, raw_values=12_500, n_quiet=49,
+                    per_client=20, n_raw_clients=32, raw_values=12_500, n_quiet=25,
                     capture_clients=32, n_delay=40, n_b1=100, slo_ms=250, fault_s=0.5,
                     drill_clients=9, min_events=3, canary=True, device=None, card=None):
     """The telemetry planes on the main path: add2 at B (the full kernel)
@@ -3264,6 +3275,12 @@ def series_points(port, name, window="15m"):
     return [(row["stage_s"], pt) for row in q["series"] for pt in row["points"]]
 
 
+def collector_samples(port) -> int:
+    """How many samples the TSDB collector has taken (its /debug/series
+    index)."""
+    return json.loads(http(port, "/debug/series", timeout=60)[1])["samples"]
+
+
 def series_integral(pts, t0, t1):
     """The values a counter's rate points (stage width, [slot start, mean
     rate, max]) account for between t0 and t1: each point's rate over the
@@ -3383,7 +3400,7 @@ def rotation_memory(batch, device, rotations=3):
 
 def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s=20.0,
                       stream_clients=8, stream_values=512, drill_clients=4, n_clients=32,
-                      per_client=40, n_quiet=49, seg_s=20, device=None, card=None):
+                      per_client=20, n_quiet=25, seg_s=20, device=None, card=None):
     """The always-on and durable planes on the main path: add2 at B (the
     full kernel) behind N frontend workers with MISAKA_PROGRAMS_DIR,
     MISAKA_TSDB_DIR (a 1 s collector), the capture spool rotating every
@@ -3458,7 +3475,12 @@ def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s
             # 1. series
             c0 = series(scrape(eng), "misaka_compute_values_total")
             t_a = time.time()
+            s0 = collector_samples(eng)
             time.sleep(2.5)  # quiet intervals: the collector's baseline
+            # a governed collector can stretch its period past these
+            # waits: the integral needs one sample inside each quiet edge
+            poll(lambda: collector_samples(eng) > s0, "a collector sample before the stream",
+                 60.0, 0.1)
             out = {}
             th = threading.Thread(target=lambda: out.update(zip(("spans", "errors"), stream_for(
                 pub, series_s, stream_clients, stream_values, rng))))
@@ -3468,7 +3490,10 @@ def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s
             index = json.loads(http(eng, "/debug/series", timeout=60)[1])
             th.join()
             expect(not out["errors"], f"series stream: {out['errors'][:4]}")
+            s1 = collector_samples(eng)
             time.sleep(3.5)  # the last intervals' samples land
+            poll(lambda: collector_samples(eng) > s1, "a collector sample after the stream",
+                 60.0, 0.1)
             c1 = series(scrape(eng), "misaka_compute_values_total")
             t_b = time.time()
             pts = series_points(eng, "misaka_compute_values_total", "5m")
@@ -3689,6 +3714,619 @@ def watchdog_drill(eng, n_clients, deadline_s=90):
         th.join(timeout=120)
     expect(not out.get("errors"), f"drill clients: {out.get('errors', ['hung'])[:4]}")
     return {"onset_s": onset, "clear_s": clear, **paged}
+
+
+# --- the fleet: N engine replicas behind the router, rolls, a remote peer, gossip ---------
+
+FLEET_KEYS = [
+    {"key": "fleet-admin", "tenant": "ops", "admin": True},
+    {"key": "fleet-load", "tenant": "load"},
+    {"key": "fleet-flood", "tenant": "flood", "quota": "rps<20"},
+]
+FLEET_ADMIN = {"X-Misaka-Key": "fleet-admin"}
+FLEET_LOAD = {"X-Misaka-Key": "fleet-load"}
+FLEET_FLOOD_RPS = 20.0
+FLEET_BURST_S = 2.0  # MISAKA_QUOTA_BURST_S's default
+
+
+def plane_certs(directory):
+    """(cert, key) of one self-signed EC pair (its own CA, so the pair is
+    the fleet's trust domain), or None when this host has no openssl."""
+    if shutil.which("openssl") is None:
+        return None
+    cert, key = os.path.join(directory, "plane.pem"), os.path.join(directory, "plane.key")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "ec", "-pkeyopt",
+                    "ec_paramgen_curve:prime256v1", "-nodes", "-keyout", key, "-out", cert,
+                    "-days", "1", "-subj", "/CN=misaka-fleet",
+                    "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+                   check=True, capture_output=True, timeout=60)
+    return cert, key
+
+
+class FleetLoad:
+    """Clients on the public port until stop(): n_small threads of
+    one-value /compute and n_raw threads of `values`-value /compute_raw,
+    every answer checked; a failure is recorded, never raised."""
+
+    def __init__(self, port, n_small, n_raw, values=512, headers=None):
+        self.port, self.values, self.headers = port, values, headers or {}
+        self.errors: list[str] = []
+        self.requests = 0
+        self.served_values = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = (
+            [threading.Thread(target=self._small, args=(i,), daemon=True) for i in range(n_small)]
+            + [threading.Thread(target=self._raw, args=(i,), daemon=True) for i in range(n_raw)])
+
+    def _note(self, n_values):
+        with self._lock:
+            self.requests += 1
+            self.served_values += n_values
+
+    def _small(self, i):
+        j = 0
+        while not self._stop.is_set():
+            v = 1_000_000 + i * 100_000 + j
+            j += 1
+            try:
+                c, _, b = call(self.port, "/compute", f"value={v}".encode(), self.headers)
+                if c != 200 or json.loads(b) != {"value": v + 2}:
+                    raise RuntimeError(f"/compute {v} -> {c} {b[:80]!r}")
+                self._note(1)
+            except Exception as e:  # recorded: the drill fails on any
+                self.errors.append(repr(e))
+
+    def _raw(self, i):
+        rng = np.random.default_rng(SEED + 7000 + i)
+        while not self._stop.is_set():
+            vals = rng.integers(-1000, 1000, self.values).astype("<i4")
+            try:
+                c, _, b = call(self.port, "/compute_raw", vals.tobytes(), self.headers)
+                if c != 200 or not np.array_equal(np.frombuffer(b, "<i4"), vals + 2):
+                    raise RuntimeError(f"/compute_raw -> {c} {b[:80]!r}")
+                self._note(self.values)
+            except Exception as e:
+                self.errors.append(repr(e))
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=300)
+        secs = time.perf_counter() - self.t0
+        return {"requests": self.requests, "values": self.served_values, "seconds": secs,
+                "errors": len(self.errors), "first_errors": self.errors[:3]}
+
+
+def fleet_get(port, path, headers=None):
+    c, _, b = call(port, path, headers=headers if headers is not None else FLEET_ADMIN)
+    expect(c == 200, f"GET {path} -> {c} {b[:200]!r}")
+    return json.loads(b)
+
+
+def fleet_state(port):
+    return fleet_get(port, "/fleet")
+
+
+def smi_apps() -> dict[int, int]:
+    """Device memory per compute process, MiB, as nvidia-smi lists them
+    (none where the card's processes sit outside this pid namespace)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    mem = {}
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit() and mib.strip().isdigit():
+            mem[int(pid)] = int(mib)
+    return mem
+
+
+def card_memory_used() -> int:
+    """The card's used memory, MiB (every process's, contexts included)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def serial_load(port, values, n_small=30, n_raw=10) -> None:
+    """n_small /compute, then n_raw `values`-value /compute_raw, one at a
+    time, every answer checked."""
+    rng = np.random.default_rng(SEED + 4242)
+    for v in range(n_small):
+        c, _, b = call(port, "/compute", f"value={v}".encode(), FLEET_LOAD)
+        expect(c == 200 and json.loads(b) == {"value": v + 2}, f"/compute {v} -> {c}")
+    for _ in range(n_raw):
+        vals = rng.integers(-1000, 1000, values).astype("<i4")
+        c, _, b = call(port, "/compute_raw", vals.tobytes(), FLEET_LOAD)
+        expect(c == 200 and np.array_equal(np.frombuffer(b, "<i4"), vals + 2),
+               f"/compute_raw -> {c}")
+
+
+def fleet_memory(port) -> dict:
+    """Each replica's device memory (its /status), nvidia-smi's list and
+    the card's used memory."""
+    return {"replicas": replica_memory(port), "smi_apps": smi_apps(),
+            "card_used_mib": card_memory_used()}
+
+
+def check_roll_memory(before, after) -> dict:
+    """Across a quiescent roll: every old replica pid gone, and each
+    replacement's device memory within 5% of its predecessor's, per pid
+    from nvidia-smi where it lists the replicas, else each replica's own
+    allocated bytes (its /status); the card's used memory (contexts and
+    every process's allocator pool) is printed beside them.  A replica's
+    own number is the bytes its allocator holds booted and paused, before
+    any chunk ran: after serving, what it holds (and its peak) swings by a
+    serve buffer set with how the last passes overlapped."""
+    if not before["smi_apps"]:
+        print("fleet: nvidia-smi lists no compute process on this host (pid namespace): "
+              "device memory per replica pid from each replica's /status", flush=True)
+    for i, old in before["replicas"].items():
+        new = after["replicas"][i]
+        expect(new["pid"] != old["pid"] and not pid_alive(old["pid"])
+               and old["pid"] not in after["smi_apps"],
+               f"replica {i}: the old pid {old['pid']} outlived the roll")
+        a, b = old["allocated_bytes"], new["allocated_bytes"]
+        expect(abs(b - a) <= 0.05 * a, f"replica {i}: device memory across the roll {old} -> {new}")
+        smi_old, smi_new = before["smi_apps"].get(old["pid"]), after["smi_apps"].get(new["pid"])
+        expect(smi_old is None
+               or (smi_new is not None and abs(smi_new - smi_old) <= 0.05 * smi_old),
+               f"replica {i}: nvidia-smi memory {smi_old} -> {smi_new} MiB")
+    return {"before": before, "after": after}
+
+
+def replica_memory(port) -> dict[str, dict]:
+    """Each replica's pid and caching-allocator bytes on its card, from its
+    /status through the control server."""
+    st = fleet_get(port, "/status")
+    pids = {str(r["replica"]): r["pid"] for r in st["fleet"]["replicas"] if not r.get("remote")}
+    return {i: {"pid": pids[i], **r.get("device_memory", {})} for i, r in st["replicas"].items()}
+
+
+def plane_frames(scraped) -> dict[str, float]:
+    """misaka_plane_frames_total per replica label of an aggregated scrape."""
+    from misaka_tpu_torch.utils import metrics
+
+    out = {}
+    for k, v in scraped.items():
+        name, labels = metrics.parse_series(k)
+        if name == "misaka_plane_frames_total" and "replica" in labels:
+            out[labels["replica"]] = v
+    return out
+
+
+def fleet_scrape(port):
+    from misaka_tpu_torch.utils import metrics
+
+    return metrics.parse_text(call(port, "/metrics", headers=FLEET_ADMIN)[2].decode())
+
+
+def roll_fleet(port):
+    c, _, b = call(port, "/fleet/roll", b"", FLEET_ADMIN, timeout=900)
+    expect(c == 200, f"/fleet/roll -> {c} {b[:300]!r}")
+    report = json.loads(b)
+    expect(report["ok"] is True, f"roll report {report}")
+    return report
+
+
+def state_arrays(path):
+    with np.load(path) as z:
+        return {k: z[k].copy() for k in z.files if k != "__tsdb__"}
+
+
+def same_state(a, b):
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def kill_fault_drill(port, n_clients, deadline_s):
+    """The replica_kill fault's fleet under light load: zero errors until
+    one replica was killed and respawned, and the fault fired once."""
+    load = FleetLoad(port, n_clients, 0).start()
+    t0 = time.monotonic()
+    try:
+        while True:
+            st = fleet_state(port)
+            if st["restarts_total"] >= 1 and st["up"] == st["configured"]:
+                break
+            expect(time.monotonic() - t0 < deadline_s,
+                   f"replica_kill: no kill and respawn within {deadline_s:.0f} s: {st}")
+            time.sleep(0.25)
+        time.sleep(2.0)  # it fires once: nothing more dies
+    finally:
+        out = load.stop()
+    st = fleet_state(port)
+    return {**out, "restarts_total": st["restarts_total"], "up": st["up"],
+            "seconds_to_healed": time.monotonic() - t0}
+
+
+def kill9_drill(port, n_small, n_raw, values) -> dict:
+    """kill -9 of the replica the fault spared, under n_small + n_raw
+    clients: zero client errors, and the seconds from the kill to the
+    respawned replica's healthy probe."""
+    st = fleet_state(port)
+    victim = next(r for r in st["replicas"] if r["restarts"] == 0)
+    load = FleetLoad(port, n_small, n_raw, values).start()
+    time.sleep(1.0)
+    os.kill(victim["pid"], signal.SIGKILL)
+    t_kill = time.monotonic()
+    idx = victim["replica"]
+    poll(lambda: (s := fleet_state(port))["replicas"][idx]["state"] == "up"
+         and s["replicas"][idx]["restarts"] >= 1, "respawn", 240.0, 0.1)
+    respawn_s = time.monotonic() - t_kill
+    time.sleep(1.0)
+    out = load.stop()
+    return {**out, "replica": idx, "respawn_to_healthy_s": respawn_s}
+
+
+def second_fleet_drill(port, n_small, n_raw, values):
+    """The second fleet (booted with replica_kill), beside the first's
+    drills: the fault under light load, kill -9 of the other replica and
+    then POST /fleet/roll, each under n_small + n_raw clients; zero client
+    errors through all three.  A failure is returned, not raised (this
+    runs on a thread of its own)."""
+    try:
+        out = {"replica_kill": kill_fault_drill(port, 4, 240.0)}
+        out["kill"] = kill9_drill(port, n_small, n_raw, values)
+        load = FleetLoad(port, n_small, n_raw, values).start()
+        time.sleep(1.0)
+        report = roll_fleet(port)
+        time.sleep(1.0)
+        out["roll"] = {**load.stop(), "report": report,
+                       "checkpoint_s": roll_checkpoint_seconds("fleet_cost_b")}
+        return out
+    except BaseException as e:  # surfaced by the caller's check
+        return {"failed": repr(e)}
+
+
+def gossip_drill(port, flooders, flood_s):
+    """A flooded tenant (rps<FLEET_FLOOD_RPS per engine) across the fleet:
+    its aggregate admitted requests against one engine's quota for the
+    same window (rate x window + the burst)."""
+    admitted = [0]
+    rejected = [0]
+    lock = threading.Lock()
+    t_end = time.monotonic() + flood_s
+
+    def flood(i):
+        while time.monotonic() < t_end:
+            c, _, _ = call(port, "/compute", f"value={i}".encode(), {"X-Misaka-Key": "fleet-flood"})
+            with lock:
+                if c == 200:
+                    admitted[0] += 1
+                elif c == 429:
+                    rejected[0] += 1
+                else:
+                    raise RuntimeError(f"flood /compute -> {c}")
+
+    errors, secs = run_clients(flooders, flood)
+    expect(not errors, f"flood: {errors[:3]}")
+    single = FLEET_FLOOD_RPS * secs + FLEET_FLOOD_RPS * FLEET_BURST_S
+    return {"flooders": flooders, "seconds": secs, "admitted": admitted[0],
+            "rejected_429": rejected[0], "single_engine_quota": single,
+            "admitted_over_single_quota": admitted[0] / single}
+
+
+def phase_fleet(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=20,
+                n_streams=8, stream_values=512, kill_after_s=10, flooders=12, flood_s=5.0,
+                n_quiet=15, device=None, card=None):
+    """The replicated engine fleet on the main path (runtime/fleet.py):
+    add2 at B (the full kernel) in MISAKA_FLEET=2 replicas behind N
+    frontend workers with a key file (an admin key, a load key, a flooded
+    tenant's `rps<20`), plus a remote peer: a third engine at the same
+    shapes serving its compute plane on TCP (MISAKA_PLANE_SERVE=1) with
+    plane mTLS (certificates from openssl; without openssl it runs
+    plaintext and this is printed) and joined through MISAKA_FLEET_PEERS.
+    Booted at once with them: a second fleet with MISAKA_FAULTS=
+    replica_kill=<kill_after_s> and one engine behind the same workers,
+    the cost's pair.
+
+    1. each replica's engine (the card's kernel, or the phase fails);
+    2. quiescent, first (the fleet boots paused): each replica's device
+       memory before any chunk ran, a short serial load, /pause, POST
+       /fleet/roll (the peer driven through drain -> checkpoint ->
+       readmit), a checkpoint: each replica's restored
+       state equals its roll checkpoint (np.load); the old pids gone and
+       each replacement's device memory, restored and paused, within 5%
+       of its predecessor's (per pid from nvidia-smi where it lists them,
+       else the replica's own allocated bytes from its /status), the
+       card's used memory beside;
+    3. load: n_clients x per_client small /compute and n_streams x
+       per_client /compute_raw of stream_values each, together through the
+       public port: requests/s, values/s, each replica's and the peer's
+       share of plane frames (aggregated /metrics);
+    4. the flooded tenant: aggregate admitted against one engine's quota
+       (usage gossip reconciles the engines' buckets);
+    5. each replica's kernel launches from its /status (through the
+       control server; this fleet is never killed), then the peer: a
+       direct mTLS PlaneClient computes on its plane, a plaintext dial is
+       refused and counted;
+    6. meanwhile, on a thread, the second fleet (booted running: a crash
+       respawn comes back in the base env's run state): its replica_kill
+       fires once under a light load; kill -9 of its other replica, then
+       POST /fleet/roll, each under a continuous load (n_clients/2 small,
+       n_streams/2 streams): zero client errors through all three, the
+       respawn-to-healthy seconds, each replica's drain, checkpoint and
+       boot seconds;
+    7. the cost: one engine (a) against the second fleet (b), a b b a,
+       32 x 20 small /compute and quiet /compute each turn, the servers
+       not measured paused.
+
+    device="cpu" rehearses it at a small B."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+    from misaka_tpu_torch.runtime import frontends
+
+    workers = workers or frontend_workers()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet-", dir=os.path.join(ROOT, "build"))
+    keys = os.path.join(tmp, "keys.json")
+    with open(keys, "w") as f:
+        json.dump({"keys": FLEET_KEYS}, f)
+    certs = plane_certs(tmp)
+    row = {"phase": "fleet", "card": card, "workers": workers, "replicas": 2,
+           "cpu_count": os.cpu_count(), "batch": batch, "chunk_steps": chunk, **MAIN_CAPS,
+           "plane_tls": certs is not None}
+    if certs is None:
+        print("fleet: openssl unavailable on this host: the peer's plane runs without TLS "
+              "(the CPU tests carry plane mTLS)", flush=True)
+    tls_env = ({"MISAKA_PLANE_TLS_CERT": certs[0], "MISAKA_PLANE_TLS_KEY": certs[1],
+                "MISAKA_PLANE_TLS_CA": certs[0]} if certs else {})
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device)
+    peer_key = os.urandom(16).hex()
+    peer_http, peer_plane_port = free_port(), free_port()
+    peer_plane = f"127.0.0.1:{peer_plane_port}"
+    fleet_dir = os.path.join(tmp, "fleet")
+    # all four boot at once: the peer, the cost's engine, the second fleet
+    # and the fleet under test (which finds its peer by the pinned ports)
+    specs = [
+        dict(base, label="fleet_peer", MISAKA_HTTP_WORKERS="0", MISAKA_PLANE_SERVE="1",
+             MISAKA_PORT=str(peer_http), MISAKA_PLANE_SOCKET=peer_plane,
+             MISAKA_CHECKPOINT_DIR=os.path.join(tmp, "peer"), MISAKA_API_KEYS=keys,
+             MISAKA_EDGE_INTERNAL_TOKEN=peer_key, **tls_env),
+        dict(base, label="fleet_cost_a", MISAKA_HTTP_WORKERS=str(workers),
+             MISAKA_PLANE_SOCKET=os.path.join(tmp, "a.sock")),
+        dict(base, label="fleet_cost_b", MISAKA_FLEET="2", MISAKA_HTTP_WORKERS=str(workers),
+             MISAKA_FLEET_DIR=os.path.join(tmp, "fleet_b"),
+             MISAKA_FAULTS=f"replica_kill={kill_after_s}"),
+        dict(base, label="fleet", autorun=False, MISAKA_FLEET="2",
+             MISAKA_HTTP_WORKERS=str(workers),
+             MISAKA_FLEET_DIR=fleet_dir, MISAKA_API_KEYS=keys,
+             MISAKA_FLEET_PEERS=f"127.0.0.1:{peer_http}:{peer_plane_port}",
+             MISAKA_FLEET_PEER_KEY=peer_key, **tls_env),
+    ]
+    t0 = time.perf_counter()
+    try:
+        with served_apps(specs) as booted:
+            (_, peer_boot), (cost_a, _), (cost_b, _), (port, boot_s) = booted
+            # the second fleet's kill fires kill_after_s after it is up:
+            # its drills (the fault, then a roll under load) start now,
+            # beside the first fleet's
+            second: dict = {}
+            second_thread = threading.Thread(target=lambda: second.update(second_fleet_drill(
+                cost_b, n_clients // 2, n_streams // 2, stream_values)))
+            second_thread.start()
+            row["boot_s"] = boot_s
+            row["peer_boot_s"] = peer_boot
+            st = poll(lambda: (s := fleet_state(port))["up"] == s["configured"] == 3 and s,
+                      "fleet and peer up", 120.0)
+            expect(frontends.wait_ready(port, timeout=30), "the public port does not answer")
+            row["engines"] = {i: r.get("engine")
+                              for i, r in fleet_get(port, "/status")["replicas"].items()}
+            expect(device == "cpu" or all(e == "fused" for e in row["engines"].values()),
+                   f"a replica is not on the card's kernel: {row['engines']}")
+            # 2. quiescent, first: the restored state is the roll
+            # checkpoint, and each replacement holds its predecessor's
+            # device memory
+            # the fleet boots paused: each replica's device memory before
+            # any chunk ran, then a short serial load gives the state a
+            # history for the roll to carry
+            on_card = device != "cpu"
+            mem_before = fleet_memory(port) if on_card else None
+            expect(call(port, "/run", b"", FLEET_ADMIN)[0] == 200, "fleet /run")
+            serial_load(port, stream_values)
+            expect(call(port, "/pause", b"", FLEET_ADMIN)[0] == 200, "fleet /pause")
+            quiet_report = roll_fleet(port)
+            quiet_report["checkpoint_s"] = roll_checkpoint_seconds("fleet")
+            expect(call(port, "/checkpoint", b"name=verify-b", FLEET_ADMIN)[0] == 200,
+                   "checkpoint verify-b")
+            expect(len(quiet_report["replicas"]) == 3 and quiet_report["replicas"][2]["remote"]
+                   and quiet_report["replicas"][2]["restored"] is False,
+                   f"the peer's roll entry: {quiet_report['replicas'][-1]}")
+            restored = {}
+            for entry in quiet_report["replicas"]:
+                if entry.get("remote"):
+                    continue
+                i = entry["replica"]
+                rdir = os.path.join(fleet_dir, f"replica-{i}")
+                restored[i] = same_state(state_arrays(os.path.join(rdir, "verify-b.npz")),
+                                         state_arrays(entry["checkpoint"]))
+            expect(all(restored.values()) and len(restored) == 2,
+                   f"restored state against the roll checkpoint: {restored}")
+            row["quiescent_roll"] = {"report": quiet_report, "restored_equal": restored}
+            health = fleet_get(port, "/healthz", headers={})
+            row["healthz_running_after_paused_roll"] = health["running"]
+            expect(health["running"] is False, "a paused fleet's roll resumed a replica")
+            if on_card:  # the replacements, restored and paused: no chunk ran
+                row["memory"] = check_roll_memory(mem_before, fleet_memory(port))
+            expect(call(port, "/run", b"", FLEET_ADMIN)[0] == 200, "fleet /run")
+            st = fleet_state(port)
+
+
+            # 3. the load's rate and the replicas' shares of frames
+            before, peer_before = fleet_scrape(port), scrape(peer_http)
+
+            def client(i):
+                if i < n_clients:
+                    for j in range(per_client):
+                        v = i * 10_000 + j
+                        c, _, b = call(port, "/compute", f"value={v}".encode(), FLEET_LOAD)
+                        if c != 200 or json.loads(b) != {"value": v + 2}:
+                            raise RuntimeError(f"/compute {v} -> {c} {b[:80]!r}")
+                else:
+                    rng = np.random.default_rng(SEED + i)
+                    for _ in range(per_client):
+                        vals = rng.integers(-1000, 1000, stream_values).astype("<i4")
+                        c, _, b = call(port, "/compute_raw", vals.tobytes(), FLEET_LOAD)
+                        if c != 200 or not np.array_equal(np.frombuffer(b, "<i4"), vals + 2):
+                            raise RuntimeError(f"/compute_raw -> {c}")
+
+            errors, secs = run_clients(n_clients + n_streams, client)
+            expect(not errors, f"fleet load: {errors[:3]}")
+            after, peer_after = fleet_scrape(port), scrape(peer_http)
+            f0, f1 = plane_frames(before), plane_frames(after)
+            frames = {i: f1.get(i, 0.0) - f0.get(i, 0.0) for i in f1}
+            frames["peer"] = (peer_after.get("misaka_plane_frames_total", 0.0)
+                              - peer_before.get("misaka_plane_frames_total", 0.0))
+            total = sum(frames.values()) or 1.0
+            row["load"] = {
+                "requests_per_s": (n_clients + n_streams) * per_client / secs,
+                "small_requests_per_s": n_clients * per_client / secs,
+                "values_per_s": (n_clients + n_streams * stream_values) * per_client / secs,
+                "seconds": secs, "frames": frames,
+                "frame_share": {i: f / total for i, f in frames.items()},
+            }
+
+            # 4. usage gossip bounds the flooded tenant
+            row["gossip"] = gossip_drill(port, flooders, flood_s)
+            agg = fleet_scrape(port)
+            row["gossip"]["hub_rounds_ok"] = agg.get('misaka_fleet_gossip_total{status="ok"}')
+            expect((row["gossip"]["hub_rounds_ok"] or 0) > 0, "no gossip round")
+
+            # 5. the peer's plane: mTLS served, plaintext refused
+            # the replicas' launches (this fleet is never killed: the
+            # replacements' counts, read before the peer drill)
+            launches = {i: r["kernel_launches"]
+                        for i, r in fleet_get(port, "/status")["replicas"].items()}
+            row["replica_launches"] = launches
+            from misaka_tpu_torch.core import fused
+
+            expect(device == "cpu" or all(k.get(fused.KERNEL, 0) > 0 for k in launches.values()),
+                   f"a replica served without launching the kernel: {launches}")
+            row["peer"] = peer_plane_checks(peer_plane, peer_http, certs)
+            peer_frames = (scrape(peer_http).get("misaka_plane_frames_total", 0.0)
+                           - peer_before.get("misaka_plane_frames_total", 0.0))
+            row["peer"]["router_frames"] = peer_frames
+            expect(peer_frames > 0, "the router sent the peer no frame")
+
+            # launches of the peer (its whole life)
+            peer_status = fleet_get(peer_http, "/status")
+            row["peer_launches"] = peer_status["kernel_launches"]
+            expect(call(peer_http, "/pause", b"", FLEET_ADMIN)[0] == 200, "peer /pause")
+            second_thread.join(timeout=400)
+            expect("failed" not in second and second.get("roll"), f"the second fleet: {second}")
+            fault = second["replica_kill"]
+            expect(fault["errors"] == 0 and fault["restarts_total"] == 1,
+                   f"replica_kill fleet: {fault}")
+            expect(second["kill"]["errors"] == 0, f"kill -9 under load: {second['kill']}")
+            expect(second["roll"]["errors"] == 0, f"roll under load: {second['roll']}")
+            row["replica_kill"] = fault
+            row["kill"] = second["kill"]
+            row["roll_under_load"] = second["roll"]
+
+            # 7. the cost: one engine against a 2-replica fleet, both
+            # behind the workers
+            for p in (cost_a, cost_b):
+                expect(post_form(p, "/run")[0] == 200, "/run")
+                small_requests(p, n_clients, 2, base=7_000_000)
+                expect(post_form(p, "/pause")[0] == 200, "/pause")
+            turns = [{"config": cfg, **cost_turn(cost_a if cfg == "a" else cost_b, n_clients,
+                                                 per_client, n_quiet)}
+                     for cfg in ("a", "b", "b", "a")]
+
+            def mean(cfg, k):
+                return float(np.mean([t[k] for t in turns if t["config"] == cfg]))
+
+            def spread(cfg, k):
+                v = [t[k] for t in turns if t["config"] == cfg]
+                return (max(v) - min(v)) / float(np.mean(v))
+
+            row["cost"] = {"turns": turns, "a": "one engine", "b": "MISAKA_FLEET=2",
+                           "rate_ratio_b_over_a": mean("b", "small_requests_per_s")
+                           / mean("a", "small_requests_per_s"),
+                           "rate_spread_a": spread("a", "small_requests_per_s"),
+                           "rate_spread_b": spread("b", "small_requests_per_s"),
+                           "p50_ratio_b_over_a": mean("b", "p50_ms") / mean("a", "p50_ms")}
+            b_status = status(cost_b)
+            a_status = status(cost_a)
+            row["fleet_launches"] = (
+                sum(k.get(fused.KERNEL, 0) for k in launches.values())
+                + row["peer_launches"].get(fused.KERNEL, 0)
+                + sum(r.get("kernel_launches", {}).get(fused.KERNEL, 0)
+                      for r in b_status["replicas"].values())
+                + a_status["kernel_launches"].get(fused.KERNEL, 0))
+            expect(device == "cpu" or row["fleet_launches"] > 0, "the fleet launched no kernel")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def roll_checkpoint_seconds(label) -> dict[str, float]:
+    """Each replica's and peer's roll checkpoint seconds, from the fleet
+    parent's log (the last roll's line per replica)."""
+    with open(os.path.join(ROOT, "build", f"chip_smoke_{label}.log")) as f:
+        text = f.read()
+    return {f"{kind} {i}": float(secs) for kind, i, secs in re.findall(
+        r"(replica|peer) (\d+): roll checkpoint \S+ written(?: and verified)? in ([0-9.]+)s",
+        text)}
+
+
+def peer_plane_checks(addr, http_port, certs):
+    """A PlaneClient in this process computes on the peer's TCP plane (in
+    mTLS when certs), and a plaintext dial is refused with a counted
+    close."""
+    from misaka_tpu_torch.runtime import frontends
+
+    env = {"MISAKA_PLANE_TLS_CERT": certs[0], "MISAKA_PLANE_TLS_KEY": certs[1],
+           "MISAKA_PLANE_TLS_CA": certs[0]} if certs else {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        client = frontends.PlaneClient(addr, conns=1, timeout=60)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {"tls": certs is not None}
+    try:
+        expect(call(http_port, "/run", b"", FLEET_ADMIN)[0] == 200, "peer /run")
+        vals = np.arange(-64, 64, dtype="<i4")
+        got = np.frombuffer(client.compute_raw(vals.tobytes(), timeout=60, key="fleet-load"),
+                            "<i4")
+        expect(np.array_equal(got, vals + 2), "the peer's plane answered wrong")
+        out["direct_compute_ok"] = True
+    finally:
+        client.close()
+    if certs is not None:
+        before = scrape(http_port).get(
+            'misaka_plane_tls_rejected_total{reason="plaintext"}', 0.0)
+        _, host, port = frontends.parse_plane_addr(addr)
+        raw = socket.create_connection((host, port), timeout=5)
+        try:
+            raw.sendall(b"\x08\x00\x00\x00\x00\x00\x00\x00plaintext!")
+            raw.settimeout(5)
+            try:
+                data = raw.recv(64)
+            except (ConnectionResetError, TimeoutError):
+                data = b""
+        finally:
+            raw.close()
+        expect(data == b"", "a plaintext dial got an answer from the mTLS plane")
+        after = poll(lambda: scrape(http_port).get(
+            'misaka_plane_tls_rejected_total{reason="plaintext"}', 0.0) > before and True,
+                     "the plaintext refusal counted", 10.0)
+        out["plaintext_refused"] = bool(after)
+    return out
 
 
 def cuda_time_ms(fn, reps):
@@ -4011,6 +4649,7 @@ def main() -> int:
     registry_row = timed("registry", phase_registry, card=smi)
     telemetry_row = timed("telemetry", phase_telemetry, card=smi)
     observatory_row = timed("observatory", phase_observatory, card=smi)
+    fleet_row = timed("fleet", phase_fleet, card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -4028,7 +4667,7 @@ def main() -> int:
             "launches": main_row["kernel_launches"][fused.KERNEL]
             + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
             + registry_row["kernel_launches"] + telemetry_row["kernel_launches"]
-            + observatory_row["kernel_launches"],
+            + observatory_row["kernel_launches"] + fleet_row["fleet_launches"],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -4052,6 +4691,10 @@ def main() -> int:
             # the observatory phase's servers (the killed one read before
             # the kill) and its in-process rotation engine
             "observatory_launches": observatory_row["kernel_launches"],
+            # the fleet phase's engines: its replicas read before the kill,
+            # the peer, the replica_kill fleet's replicas and the cost's
+            # single engine
+            "fleet_launches": fleet_row["fleet_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

@@ -66,14 +66,38 @@ Environment:
                      (runtime/frontends.py) share MISAKA_PORT over
                      SO_REUSEPORT and feed this engine over a compute plane
                      at MISAKA_PLANE_SOCKET (default <tmp>/misaka-plane-
-                     <pid>.sock; host:port for plaintext TCP); the engine's
-                     own HTTP server moves to a free port as their proxy
-                     target, and /healthz and /status carry `frontends`.
+                     <pid>.sock; host:port for TCP); the engine's own HTTP
+                     server moves to a free port as their proxy target, and
+                     /healthz and /status carry `frontends`.
                      MISAKA_PLANE_CONNS connections per worker (default 2)
   MISAKA_PLANE_SERVE "1" serves the compute plane beside the engine's own
                      listener when there are no workers
   MISAKA_PLANE_WINDOW_US / _PIPELINE / _SHM / _SECRET[_FILE] / _DEPTH_MAX
                      the plane's knobs (runtime/frontends.py, runtime/edge.py)
+  MISAKA_PLANE_TLS_CERT / _KEY / _CA  mutual TLS on TCP compute planes
+                     (all three or none; unix planes ignore them), hot
+                     reloaded on a change of the files
+  MISAKA_FLEET       N >= 1 makes this process the fleet parent
+                     (runtime/fleet.py): N engine replicas, each this app
+                     in a subprocess on a loopback port and a plane socket
+                     under MISAKA_FLEET_DIR (default MISAKA_CHECKPOINT_DIR,
+                     else <tmp>/misaka-fleet-<pid>), the frontend workers
+                     routing across them (MISAKA_HTTP_WORKERS, default
+                     max(2, N); MISAKA_PLANE_CONNS default 1 for N > 1) and
+                     the control server (aggregated /metrics, /status,
+                     /healthz, POST /fleet/roll).  MISAKA_FLEET_PROBE_S
+                     (0.5), _DRAIN_S (30), _DOWN_GRACE_S (5: the router's
+                     wait before the typed 503; a zero-loss roll needs
+                     N >= 2), MISAKA_FLEET_PEERS (host:port[:planeport],...
+                     remote replicas probed, routed and rolled) with
+                     MISAKA_FLEET_PEER_KEY (their admin key),
+                     MISAKA_GOSSIP_S (usage gossip cadence, 0.5; 0 off).
+                     The parent sets MISAKA_FLEET_REPLICA (the replica's
+                     index) and MISAKA_FLEET_RESTORE (a roll replacement's
+                     checkpoint, restored before any traffic in place of
+                     the auto-restore) for its replicas; it also sets
+                     MISAKA_NATIVE_THREADS as the reference does, which the
+                     port's replicas ignore (no native tier, ROADMAP A.8)
   MISAKA_API_KEYS    the API key file: arms auth on every route but
                      /healthz and /metrics (runtime/edge.py); the app then
                      mints MISAKA_EDGE_INTERNAL_TOKEN unless it is set
@@ -135,9 +159,8 @@ Environment:
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
-MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), MISAKA_FLEET,
-MISAKA_PLANE_TLS_CERT/KEY/CA and a comma-separated MISAKA_PLANE_SOCKET
-(A.6) and MISAKA_COORDINATOR (A.7).  The reference's native C++ edge
+MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5) and
+MISAKA_COORDINATOR (A.7).  The reference's native C++ edge
 (MISAKA_NATIVE_EDGE) is not ported (A.8): the CPython workers take the
 public port, as the reference's do when its native edge is unavailable,
 with one logged line.
@@ -230,12 +253,9 @@ def check_env(environ=os.environ) -> None:
         _refuse("MISAKA_MODE=distributed: the distributed master (programs in "
                 "per-process peers) is not ported yet (ROADMAP A.5)")
     try:
-        frontends.check_plane_addr(plane_path(environ), environ)
-    except NotImplementedError as e:
-        _refuse(f"MISAKA_PLANE_SOCKET/MISAKA_PLANE_TLS_*: {e}")
-    if int(environ.get("MISAKA_FLEET", "0") or 0) >= 1:
-        _refuse("MISAKA_FLEET: the replicated engine fleet is not ported yet "
-                "(ROADMAP A.6)")
+        edge.plane_tls_from_env(environ)
+    except (ValueError, OSError) as e:
+        raise SystemExit(f"MISAKA_PLANE_TLS_*: {e}") from None
     if environ.get("MISAKA_COORDINATOR"):
         _refuse("MISAKA_COORDINATOR: multi-host serving is not ported yet "
                 "(ROADMAP A.7)")
@@ -260,7 +280,9 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
 
 def arm_autockpt(master: MasterNode, environ=os.environ) -> AutoCheckpointer | None:
     """MISAKA_AUTOCKPT: restore the newest valid auto snapshot, then keep
-    snapshotting on the interval (None when unset)."""
+    snapshotting on the interval (None when unset).  A fleet roll's
+    replacement (MISAKA_FLEET_RESTORE) skips the restore: its roll
+    checkpoint, loaded next, is newer."""
     interval = float(environ.get("MISAKA_AUTOCKPT", "0") or 0)
     if interval <= 0:
         return None
@@ -268,11 +290,14 @@ def arm_autockpt(master: MasterNode, environ=os.environ) -> AutoCheckpointer | N
     if not checkpoint_dir:
         raise SystemExit("MISAKA_AUTOCKPT requires MISAKA_CHECKPOINT_DIR (snapshots "
                          "need a directory to rotate in)")
-    restored = AutoCheckpointer.restore_latest(master, checkpoint_dir)
-    if restored:
-        log.info("auto-restored checkpoint %s", restored)
+    if environ.get("MISAKA_FLEET_RESTORE"):
+        log.info("skipping auto-restore: fleet roll checkpoint takes precedence")
     else:
-        log.info("no valid auto checkpoint under %s; fresh state", checkpoint_dir)
+        restored = AutoCheckpointer.restore_latest(master, checkpoint_dir)
+        if restored:
+            log.info("auto-restored checkpoint %s", restored)
+        else:
+            log.info("no valid auto checkpoint under %s; fresh state", checkpoint_dir)
     return AutoCheckpointer(master, checkpoint_dir, interval,
                             keep=int(environ.get("MISAKA_AUTOCKPT_KEEP", "4")))
 
@@ -339,6 +364,17 @@ def main() -> None:
         install(level=logging.INFO)
     else:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    check_env(environ)
+    fleet_n = int(environ.get("MISAKA_FLEET", "0") or 0)
+    if fleet_n >= 1 and not environ.get("MISAKA_FLEET_REPLICA"):
+        # the fleet parent (runtime/fleet.py): N replicas of this app, the
+        # frontend workers routing across them and the control server.  A
+        # 1-replica roll leaves a gap (a boot outlasts the router's down
+        # grace): zero-loss rolls need N >= 2
+        from misaka_tpu_torch.runtime.fleet import run_fleet
+
+        run_fleet(fleet_n, environ)
+        return
     master = build_master_from_env(environ)
     autockpt = httpd = pidfile = plane = supervisor = registry = None
 
@@ -371,6 +407,12 @@ def main() -> None:
         # inherit it through the env), as the reference mints it
         environ["MISAKA_EDGE_INTERNAL_TOKEN"] = os.urandom(16).hex()
     autockpt = arm_autockpt(master, environ)
+    fleet_restore = environ.get("MISAKA_FLEET_RESTORE")
+    if fleet_restore:
+        # a roll's replacement replica: its drained predecessor's verified
+        # checkpoint, before any traffic or autorun
+        master.load_checkpoint(fleet_restore)
+        log.info("restored fleet roll checkpoint %s", fleet_restore)
     registry = build_registry_from_env(master, environ)
     port = int(environ.get("MISAKA_PORT", "8000"))
     workers = int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0)

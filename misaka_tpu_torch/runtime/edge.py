@@ -32,10 +32,12 @@ The `cpu` quota stage reads a program's cpu_seconds from the usage ledger
 through the `cpu_reader` the engine passes (a chain without one never runs
 the stage); the admission signals carry the SLO engine's page bit
 (utils/slo.py); the `overload[:<tenant>]` and `quota_exhaust` fault points
-(utils/faults.py) force a shed at the admission and quota sites.  Left
-out, each with its ROADMAP item: plane mTLS (A.6) and the native edge's
-state push (A.8).  Stdlib only, plus the port's stdlib-only utils: the
-frontend workers import this module.
+(utils/faults.py) force a shed at the admission and quota sites.  The
+TCP compute plane's mTLS material (MISAKA_PLANE_TLS_CERT/KEY/CA,
+`PlaneTLSReloader`, hot-reloaded on a rotation) and its typed reject
+counter live here too.  Left out: the native edge's state push (ROADMAP
+A.8).  Stdlib only, plus the port's stdlib-only utils: the frontend
+workers import this module.
 """
 
 from __future__ import annotations
@@ -67,6 +69,17 @@ M_EDGE_REJECTED = metrics.counter(
     "Requests rejected at the edge, by reason "
     "(unauthenticated/forbidden/rate/values/cpu/overload) and tenant",
     ("reason", "tenant"),
+)
+M_PLANE_TLS_REJECTED = metrics.counter(
+    "misaka_plane_tls_rejected_total",
+    "Plane connections refused at the mTLS gate, by reason "
+    "(plaintext/bad_cert/handshake)",
+    ("reason",),
+)
+M_PLANE_TLS_RELOADS = metrics.counter(
+    "misaka_plane_tls_reloads_total",
+    "Plane TLS cert/key/CA hot-reload attempts, by status (ok/error)",
+    ("status",),
 )
 M_EDGE_TOKENS = metrics.counter(
     "misaka_edge_tokens_total",
@@ -964,6 +977,119 @@ def drain_or_close(handler, max_drain: int = 65536) -> None:
         handler.rfile.read(length)
     else:
         handler.close_connection = True
+
+
+# --- plane mTLS (TCP transport) -----------------------------------------------
+
+
+class PlaneTLSReloader:
+    """Hot-reloadable mTLS contexts for the TCP compute plane.
+
+    MISAKA_PLANE_TLS_CERT/KEY/CA name this process's certificate, its key
+    and the pinned fleet CA.  Both sides authenticate: the plane server
+    requires a client certificate the CA signed (CERT_REQUIRED), and the
+    client verifies the server's chain against the same CA.  Hostnames are
+    not checked: identity here is CA membership, not a DNS name.
+
+    Rotation without a restart: the three files' mtime and size are stat'd
+    at most every 0.5 s; a change rebuilds both contexts, and new
+    connections take them while established sessions stream on.  A
+    rebuild that fails (files half written mid-rotation) keeps the
+    previous contexts and counts misaka_plane_tls_reloads_total{status=
+    "error"}; the stamp is recorded, so the broken files are not re-parsed
+    on every dial, and the next change retries."""
+
+    def __init__(self, cert: str, key: str, ca: str):
+        self.cert, self.key, self.ca = cert, key, ca
+        self._lock = threading.Lock()
+        self._next_stat = 0.0
+        self._stamp = self._stat()  # missing files raise: fail loud
+        # and so does a first build that fails: a plane that ran plaintext
+        # after a bad certificate would be worse than one that refused
+        self._server, self._client = self._make()
+
+    def _stat(self) -> tuple:
+        out = []
+        for p in (self.cert, self.key, self.ca):
+            st = os.stat(p)
+            out.append((st.st_mtime, st.st_size))
+        return tuple(out)
+
+    def _make(self) -> tuple[ssl.SSLContext, ssl.SSLContext]:
+        server = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        server.minimum_version = ssl.TLSVersion.TLSv1_2
+        server.load_cert_chain(self.cert, self.key)
+        server.load_verify_locations(self.ca)
+        server.verify_mode = ssl.CERT_REQUIRED
+        # no TLS 1.3 session tickets: a plane resumes no session (every
+        # dial is a full handshake), and a ticket arriving while a peer's
+        # receiver reads and its dispatcher writes one session is the
+        # race that stalls frames (the JAX package's client runs so)
+        server.num_tickets = 0
+        client = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        client.minimum_version = ssl.TLSVersion.TLSv1_2
+        client.load_cert_chain(self.cert, self.key)
+        client.load_verify_locations(self.ca)
+        client.check_hostname = False  # CA-pinned, not DNS identity
+        client.verify_mode = ssl.CERT_REQUIRED
+        return server, client
+
+    def _maybe_reload(self) -> None:
+        now = time.monotonic()
+        if now < self._next_stat:
+            return
+        with self._lock:
+            if now < self._next_stat:
+                return
+            self._next_stat = now + 0.5
+            try:
+                stamp = self._stat()
+            except OSError:
+                return  # a rename window mid-rotation: keep serving
+            if stamp == self._stamp:
+                return
+            self._stamp = stamp
+            try:
+                server, client = self._make()
+            except (OSError, ssl.SSLError, ValueError) as e:
+                M_PLANE_TLS_RELOADS.labels(status="error").inc()
+                log.error("edge: plane TLS reload failed (%s); keeping the previous "
+                          "certificates", e)
+                return
+            self._server, self._client = server, client
+            M_PLANE_TLS_RELOADS.labels(status="ok").inc()
+            log.info("edge: plane TLS certificates reloaded from %s", self.cert)
+
+    def server_context(self) -> ssl.SSLContext:
+        self._maybe_reload()
+        return self._server
+
+    def client_context(self) -> ssl.SSLContext:
+        self._maybe_reload()
+        return self._client
+
+
+def plane_tls_from_env(environ=os.environ) -> PlaneTLSReloader | None:
+    """The plane's mTLS material from MISAKA_PLANE_TLS_CERT/KEY/CA (None
+    when all three are unset: a TCP plane then runs plaintext behind the
+    HMAC handshake).  A partial triple raises, and so do files that fail
+    to load."""
+    cert = environ.get("MISAKA_PLANE_TLS_CERT")
+    key = environ.get("MISAKA_PLANE_TLS_KEY")
+    ca = environ.get("MISAKA_PLANE_TLS_CA")
+    if not cert and not key and not ca:
+        return None
+    if not (cert and key and ca):
+        raise ValueError("MISAKA_PLANE_TLS_CERT, MISAKA_PLANE_TLS_KEY and "
+                         "MISAKA_PLANE_TLS_CA must be set together")
+    return PlaneTLSReloader(cert, key, ca)
+
+
+def count_plane_tls_reject(reason: str) -> None:
+    """One plane connection refused at the mTLS gate (a typed, counted
+    close)."""
+    M_PLANE_TLS_REJECTED.labels(
+        reason=reason if reason in ("plaintext", "bad_cert") else "handshake").inc()
 
 
 # --- compute-plane shared secret ---------------------------------------------

@@ -37,10 +37,19 @@ observes each request's latency from the moment the worker took it
 capture record per frame and ingests the workers' locally terminated
 rejects, which ride the next frame (runtime/capture.py); and the chaos
 points plane_partition, plane_delay, replica_blackhole and worker_exit
-fire at the reference's sites (utils/faults.py).  Left out, each with its
-ROADMAP item: the fleet router across replicas and plane mTLS (A.6: a
-comma-separated plane path and MISAKA_PLANE_TLS_* refuse), and the native
-C++ edge (A.8).
+fire at the reference's sites (utils/faults.py).
+
+The fleet (runtime/fleet.py): a comma-separated plane path makes a worker
+route across N engine replicas through `FleetPlaneRouter` (least queue
+depth for stateless compute, the program's consistent-hash owner for
+addressed compute, a failed frame hedged onto a sibling, drain reroutes
+absorbed, the typed 503 only when the whole fleet stays down past
+MISAKA_FLEET_DOWN_GRACE_S).  A TCP plane (`host:port`) is wrapped in
+mutual TLS when MISAKA_PLANE_TLS_CERT/KEY/CA are set (runtime/edge.py
+`PlaneTLSReloader`), the HMAC handshake running inside the session; a
+peer refused at the gate is a typed, counted close.  One thread reads an
+mTLS socket and writes to it go through one lock (or one thread), never
+two at once.  Left out: the native C++ edge (ROADMAP A.8).
 
 This module imports the standard library and the port's stdlib-only
 modules only: a frontend worker never pays the torch import or its memory.
@@ -89,6 +98,11 @@ M_FE_CONFIGURED = metrics.gauge(
 M_PLANE_FRAMES = metrics.counter(
     "misaka_plane_frames_total",
     "Compute-plane frames served by this engine replica",
+)
+M_PLANE_HEDGED = metrics.counter(
+    "misaka_plane_hedged_requests_total",
+    "Requests served here after being hedged away from a failed sibling "
+    "replica (fleet router failover)",
 )
 M_PLANE_DRAIN_REROUTES = metrics.counter(
     "misaka_plane_drain_reroutes_total",
@@ -154,7 +168,8 @@ G_PLANE_PIPE_DEPTH = metrics.gauge(
 G_PLANE_PIPE_DEPTH.set_function(_PIPE_DEPTH_WINDOW.read)
 
 # The compute-plane wire format (a SOCK_STREAM: a unix socket path, or
-# `host:port` for plaintext TCP, parse_plane_addr):
+# `host:port` for TCP, parse_plane_addr, in mTLS when
+# MISAKA_PLANE_TLS_CERT/KEY/CA are set):
 #   request:  <I n_values> <I n_meta_bytes>
 #             <n_values * 4 bytes little-endian int32>
 #             <n_meta_bytes of UTF-8 JSON metadata; absent (0) when the
@@ -166,7 +181,9 @@ G_PLANE_PIPE_DEPTH.set_function(_PIPE_DEPTH_WINDOW.read)
 # With MISAKA_PLANE_SECRET set, every connection opens with the 32-byte
 # HMAC handshake (runtime/edge.py) before its first frame.  The metadata
 # is a JSON object {"program": name-or-null, "traces": [...], "key": ...,
-# "reqs": n, "shed": [[tenant, reason, count], ...]}; each traces entry
+# "reqs": n, "shed": [[tenant, reason, count], ...], "hedged": k}; `hedged`
+# counts the frame's requests a fleet router re-routed here after a
+# sibling failed them (misaka_plane_hedged_requests_total); each traces entry
 # covers one traced request of the frame:
 # {"id", "off", "len", "spans": [[name, start_monotonic_s, dur_s], ...]},
 # the spans the frontend completed (http.parse, frontend.coalesce), so the
@@ -191,8 +208,6 @@ PLANE_SHM_OK = 298
 MAX_FRAME_VALUES = 1 << 20
 
 _PROGRAM_COMPUTE_RE = re.compile(r"^/programs/([^/]+)/(compute|compute_batch|compute_raw)$")
-
-_PLANE_TLS_VARS = ("MISAKA_PLANE_TLS_CERT", "MISAKA_PLANE_TLS_KEY", "MISAKA_PLANE_TLS_CA")
 
 
 def plane_shm_enabled() -> bool:
@@ -232,18 +247,29 @@ def parse_plane_addr(path: str) -> tuple[str, str, int | None]:
     return "unix", path, None
 
 
-def check_plane_addr(path: str, environ=os.environ) -> None:
-    """Raise NotImplementedError for what only the fleet serves: several
-    plane paths (the fleet router) and plane mTLS (ROADMAP A.6)."""
-    if "," in path:
-        raise NotImplementedError(
-            f"plane path {path!r}: routing across several engine planes is the fleet "
-            "router, not ported yet (ROADMAP A.6)")
-    tls = [v for v in _PLANE_TLS_VARS if environ.get(v)]
-    if tls:
-        raise NotImplementedError(
-            f"{'/'.join(tls)}: plane mTLS belongs to the multi-host fleet, not ported "
-            "yet (ROADMAP A.6)")
+def _classify_tls_reject(e: BaseException) -> str:
+    """A failed plane-TLS handshake's typed close reason: "plaintext" (a
+    peer speaking raw frames or HTTP at a TLS listener), "bad_cert" (a
+    certificate outside the pinned CA, or none), else "handshake"."""
+    s = str(e).upper()
+    if "CERTIFICATE" in s or "UNKNOWN_CA" in s or "ALERT" in s:
+        return "bad_cert"
+    if ("WRONG_VERSION" in s or "UNKNOWN_PROTOCOL" in s or "HTTP_REQUEST" in s
+            or "RECORD" in s or "PACKET_LENGTH" in s):
+        return "plaintext"
+    return "handshake"
+
+
+def _shutdown_socket(sock) -> None:
+    """Wake the thread reading `sock` with EOF; that thread closes it.
+    A socket is closed only by its reader: closed under a reader, its
+    descriptor can be reused by a new connection while the reader's TLS
+    session still polls and reads that number (the new connection's bytes
+    then go to the old session)."""
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:
@@ -270,7 +296,7 @@ class _Meta:
     """One compute frame's decoded metadata."""
 
     __slots__ = ("program", "key", "reqs", "shed", "traces", "probe", "shm_arm", "shm_vals",
-                 "shm_seg", "edge", "cap")
+                 "shm_seg", "edge", "cap", "hedged")
 
     def __init__(self):
         self.program = None
@@ -284,6 +310,7 @@ class _Meta:
         self.shm_seg = None    # (segment, size) of an inline shm frame
         self.edge = []         # per-request worker receive times (SLO armed)
         self.cap = None        # {"segs", "rej"} while the recorder runs
+        self.hedged = 0        # requests re-routed here after a sibling failed them
 
 
 def _parse_meta(blob: bytes) -> _Meta:
@@ -303,6 +330,7 @@ def _parse_meta(blob: bytes) -> _Meta:
             segs = obj.get("traces", ())
             edge_raw = obj.get("edge", ())
             meta.probe = bool(obj.get("probe"))
+            meta.hedged = int(obj.get("hedged") or 0)
             meta.reqs = max(1, int(obj.get("reqs") or 1))
             meta.shed = obj.get("shed") or []
             if obj.get("shm") is not None:
@@ -376,10 +404,12 @@ class ComputePlane:
     whole frame: the frontend already coalesced its requests) and writes
     the outputs back.  Up to MISAKA_PLANE_PIPELINE frames of one
     connection (default 4) are in flight at once; responses ship in frame
-    order."""
+    order.  A TCP plane with MISAKA_PLANE_TLS_CERT/KEY/CA set wraps each
+    accepted connection in server-side mTLS on its own thread; a unix
+    plane never leaves the host and ignores them."""
 
-    def __init__(self, master, path: str, timeout: float = 30.0, registry=None):
-        check_plane_addr(path)
+    def __init__(self, master, path: str, timeout: float = 30.0, registry=None,
+                 replica_label: str | None = None):
         self._master = master
         # the program registry when multi-program serving is armed: frames
         # then resolve their engine through a registry lease.  This module
@@ -387,16 +417,19 @@ class ComputePlane:
         # lease's KeyError (ProgramNotFound), answered as 404.
         self._registry = registry
         # which fleet replica this plane serves (scopes replica_blackhole)
-        self._replica_label = os.environ.get("MISAKA_FLEET_REPLICA") or None
+        self._replica_label = (replica_label if replica_label is not None
+                               else os.environ.get("MISAKA_FLEET_REPLICA") or None)
         self._timeout = timeout
         self._secret = edge_mod.plane_secret()
         self.path = path
         self._family, bind_host, bind_port = parse_plane_addr(path)
         if self._family == "tcp":
+            self._tls = edge_mod.plane_tls_from_env()
             self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             self._sock.bind((bind_host, bind_port))
         else:
+            self._tls = None
             if os.path.exists(path):
                 os.unlink(path)
             self._sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -444,14 +477,7 @@ class ComputePlane:
         with self._conns_lock:
             conns = list(self._conns)
         for c in conns:
-            try:
-                c.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-            try:
-                c.close()
-            except OSError:
-                pass
+            _shutdown_socket(c)  # each connection's thread closes its own
         self._accept_thread.join(timeout=2)
 
     def set_draining(self, on: bool) -> None:
@@ -518,6 +544,8 @@ class ComputePlane:
             M_PLANE_FRAMES.inc()
             if meta.shm_vals is not None:
                 M_PLANE_SHM_FRAMES.inc()
+            if meta.hedged:
+                M_PLANE_HEDGED.inc(meta.hedged)
             if meta.shed:
                 # the worker's shed-cache hits since its last frame: booked
                 # here, so the rejected series covers the whole door (a
@@ -636,14 +664,53 @@ class ComputePlane:
             with self._inflight_lock:
                 self._inflight -= 1
 
+    def _tls_accept(self, raw: socket.socket) -> socket.socket | None:
+        """Wrap one accepted TCP connection in server-side mTLS, on its
+        own thread (never in the accept loop: one silent peer would stall
+        every dial).  A peer that fails the handshake (plaintext bytes, a
+        certificate outside the pinned CA) gets a typed, counted close
+        before any frame byte is read; None then."""
+        conn = raw
+        try:
+            conn = self._tls.server_context().wrap_socket(
+                raw, server_side=True, do_handshake_on_connect=False)
+            conn.do_handshake()
+        except (ssl.SSLError, OSError) as e:
+            if not self._closed:  # close()'s wake-up dial is not a peer
+                reason = _classify_tls_reject(e)
+                edge_mod.count_plane_tls_reject(reason)
+                log.warning("compute plane: refused %s peer at the mTLS gate: %s", reason, e)
+            with self._conns_lock:
+                self._conns.discard(raw)
+            for sk in (conn, raw):
+                try:
+                    sk.close()
+                except OSError:
+                    pass
+            return None
+        # the wrapped socket owns the descriptor now: close() severs it
+        with self._conns_lock:
+            self._conns.discard(raw)
+            self._conns.add(conn)
+        return conn
+
     def _serve_conn(self, conn: socket.socket) -> None:
+        if self._tls is not None:
+            conn = self._tls_accept(conn)
+            if conn is None:
+                return
         # Pipelining: up to `pipe_depth` frames of this connection go
         # through the scheduler at once while the reader keeps reading.
         # Responses ship in frame order through a chain of done events
         # (the wire carries no frame ids: FIFO pairing is the protocol).
         # Probes, shm arming, shm frames and the reader's error replies
         # first wait for the chain's tail.
-        pipe_depth = max(1, int(os.environ.get("MISAKA_PLANE_PIPELINE", "") or 4))
+        # an mTLS connection serves its frames inline: this thread alone
+        # reads and writes the session (a pipelined response written
+        # while this thread sits in a read is what one TLS session must
+        # not see)
+        pipe_depth = (1 if self._tls is not None
+                      else max(1, int(os.environ.get("MISAKA_PLANE_PIPELINE", "") or 4)))
         send_lock = threading.Lock()
         conn_dead = [False]
         conn_depth = [0]
@@ -657,6 +724,11 @@ class ComputePlane:
                 prev.wait()
             if conn_dead[0]:
                 raise ConnectionError("plane connection is closed")
+            send(data)
+
+        def send(data: bytes) -> None:
+            # every write takes the lock: an mTLS session must never see
+            # two writers at once (the reader thread is its one reader)
             with send_lock:
                 conn.sendall(data)
 
@@ -694,7 +766,7 @@ class ComputePlane:
                 if n > MAX_FRAME_VALUES:
                     drain_pipeline()
                     body = b"frame exceeds MAX_FRAME_VALUES"
-                    conn.sendall(_RESP_HDR.pack(413, len(body)) + body)
+                    send(_RESP_HDR.pack(413, len(body)) + body)
                     return  # protocol state is unrecoverable past this
                 raw = _recv_exact(conn, n * 4)
                 blob = _recv_exact(conn, n_meta) if n_meta else b""
@@ -703,7 +775,7 @@ class ComputePlane:
                 except _BadMeta as e:
                     drain_pipeline()  # error replies keep frame order
                     body = f"malformed plane metadata: {e}".encode()
-                    conn.sendall(_RESP_HDR.pack(400, len(body)) + body)
+                    send(_RESP_HDR.pack(400, len(body)) + body)
                     continue
                 if meta.shm_arm is not None:
                     drain_pipeline()  # nobody may still read the old segment
@@ -713,22 +785,22 @@ class ComputePlane:
                     try:
                         shm_state[0] = _attach_shm(meta.shm_arm["name"], meta.shm_arm["size"])
                         shm_state[1] = int(meta.shm_arm["size"])
-                        conn.sendall(_RESP_HDR.pack(PLANE_SHM_OK, 0))
+                        send(_RESP_HDR.pack(PLANE_SHM_OK, 0))
                     except (OSError, ValueError) as e:
                         body = f"shm attach failed: {e}".encode()
-                        conn.sendall(_RESP_HDR.pack(400, len(body)) + body)
+                        send(_RESP_HDR.pack(400, len(body)) + body)
                     continue
                 if meta.shm_vals is not None:
                     if (shm_state[0] is None or meta.shm_vals * 4 > shm_state[1]
                             or meta.shm_vals > MAX_FRAME_VALUES):
                         drain_pipeline()
                         body = b"shm frame without a valid armed segment"
-                        conn.sendall(_RESP_HDR.pack(400, len(body)) + body)
+                        send(_RESP_HDR.pack(400, len(body)) + body)
                         return  # transport misuse: unrecoverable
                     n = meta.shm_vals
                 if meta.probe:
                     drain_pipeline()
-                    conn.sendall(_RESP_HDR.pack(
+                    send(_RESP_HDR.pack(
                         PLANE_DRAINING if self._draining else 200, 0))
                     continue
                 # the in-flight count is taken before the drain check, so
@@ -792,9 +864,10 @@ class ComputePlane:
                 pass
 
 
-def start_compute_plane(master, path: str, timeout: float = 30.0,
-                        registry=None) -> ComputePlane:
-    return ComputePlane(master, path, timeout=timeout, registry=registry)
+def start_compute_plane(master, path: str, timeout: float = 30.0, registry=None,
+                        replica_label: str | None = None) -> ComputePlane:
+    return ComputePlane(master, path, timeout=timeout, registry=registry,
+                        replica_label=replica_label)
 
 
 # --- frontend side --------------------------------------------------------------
@@ -811,9 +884,9 @@ class PlaneError(RuntimeError):
 
 class _PlaneRequest:
     __slots__ = ("body", "out", "error", "event", "cancelled", "trace", "enqueued", "program",
-                 "key", "replayed")
+                 "key", "replayed", "hedged")
 
-    def __init__(self, body: bytes, trace=None, program=None, key=None):
+    def __init__(self, body: bytes, trace=None, program=None, key=None, hedged=False):
         self.body = body          # raw little-endian int32 values
         self.out: bytes | None = None
         self.error: PlaneError | None = None
@@ -824,20 +897,22 @@ class _PlaneRequest:
         self.program = program    # registry address (None: the default network)
         self.key = key            # API key (frames pack per (program, key))
         self.replayed = False     # one stale-socket requeue per request
+        self.hedged = hedged      # re-routed here after a sibling replica failed it
 
 
 class _Shipment:
     """One in-flight frame on a pipelined plane connection."""
 
-    __slots__ = ("batch", "traced", "t_ship", "use_shm", "shed", "replay_ok")
+    __slots__ = ("batch", "traced", "t_ship", "use_shm", "shed", "replay_ok", "sent")
 
-    def __init__(self, batch, traced, t_ship, use_shm, shed, replay_ok):
+    def __init__(self, batch, traced, t_ship, use_shm, shed, replay_ok, sent=True):
         self.batch = batch
         self.traced = traced
         self.t_ship = t_ship
         self.use_shm = use_shm
         self.shed = shed            # the worker's shed counts riding this frame
         self.replay_ok = replay_ok  # not the first frame on a fresh dial
+        self.sent = sent            # its bytes are written (mTLS: the receiver waits)
 
 
 class PlaneClient:
@@ -850,13 +925,21 @@ class PlaneClient:
     frame is in flight a dispatcher waits MISAKA_PLANE_WINDOW_US (default
     300) to gather more requests; an idle plane dispatches at once.  Up to
     MISAKA_PLANE_PIPELINE frames (default 4; 1 with the shared-memory
-    plane) are outstanding per connection."""
+    plane) are outstanding per connection.  A TCP plane dials in mTLS when
+    MISAKA_PLANE_TLS_CERT/KEY/CA are set; per socket the dispatcher is the
+    one writer and one receiver thread the one reader.  `replica` is the
+    fleet slot this client serves (None: a single engine)."""
 
-    def __init__(self, path: str, conns: int = 2, timeout: float = 60.0):
-        check_plane_addr(path)
+    def __init__(self, path: str, conns: int = 2, timeout: float = 60.0,
+                 replica: int | None = None):
         self._path = path
         self._timeout = timeout
         self._secret = edge_mod.plane_secret()  # read once, not per reconnect
+        self._family = parse_plane_addr(path)[0]
+        # client-side mTLS for TCP planes only; the reloader re-stats the
+        # files, so a rotation reaches new dials without a restart
+        self._tls = edge_mod.plane_tls_from_env() if self._family == "tcp" else None
+        self.replica = replica
         # dial-storm guard: a dead peer is not re-dialed in a tight loop
         self._dial_backoff = Backoff(base=0.05, cap=2.0)
         self._next_dial = 0.0
@@ -921,10 +1004,12 @@ class PlaneClient:
                     self._shed[k] = self._shed.get(k, 0) + cnt
 
     def compute_raw(self, body: bytes, timeout: float = 30.0, program: str | None = None,
-                    key: str | None = None) -> bytes:
+                    key: str | None = None, hedged: bool = False) -> bytes:
         """One request's raw int32 body in, its raw int32 outputs out.
-        Frames coalesce strictly per (program, key)."""
-        req = _PlaneRequest(body, trace=tracespan.current(), program=program, key=key)
+        Frames coalesce strictly per (program, key).  `hedged` marks a
+        request a fleet router re-routed here after a sibling failed it."""
+        req = _PlaneRequest(body, trace=tracespan.current(), program=program, key=key,
+                            hedged=hedged)
         with self._cond:
             self._pending.append(req)
             self._cond.notify()
@@ -947,11 +1032,15 @@ class PlaneClient:
             if fam == "tcp":
                 sock = socket.create_connection((host, port), timeout=self._timeout)
                 sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                if self._tls is not None:
+                    sock = self._tls.client_context().wrap_socket(sock, server_hostname=host)
             else:
                 sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
                 sock.settimeout(self._timeout)
                 sock.connect(self._path)
         except OSError:
+            # ssl.SSLError is an OSError: a peer refusing our certificate
+            # backs off as a dead one does
             self._next_dial = time.monotonic() + self._dial_backoff.next_delay()
             raise
         self._dial_backoff.reset()
@@ -1048,11 +1137,8 @@ class PlaneClient:
                 if outstanding:
                     with self._cond:
                         self._inflight -= len(outstanding)
-            try:
-                if sock is not None:
-                    sock.close()
-            except OSError:
-                pass
+            if sock is not None:
+                _shutdown_socket(sock)  # its receiver closes it
             replay = responded == 0 and not isinstance(exc, TimeoutError)
             requeue: list = []
             failed: list = []
@@ -1072,8 +1158,19 @@ class PlaneClient:
                     self._cond.notify_all()
 
         def receiver(sock: socket.socket, gen_id: int, seg) -> None:
+            serial = isinstance(sock, ssl.SSLSocket)
             try:
                 while True:
+                    if serial:
+                        # mTLS: read only while a written frame awaits its
+                        # answer, never while the dispatcher writes (one
+                        # TLS session must not be read and written at once)
+                        with cond:
+                            while (gen["id"] == gen_id and not gen["dead"]
+                                   and not (gen["outstanding"] and gen["outstanding"][0].sent)):
+                                cond.wait(0.5)
+                            if gen["id"] != gen_id or gen["dead"]:
+                                return
                     # an idle connection parks here; with frames
                     # outstanding, the oldest gets its full timeout from
                     # its ship time before the replica counts as silent
@@ -1105,14 +1202,16 @@ class PlaneClient:
                             off += len(r.body)
                     else:
                         err = PlaneError(status, _recv_exact(sock, length))
-                        if status == PLANE_DRAINING:
-                            # a single engine has no sibling to reroute to
+                        if status == PLANE_DRAINING and self.replica is None:
+                            # a single engine has no sibling to reroute to;
+                            # a fleet router reads the raw status
                             err = PlaneError(503, err.body)
                         for r in shp.batch:
                             r.error = err
                     dur = time.monotonic() - shp.t_ship
+                    attrs = {"replica": self.replica} if self.replica is not None else None
                     for r in shp.traced:
-                        tracespan.add_span(r.trace, "plane.ship", shp.t_ship, dur)
+                        tracespan.add_span(r.trace, "plane.ship", shp.t_ship, dur, attrs)
                     with cond:
                         if gen["id"] != gen_id:
                             return
@@ -1126,6 +1225,11 @@ class PlaneClient:
                         r.event.set()
             except (OSError, struct.error) as e:  # ConnectionError included
                 conn_failed(gen_id, e)
+            finally:
+                try:
+                    sock.close()  # this thread is the socket's only reader
+                except OSError:
+                    pass
 
         try:
             while self._ship_one(seg_box, seg_size, depth, cond, gen, fail_requests,
@@ -1139,11 +1243,8 @@ class PlaneClient:
                 gen["sock"] = None
                 gen["dead"] = True
                 cond.notify_all()
-            try:
-                if sock is not None:
-                    sock.close()
-            except OSError:
-                pass
+            if sock is not None:
+                _shutdown_socket(sock)  # its receiver closes it
 
     def _next_batch(self):
         """(batch, program, key, total bytes, shed counts, capture rows) of
@@ -1200,7 +1301,8 @@ class PlaneClient:
         # of this process's sight: a programs dir ships the timestamps too
         # (the engine's own armed() check decides).
         slo_armed = slo.armed() or bool(os.environ.get("MISAKA_PROGRAMS_DIR"))
-        if not (traced or program is not None or key is not None or slo_armed
+        hedged = sum(1 for r in batch if r.hedged)
+        if not (traced or program is not None or key is not None or slo_armed or hedged
                 or len(batch) > 1 or shed or caprej):
             return b""
         now = time.monotonic()
@@ -1226,6 +1328,8 @@ class PlaneClient:
             obj["reqs"] = len(batch)  # the engine bills rps per request
         if edge:
             obj["edge"] = edge
+        if hedged:
+            obj["hedged"] = hedged
         if shed:
             obj["shed"] = [[t, r, n] for (t, r), n in shed.items()]
         if caprej:
@@ -1287,8 +1391,11 @@ class PlaneClient:
             with cond:
                 if gen["id"] != gen_id or gen["dead"]:
                     continue
-                # backpressure: the shm double buffer takes one frame
-                eff = 1 if gen["armed"] else depth
+                # backpressure: the shm double buffer takes one frame, and
+                # so does an mTLS session (written only while no answer is
+                # being read)
+                serial = isinstance(gen["sock"], ssl.SSLSocket)
+                eff = 1 if gen["armed"] or serial else depth
                 while (not gen["dead"] and gen["sock"] is not None
                        and len(gen["outstanding"]) >= eff):
                     cond.wait(0.2)
@@ -1305,7 +1412,7 @@ class PlaneClient:
                 else:
                     frame = _REQ_HDR.pack(total // 4, len(meta)) + payload_out + meta
                 shp = _Shipment(batch, traced, time.monotonic(), use_shm, shed,
-                                replay_ok=gen["inherited"])
+                                replay_ok=gen["inherited"], sent=not serial)
                 # enqueued before the send (a response cannot precede its
                 # frame), and sent outside the lock: a blocking sendall
                 # under `cond` would stall the receiver's completions
@@ -1322,9 +1429,254 @@ class PlaneClient:
                         # deadline trips, not a connection error
                         return True
                 sock_now.sendall(frame)
+                if not shp.sent:
+                    with cond:
+                        shp.sent = True
+                        cond.notify_all()
             except OSError as send_exc:  # ConnectionError included
                 conn_failed(gen_id, send_exc)
             return True
+
+
+class _RouterReplica:
+    """One replica slot as the fleet router sees it: a PlaneClient and a
+    health state the prober keeps fresh."""
+
+    __slots__ = ("idx", "path", "client", "state", "since", "suspect_until", "suspect_streak")
+
+    def __init__(self, idx: int, path: str, client: PlaneClient):
+        self.idx = idx
+        self.path = path
+        self.client = client
+        # optimistic start: the first real frame corrects a wrong "up"
+        # within one round trip
+        self.state = "up"  # "up" | "down" | "draining"
+        self.since = time.monotonic()
+        # until this instant a probe success alone may not readmit it
+        self.suspect_until = 0.0
+        self.suspect_streak = 0
+
+    def mark(self, state: str) -> None:
+        if self.state != state:
+            self.state = state
+            self.since = time.monotonic()
+
+    def suspect(self, hold_base: float) -> None:
+        """A real frame failed here (transport error or frame deadline):
+        down, and held out of probe readmission on a doubling backoff,
+        since a wedged but live engine still answers probes.  Failures
+        inside the current hold are one event (one failed frame fans out
+        to every request it coalesced); only a failure after the hold
+        doubles it."""
+        now = time.monotonic()
+        if now < self.suspect_until:
+            self.mark("down")
+            return
+        self.suspect_streak += 1
+        self.suspect_until = now + min(30.0, hold_base * (2 ** (self.suspect_streak - 1)))
+        self.mark("down")
+
+    def absolve(self) -> None:
+        """A frame was served here, or the plane stopped accepting (what
+        accepts next is a fresh process): the failure history is over."""
+        self.suspect_streak = 0
+        self.suspect_until = 0.0
+
+
+class FleetPlaneRouter:
+    """Routes requests across N engine-replica compute planes: one
+    PlaneClient per replica and a policy over them.
+
+      * a program-addressed request follows the consistent-hash ring on
+        the program name (runtime/fleet.py HashRing): per-program
+        coalescing and registry state stay on one replica, and only ~1/N
+        of the keys move when a replica joins or leaves;
+      * a stateless request goes to the healthy replica with the least
+        queue depth, ties to the lowest index;
+      * a replica that fails a frame (transport error, frame deadline, the
+        drain reroute status) is marked down or draining and the request
+        goes to the next candidate on the remaining deadline; re-routed
+        requests after a failure ride the frame metadata as `hedged`;
+      * with no replica healthy, the router waits up to `down_grace`
+        seconds (MISAKA_FLEET_DOWN_GRACE_S, default 5) for one to come
+        back, then answers the typed 503.
+
+    A prober thread sends a zero-value probe frame to every replica not
+    up and readmits it when it answers; a replica a real frame failed on
+    sits out a doubling hold first (`suspect_hold` base, 30 s cap)."""
+
+    # plane statuses that mean "a sibling can serve this frame": a
+    # transport failure (502 inside PlaneClient) and the drain reroute
+    REROUTE_STATUSES = frozenset({502, PLANE_DRAINING})
+
+    def __init__(self, paths: list[str], conns: int = 2, timeout: float = 60.0,
+                 probe_s: float = 0.25, down_grace: float | None = None,
+                 suspect_hold: float = 0.5):
+        from misaka_tpu_torch.runtime.fleet import HashRing
+
+        if not paths:
+            raise ValueError("FleetPlaneRouter needs at least one path")
+        self._replicas = [
+            _RouterReplica(i, p, PlaneClient(p, conns=conns, timeout=timeout, replica=i))
+            for i, p in enumerate(paths)
+        ]
+        self._ring = HashRing(range(len(paths)))
+        self._probe_s = float(probe_s)
+        if down_grace is None:
+            down_grace = float(os.environ.get("MISAKA_FLEET_DOWN_GRACE_S", "") or 5.0)
+        self._down_grace = float(down_grace)
+        self._suspect_hold = float(suspect_hold)
+        self._secret = edge_mod.plane_secret()
+        # probes of TCP planes present the data path's client certificate
+        self._tls = (edge_mod.plane_tls_from_env()
+                     if any(parse_plane_addr(p)[0] == "tcp" for p in paths) else None)
+        self._closed = False
+        self._prober = threading.Thread(target=self._probe_loop, daemon=True,
+                                        name="misaka-fleet-router-probe")
+        self._prober.start()
+
+    def close(self) -> None:
+        self._closed = True
+        for r in self._replicas:
+            r.client.close()
+        self._prober.join(timeout=2)
+
+    def states(self) -> dict[int, str]:
+        return {r.idx: r.state for r in self._replicas}
+
+    def depth(self) -> int:
+        """Queued plus in-flight frames across every replica's client."""
+        return sum(r.client.depth() for r in self._replicas)
+
+    def _any_up(self) -> PlaneClient:
+        up = [r for r in self._replicas if r.state == "up"]
+        return (up[0] if up else self._replicas[0]).client
+
+    def report_shed(self, tenant: str | None, reason: str) -> None:
+        """A worker-local shed count rides any up replica's next frame
+        (the fleet's /metrics sums them)."""
+        self._any_up().report_shed(tenant, reason)
+
+    def report_capture(self, row: dict) -> None:
+        self._any_up().report_capture(row)
+
+    def _probe_once(self, r: _RouterReplica) -> str:
+        """One probe frame: "up", "draining" or "down" as seen now."""
+        if faults.armed() and _plane_partitioned(r.path):
+            return "down"  # unreachable to probes too: no up/down flapping
+        try:
+            fam, host, port = parse_plane_addr(r.path)
+            if fam == "tcp":
+                sock = socket.create_connection((host, port), timeout=1.0)
+                if self._tls is not None:
+                    sock = self._tls.client_context().wrap_socket(sock, server_hostname=host)
+            else:
+                sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                sock.settimeout(1.0)
+                sock.connect(r.path)
+            try:
+                if self._secret is not None:
+                    sock.sendall(edge_mod.plane_handshake(self._secret))
+                meta = b'{"probe": 1}'
+                sock.sendall(_REQ_HDR.pack(0, len(meta)) + meta)
+                status, length = _RESP_HDR.unpack(_recv_exact(sock, 8))
+                if length:
+                    _recv_exact(sock, length)
+            finally:
+                sock.close()
+        except OSError:
+            return "down"
+        if status == 200:
+            return "up"
+        return "draining" if status == PLANE_DRAINING else "down"
+
+    def _probe_loop(self) -> None:
+        while not self._closed:
+            time.sleep(self._probe_s)
+            for r in self._replicas:
+                if self._closed:
+                    return
+                if r.state == "up":
+                    continue
+                observed = self._probe_once(r)
+                if observed == "down":
+                    r.absolve()  # a dead process: what accepts next is fresh
+                elif observed == "up" and time.monotonic() < r.suspect_until:
+                    continue  # weaker evidence than the frame that failed
+                r.mark(observed)
+
+    def _candidates(self, program: str | None, tried: set[int]) -> list[_RouterReplica]:
+        """Healthy untried replicas in preference order: the ring walk for
+        an addressed request, least depth (ties to the lowest index) else."""
+        up = [r for r in self._replicas if r.state == "up" and r.idx not in tried]
+        if not up:
+            return []
+        if program:
+            by_idx = {r.idx: r for r in up}
+            return [by_idx[i] for i in self._ring.lookup(program.partition("@")[0])
+                    if i in by_idx]
+        return sorted(up, key=lambda r: (r.client.depth(), r.idx))
+
+    def compute_raw(self, body: bytes, timeout: float = 30.0, program: str | None = None,
+                    key: str | None = None) -> bytes:
+        deadline = time.monotonic() + timeout
+        tried: set[int] = set()
+        hedged = False
+        last_err: PlaneError | None = None
+        while True:
+            cands = self._candidates(program, tried)
+            if not cands:
+                # forget the attempts (a replica the prober readmits while
+                # we wait must be eligible again: with one replica `tried`
+                # would mask its own recovery) and ride out a respawn
+                tried = set()
+                grace_end = min(deadline, time.monotonic() + self._down_grace)
+                cands = self._candidates(program, tried)
+                while not cands and time.monotonic() < grace_end:
+                    time.sleep(0.05)
+                    cands = self._candidates(program, tried)
+                if not cands:
+                    detail = (last_err.body.decode(errors="replace") if last_err is not None
+                              else "no replica up")
+                    raise PlaneError(
+                        503, f"fleet down: no healthy engine replica ({detail})".encode())
+            r = cands[0]
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                if last_err is None:
+                    raise PlaneError(500, b"compute plane timed out")
+                if last_err.status == PLANE_DRAINING:
+                    # the plane-private status never reaches a client
+                    raise PlaneError(503, b"fleet draining: " + last_err.body)
+                raise last_err
+            # while another candidate remains, an attempt gets half the
+            # remaining deadline: a silent replica must leave time to hedge
+            attempt_timeout = remaining / 2 if len(cands) > 1 else remaining
+            try:
+                out = r.client.compute_raw(body, timeout=attempt_timeout, program=program,
+                                           key=key, hedged=hedged)
+                r.absolve()
+                return out
+            except PlaneError as e:
+                if e.status in self.REROUTE_STATUSES:
+                    if e.status == PLANE_DRAINING:
+                        # routine in every roll, and counted on the draining
+                        # replica's reroute counter: not a hedge
+                        r.mark("draining")
+                    else:
+                        r.suspect(self._suspect_hold)
+                        hedged = True
+                    tried.add(r.idx)
+                    last_err = e
+                    continue
+                if e.status == 500 and e.body == b"compute plane timed out":
+                    # the frame deadline (a blackholed or wedged replica)
+                    r.suspect(self._suspect_hold)
+                    tried.add(r.idx)
+                    hedged = True
+                    last_err = e
+                    continue
+                raise  # an engine's own answer (400/404/413/500): final
 
 
 class _ReusePortHTTPServer(ThreadingHTTPServer):
@@ -1339,17 +1691,24 @@ class _ReusePortHTTPServer(ThreadingHTTPServer):
 
 
 def make_frontend_server(public_port: int, engine_url: str, plane_path: str,
-                         plane_conns: int = 2, max_body: int | None = None
-                         ) -> ThreadingHTTPServer:
+                         plane_conns: int = 2, max_body: int | None = None,
+                         fleet: bool | None = None) -> ThreadingHTTPServer:
     """One frontend worker's HTTP server (call serve_forever on it).
 
     Hot routes answer from the compute plane at `plane_path`; everything
-    else proxies to the engine's own HTTP server at `engine_url`.  The
-    server's `misaka_plane_client` is its PlaneClient (close it after the
-    server)."""
+    else proxies to the engine's own HTTP server at `engine_url` (the fleet
+    control server in fleet mode).  A comma-separated `plane_path` routes
+    across the replicas' planes through FleetPlaneRouter; `fleet=True`
+    takes the router for one path too (a 1-replica fleet still needs the
+    reroute grace through a roll).  The server's `misaka_plane_client` is
+    its PlaneClient or router (close it after the server)."""
     if max_body is None:
         max_body = int(os.environ.get("MISAKA_MAX_BODY", "") or 64 * 1024 * 1024)
-    plane = PlaneClient(plane_path, conns=plane_conns)
+    paths = [p for p in plane_path.split(",") if p]
+    if fleet is None:
+        fleet = len(paths) > 1
+    plane = (FleetPlaneRouter(paths, conns=plane_conns) if fleet
+             else PlaneClient(paths[0], conns=plane_conns))
     engine = urlsplit(engine_url)
     engine_host = engine.hostname or "127.0.0.1"
     engine_port = engine.port or 8000
@@ -1634,6 +1993,22 @@ def make_frontend_server(public_port: int, engine_url: str, plane_path: str,
                 # the trace follows the request; the engine's trace headers
                 # come back verbatim below
                 headers[tracespan.TRACE_HEADER] = tr.trace_id
+            if self.path.split("?", 1)[0] == "/fleet/roll":
+                # a roll pays one engine boot per replica and can outlive
+                # the pooled 60 s timeout (a 502 while it runs on, then a
+                # retry's 409): a connection of its own, the client's budget
+                conn = http.client.HTTPConnection(engine_host, engine_port, timeout=600)
+                try:
+                    conn.request(method, self.path, body or None, headers)
+                    resp = conn.getresponse()
+                    payload = resp.read()
+                except (http.client.HTTPException, OSError) as e:
+                    self._text(502, f"engine unreachable: {e}")
+                    return
+                finally:
+                    conn.close()
+                self._reply(resp.status, payload, resp.getheader("Content-Type") or "text/plain")
+                return
             for attempt in (0, 1):
                 conn = getattr(local, "engine_conn", None)
                 fresh = conn is None
@@ -1675,6 +2050,8 @@ def frontend_main(argv=None) -> int:
     parser.add_argument("--engine", required=True, help="engine HTTP base url (proxy target)")
     parser.add_argument("--plane", required=True, help="compute-plane socket path or host:port")
     parser.add_argument("--plane-conns", type=int, default=2)
+    parser.add_argument("--fleet", action="store_true",
+                        help="route through the fleet router even for one plane path")
     parser.add_argument(
         "--parent-pid", type=int, default=0,
         help="exit when this process disappears: an orphaned worker must not keep the "
@@ -1721,7 +2098,7 @@ def frontend_main(argv=None) -> int:
 
         threading.Thread(target=_watch_parent, daemon=True).start()
     httpd = make_frontend_server(args.port, args.engine, args.plane,
-                                 plane_conns=args.plane_conns)
+                                 plane_conns=args.plane_conns, fleet=args.fleet or None)
     log.info("frontend worker on :%d (engine %s)", args.port, args.engine)
     try:
         httpd.serve_forever()
@@ -1734,19 +2111,22 @@ def frontend_main(argv=None) -> int:
 
 
 def _worker_cmd(public_port: int, engine_url: str, plane_path: str,
-                plane_conns: int) -> list[str]:
-    return [sys.executable, "-m", "misaka_tpu_torch.runtime.frontends",
-            "--port", str(public_port), "--engine", engine_url, "--plane", plane_path,
-            "--plane-conns", str(plane_conns), "--parent-pid", str(os.getpid())]
+                plane_conns: int, fleet: bool = False) -> list[str]:
+    cmd = [sys.executable, "-m", "misaka_tpu_torch.runtime.frontends",
+           "--port", str(public_port), "--engine", engine_url, "--plane", plane_path,
+           "--plane-conns", str(plane_conns), "--parent-pid", str(os.getpid())]
+    if fleet:
+        cmd.append("--fleet")
+    return cmd
 
 
 def spawn_frontends(n: int, public_port: int, engine_url: str, plane_path: str,
-                    plane_conns: int = 2) -> list[subprocess.Popen]:
+                    plane_conns: int = 2, fleet: bool = False) -> list[subprocess.Popen]:
     """Start n unsupervised worker processes sharing `public_port` (for
     callers that own the processes' lifetimes; serving uses
     FrontendSupervisor).  fork+exec, never a bare fork: the engine process
     holds a CUDA context.  wait_ready() confirms the port answers."""
-    cmd = _worker_cmd(public_port, engine_url, plane_path, plane_conns)
+    cmd = _worker_cmd(public_port, engine_url, plane_path, plane_conns, fleet=fleet)
     return [subprocess.Popen(cmd) for _ in range(n)]
 
 
@@ -1770,10 +2150,13 @@ class FrontendSupervisor:
     def __init__(self, n: int, public_port: int, engine_url: str, plane_path: str,
                  plane_conns: int = 2, backoff_base: float = 0.5, backoff_cap: float = 15.0,
                  fast_crash_s: float = 5.0, breaker_threshold: int = 5,
-                 breaker_reset_s: float = 60.0, poll_s: float = 0.2, cmd: list | None = None):
+                 breaker_reset_s: float = 60.0, poll_s: float = 0.2, cmd: list | None = None,
+                 fleet: bool = False):
         """`cmd` replaces the worker command (tests: a command that exits
-        at once trips the breaker)."""
-        self._cmd = cmd or _worker_cmd(public_port, engine_url, plane_path, plane_conns)
+        at once trips the breaker); `fleet` gives the workers the fleet
+        router."""
+        self._cmd = cmd or _worker_cmd(public_port, engine_url, plane_path, plane_conns,
+                                       fleet=fleet)
         # stateless use (delay_for): the exponent is each slot's streak
         self._backoff = Backoff(base=backoff_base, cap=backoff_cap)
         self._fast_crash_s = float(fast_crash_s)

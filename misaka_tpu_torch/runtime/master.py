@@ -1340,6 +1340,13 @@ class MasterNode:
             status["batch"] = self._batch
         if self._mesh is not None:
             status["mesh"] = dict(self._mesh.shape)
+        device = self._net.device
+        if isinstance(device, torch.device) and device.type == "cuda":
+            # this process's caching allocator on its card (the CUDA
+            # context not counted): what a fleet roll's replacement must
+            # hold again
+            status["device_memory"] = {"allocated_bytes": torch.cuda.memory_allocated(device),
+                                       "reserved_bytes": torch.cuda.memory_reserved(device)}
         return status
 
     def trace(self, last: int | None = None) -> list[dict]:

@@ -7,12 +7,15 @@ at render time and drawn as inline SVG by a little vanilla JS.  Panels:
 throughput, p50/p99, error rate, admission sheds, queue depth,
 native-pool busy fraction, replica health, canary success and latency,
 per-program value rates and p99.  The port has no native pool (ROADMAP
-A.8) and no fleet (A.6): their panels render empty, as they do on the
-reference's accelerator hosts.
+A.8): those panels render empty, as they do on the reference's
+accelerator hosts.  In fleet mode the parent serves the same page over
+its replica-merged series (each carries a ``replica`` label there), and
+the page's label filters become the per-replica drill-down.
 
 The page is built against a query function,
 ``query_fn(name, window_s) -> [{labels, points, ...}]``: the engine
-passes utils/tsdb.query.
+passes utils/tsdb.query, the fleet parent its merging aggregator
+(runtime/fleet.py).
 """
 
 from __future__ import annotations

@@ -31,11 +31,14 @@ Hook sites in the port (the reference's sites, in the ported code):
   replica_blackhole[:<i>]  the compute plane holds each frame `value` s;
   worker_exit              a frontend worker hard-exits `value` s after
                            boot (runtime/frontends.py)
+  replica_kill             the fleet parent SIGKILLs one live replica
+                           `value` s after the fleet starts, once per boot
+                           (runtime/fleet.py)
 
 The points whose sites are in modules the port does not have yet parse
 and fire nowhere: rpc_drop and rpc_delay (the distributed mode, ROADMAP
-A.5), replica_kill (the fleet, A.6), specialize_fail, jit_fail,
-resident_fallback and edge_native_build (the native host tier, A.8).
+A.5), specialize_fail, jit_fail, resident_fallback and edge_native_build
+(the native host tier, A.8).
 
 Checks cost one dict lookup while nothing is armed.  Stdlib only: the
 frontend workers import it.

@@ -18,10 +18,12 @@ One test per open fault of ROADMAP C, each failing before the fix:
   to the one before, the interval snapshots rotate to `keep`, and a
   restarted app resumes its state;
 
-and the same class at lower stakes: MISAKA_FLEET, MISAKA_PLANE_TLS_CERT, a
-comma-separated MISAKA_PLANE_SOCKET and MISAKA_COORDINATOR refuse, while
-MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX app's
-version ID; MISAKA_FAULTS and MISAKA_SLO arm their planes at boot.
+and the same class at lower stakes: MISAKA_COORDINATOR refuses (A.7),
+while MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX
+app's version ID, and MISAKA_FLEET, a MISAKA_PLANE_TLS_* triple (a partial
+one fails loud) and a comma-separated MISAKA_PLANE_SOCKET pass the boot
+checks (the fleet itself: tests/test_torch_fleet.py); MISAKA_FAULTS and
+MISAKA_SLO arm their planes at boot.
 F.6: MISAKA_TSDB_DIR (the durable telemetry tier) was dropped in silence;
 it now arms the TSDB's, the usage ledger's and the capture spools, and
 MISAKA_WATCHDOG's rules arm the watchdog, as in the JAX app.
@@ -48,6 +50,7 @@ import pytest
 import torch
 
 from misaka_tpu.runtime import app as japp
+from misaka_tpu.runtime import edge as JEdge
 from misaka_tpu.runtime.master import AutoCheckpointer as JAuto
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
@@ -532,9 +535,9 @@ def test_c5_restarted_app_resumes_from_its_auto_snapshot(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     ({"MISAKA_PROGRAMS_DIR": "programs"}, None),
-    ({"MISAKA_FLEET": "2"}, "A.6"),
-    ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_TLS_CERT": "plane.pem"}, "A.6"),
-    ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_SOCKET": "/tmp/a.sock,/tmp/b.sock"}, "A.6"),
+    ({"MISAKA_FLEET": "2"}, "boots"),
+    ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_TLS_CERT": "plane.pem"}, "partial"),
+    ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_SOCKET": "/tmp/a.sock,/tmp/b.sock"}, "boots"),
     ({"MISAKA_COORDINATOR": "127.0.0.1:1234"}, "A.7"),
 ], ids=["programs_dir", "fleet", "plane_tls", "plane_paths", "coordinator"])
 def test_unported_planes_refuse_at_boot(extra, item, tmp_path):
@@ -564,6 +567,19 @@ def test_unported_planes_refuse_at_boot(extra, item, tmp_path):
                     r.close()
             tm.close()
             jm.close()
+        return
+    if item == "boots":
+        # ported (ROADMAP A.6): the fleet and the router pass the checks
+        app.check_env({**ADD2_ENV, **extra})
+        return
+    if item == "partial":
+        # a partial MISAKA_PLANE_TLS_* triple fails loud, as the JAX plane's
+        env = {**ADD2_ENV, **extra}
+        with pytest.raises(ValueError, match="must be set together") as jexc:
+            JEdge.plane_tls_from_env(env)
+        with pytest.raises(SystemExit) as exc:
+            app.check_env(env)
+        assert str(jexc.value) in str(exc.value)
         return
     with pytest.raises(SystemExit, match=f"ROADMAP {item}") as exc:
         app.check_env({**ADD2_ENV, **extra})

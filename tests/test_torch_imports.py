@@ -10,7 +10,8 @@ planes they reach (utils/faults.py, utils/slo.py, runtime/usage.py,
 runtime/capture.py) import no torch either: a worker process must not
 pay for it; nor do the always-on and durable planes, stdlib only as in
 the reference (utils/spool.py, tsdb.py, watchdog.py, sampler.py and
-dashboard.py).  chip_smoke.py must refuse to
+dashboard.py), nor the fleet (runtime/fleet.py: a worker's router imports
+its HashRing).  chip_smoke.py must refuse to
 report a result without a card, and when it is alone in a directory.
 """
 
@@ -63,7 +64,8 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.utils.faults", "misaka_tpu_torch.runtime.capture",
               "misaka_tpu_torch.replay", "misaka_tpu_torch.utils.spool",
               "misaka_tpu_torch.utils.tsdb", "misaka_tpu_torch.utils.watchdog",
-              "misaka_tpu_torch.utils.sampler", "misaka_tpu_torch.utils.dashboard"):
+              "misaka_tpu_torch.utils.sampler", "misaka_tpu_torch.utils.dashboard",
+              "misaka_tpu_torch.runtime.fleet"):
         assert m in report["modules"]
 
 
@@ -76,6 +78,7 @@ import misaka_tpu_torch.utils.faults, misaka_tpu_torch.utils.slo, misaka_tpu_tor
 import misaka_tpu_torch.runtime.capture
 import misaka_tpu_torch.utils.spool, misaka_tpu_torch.utils.tsdb, misaka_tpu_torch.utils.watchdog
 import misaka_tpu_torch.utils.sampler, misaka_tpu_torch.utils.dashboard
+import misaka_tpu_torch.runtime.fleet
 added = set(sys.modules) - before
 print(json.dumps(sorted(k for k in added
                         if k.split(".")[0] in ("torch", "jax", "jaxlib", "misaka_tpu"))))

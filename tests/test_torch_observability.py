@@ -38,6 +38,7 @@ from misaka_tpu import networks as jnet
 from misaka_tpu.runtime import frontends as _jfrontends  # noqa: F401 (its series)
 from misaka_tpu.runtime import canary as _jcanary  # noqa: F401 (its series)
 from misaka_tpu.runtime import capture as jcapture
+from misaka_tpu.runtime import fleet as _jfleet  # noqa: F401 (its series)
 from misaka_tpu.runtime import usage as jusage
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.master import make_http_server as j_http
@@ -49,6 +50,7 @@ from misaka_tpu.utils.jsonlog import JsonFormatter as JJsonFormatter
 from misaka_tpu_torch import networks as tnet
 from misaka_tpu_torch.runtime import frontends as _tfrontends  # noqa: F401 (its series)
 from misaka_tpu_torch.runtime import capture as tcapture
+from misaka_tpu_torch.runtime import fleet as _tfleet  # noqa: F401 (its series)
 from misaka_tpu_torch.runtime import usage as tusage
 from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
@@ -259,9 +261,15 @@ def test_series_catalog_matches_the_reference(monkeypatch, tmp_path):
                      "misaka_tsdb_spool_dropped_total", "misaka_tsdb_spool_bytes",
                      "misaka_spool_errors_total"):
             assert name in names, name
-        # planes the port has not taken stay absent, not faked
-        assert not any(n.startswith(("misaka_native_", "misaka_plane_tls_", "misaka_fleet_"))
-                       for n in names)
+        # the fleet's and the plane mTLS series (ROADMAP A.6) are there
+        for name in ("misaka_plane_hedged_requests_total", "misaka_plane_tls_rejected_total",
+                     "misaka_plane_tls_reloads_total", "misaka_fleet_replicas_configured",
+                     "misaka_fleet_replicas_alive", "misaka_fleet_replica_restarts_total",
+                     "misaka_fleet_rolls_total", "misaka_fleet_peers_up",
+                     "misaka_fleet_gossip_total"):
+            assert name in names, name
+        # the plane the port has not taken stays absent, not faked (A.8)
+        assert not any(n.startswith("misaka_native_") for n in names)
         scraped = tmetrics.parse_text(request(p.tb, "/metrics", method="GET")[2].decode())
         for series in ("misaka_usage_spool_dropped_total", "misaka_capture_spool_bytes",
                        "misaka_tsdb_spool_bytes"):

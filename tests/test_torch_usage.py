@@ -173,8 +173,14 @@ def test_serialized_traffic_books_equal_counts(servers):
         after = _usage(base)
         deltas.append({k: {f: v[f] for f in ("requests", "values", "native_seconds")}
                        for k, v in _delta(before, after).items() if v["requests"]})
-        assert set(after) == {"enabled", "programs", "pass_seconds_total",
-                              "cpu_seconds_total"}
+        keys = set(after)
+        if pkg == "jax" and "native_pool" in keys:
+            # the JAX body carries `native_pool` while any native pool is
+            # live in its process (an earlier test file on the same worker
+            # may leave one); the port has no native tier (ROADMAP A.8)
+            assert isinstance(after["native_pool"], dict)
+            keys.discard("native_pool")
+        assert keys == {"enabled", "programs", "pass_seconds_total", "cpu_seconds_total"}
     assert deltas[0] == deltas[1]
     assert sum(r["requests"] for r in deltas[1].values()) == len(plan)
 
