@@ -93,7 +93,15 @@ share of frames, the flooded tenant's admissions under usage gossip, the
 peer served, refused in plaintext and rolled; on a second fleet beside
 it the replica_kill fault, kill -9 of a replica and POST /fleet/roll
 under load (zero client errors each), and last the fleet's cost against
-one engine, a b b a.
+one engine, a b b a.  The `model_parallel` phase runs, in process on a
+mesh that repeats cuda:0, the lane-sharded engines (parallel/routed.py,
+parallel/sharded.py) and the compact and chained one-device steps
+(core/routing.py), each held field by field to the fused kernel's result
+from the same state at B=262144; a `MasterNode(model_parallel=2)` on two
+shards of the card serves add2 (a striped stream, checkpoints mp2 -> mp1
+-> mp2, autogrow); and two processes of this script (`--mp-worker`) joined
+through MISAKA_COORDINATOR run model=2 each, rank 0 verifying.  That path
+launches no kernel.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -307,7 +315,7 @@ def plain_result(net, state, steps, key=None):
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = net.run(state, steps)
+    want = net.run(state, steps, engine="dense")
     end.record()
     torch.cuda.synchronize()
     out = state_to_numpy(want), start.elapsed_time(end)
@@ -2124,8 +2132,8 @@ def cost_turn(port, n_clients, per_client, n_quiet):
     return {"small_requests_per_s": n / secs, **latency_ms(lat)}
 
 
-def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=20,
-               n_quiet=25, flooders=6, flood_s=5.0, device=None, card=None):
+def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=10,
+               n_quiet=13, flooders=6, flood_s=5.0, device=None, card=None):
     """The edge on the main path (add2 at B, the full kernel) behind N
     frontend workers, in three sets of servers, each set booted at once:
 
@@ -2145,8 +2153,8 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
       launches;
     - the edge's cost: the default env (the chain armed with an empty
       quota, as the reference's default boot) against MISAKA_EDGE=0, in
-      turns a b b a, behind the workers and with none: 32 x 20 one-value
-      /compute and quiet /compute p50/p90.  The servers not measured are
+      turns a b b a, behind the workers and with none: n_clients x
+      per_client one-value /compute and quiet /compute p50/p90.  The servers not measured are
       paused.
 
     device="cpu" rehearses it at a small B."""
@@ -2427,7 +2435,7 @@ def registry_memory(batch, device):
 
 
 def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32,
-                   per_client=20, n_quiet=25, swap_clients=32, n_stream=20_000, device=None,
+                   per_client=10, n_quiet=13, swap_clients=32, n_stream=20_000, device=None,
                    card=None):
     """The program registry on the main path: add2 at B (the full kernel)
     behind N frontend workers with MISAKA_PROGRAMS_DIR (a fresh directory
@@ -2452,9 +2460,9 @@ def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=3
        the server (its engines never all stop) bounded by two /status
        readings around one /metrics;
     8. then, with that server stopped, the registry's cost on the default
-       program: two servers booted at once, a (MISAKA_PROGRAMS_DIR set)
-       and b (unset), the small-request rate and quiet /compute p50/p90
-       in turns a b b a, the partner paused.
+       program: two servers booted beside it, paused, a (MISAKA_PROGRAMS_DIR
+       set) and b (unset), the small-request rate and quiet /compute
+       p50/p90 in turns a b b a, the partner paused.
 
     device="cpu" rehearses it at a small B."""
     from misaka_tpu_torch.core import fused
@@ -2472,10 +2480,18 @@ def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=3
     with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
         reverse_text = f.read()
     try:
-        with served_app("registry", MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"),
-                        MISAKA_REGISTRY_MAX_ACTIVE="3", MISAKA_CANARY_INTERVAL_S="1",
-                        MISAKA_PLANE_SOCKET=os.path.join(tmp, "reg.sock"),
-                        **base) as (pub, boot_s):
+        # the cost's servers (8.) boot beside the drill's, paused
+        cost = [dict(base, label=f"registry_cost_{cfg}", autorun=False,
+                     MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}.sock"),
+                     **({"MISAKA_PROGRAMS_DIR": os.path.join(tmp, "cost_a")} if cfg == "a"
+                        else {}))
+                for cfg in ("a", "b")]
+        drill = dict(base, label="registry", MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"),
+                     MISAKA_REGISTRY_MAX_ACTIVE="3", MISAKA_CANARY_INTERVAL_S="1",
+                     MISAKA_PLANE_SOCKET=os.path.join(tmp, "reg.sock"))
+        procs = []
+        with served_apps([drill, *cost], procs=procs) as [(pub, boot_s), (cost_a, _),
+                                                           (cost_b, _)]:
             row["boot_s"] = boot_s
             eng = engine_port("registry")
             expect(frontends.wait_ready(pub, timeout=30), "the public port does not answer")
@@ -2598,13 +2614,9 @@ def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=3
             expect(device == "cpu" or l1 - n_engines - 1 <= it + warm <= l2,
                    f"server launches: {row['launches']}")
             launches = [l2]
-        # 8. the registry's cost on the default program
-        cost = [dict(base, label=f"registry_cost_{cfg}", autorun=False,
-                     MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}.sock"),
-                     **({"MISAKA_PROGRAMS_DIR": os.path.join(tmp, "cost_a")} if cfg == "a"
-                        else {}))
-                for cfg in ("a", "b")]
-        with served_apps(cost) as [(cost_a, _), (cost_b, _)]:
+            # 8. the registry's cost on the default program, the drill's
+            # server stopped
+            _stop_app(procs[0])
             for p in (cost_a, cost_b):
                 expect(frontends.wait_ready(p, timeout=30), "the public port does not answer")
                 expect(post_form(p, "/run")[0] == 200, "/run")
@@ -2964,7 +2976,7 @@ def capture_memory(batch, device, n_delay=40):
 
 
 def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32,
-                    per_client=20, n_raw_clients=32, raw_values=12_500, n_quiet=25,
+                    per_client=20, n_raw_clients=32, raw_values=12_500, n_quiet=13,
                     capture_clients=32, n_delay=40, n_b1=100, slo_ms=250, fault_s=0.5,
                     drill_clients=9, min_events=3, canary=True, device=None, card=None):
     """The telemetry planes on the main path: add2 at B (the full kernel)
@@ -3400,7 +3412,7 @@ def rotation_memory(batch, device, rotations=3):
 
 def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s=20.0,
                       stream_clients=8, stream_values=512, drill_clients=4, n_clients=32,
-                      per_client=20, n_quiet=25, seg_s=20, device=None, card=None):
+                      per_client=10, n_quiet=13, seg_s=20, device=None, card=None):
     """The always-on and durable planes on the main path: add2 at B (the
     full kernel) behind N frontend workers with MISAKA_PROGRAMS_DIR,
     MISAKA_TSDB_DIR (a 1 s collector), the capture spool rotating every
@@ -4015,7 +4027,7 @@ def gossip_drill(port, flooders, flood_s):
 
 def phase_fleet(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=20,
                 n_streams=8, stream_values=512, kill_after_s=10, flooders=12, flood_s=5.0,
-                n_quiet=15, device=None, card=None):
+                n_quiet=8, device=None, card=None):
     """The replicated engine fleet on the main path (runtime/fleet.py):
     add2 at B (the full kernel) in MISAKA_FLEET=2 replicas behind N
     frontend workers with a key file (an admin key, a load key, a flooded
@@ -4055,8 +4067,8 @@ def phase_fleet(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, 
        respawn-to-healthy seconds, each replica's drain, checkpoint and
        boot seconds;
     7. the cost: one engine (a) against the second fleet (b), a b b a,
-       32 x 20 small /compute and quiet /compute each turn, the servers
-       not measured paused.
+       n_clients x per_client small /compute and n_quiet quiet /compute
+       each turn, the servers not measured paused.
 
     device="cpu" rehearses it at a small B."""
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
@@ -4327,6 +4339,459 @@ def peer_plane_checks(addr, http_port, certs):
                      "the plaintext refusal counted", 10.0)
         out["plaintext_refused"] = bool(after)
     return out
+
+
+# --- model parallel: the lane-sharded engines on a mesh that repeats one card ------
+
+
+MP_AUTOGROW = dict(
+    node_info={"p": "program", "q": "program", "st": "stack"},
+    programs={
+        # p pushes until the 0 sentinel, then emits it and drains its stack
+        # (reverse_any's program); q is a second lane so that the lanes
+        # divide by model_parallel=2 (reverse_any alone has one lane)
+        "p": ("top: IN ACC\nJEZ dump\nPUSH ACC, st\nJMP top\n"
+              "dump: OUT ACC\npop: POP st, ACC\nOUT ACC\nJMP pop\n"),
+        "q": "NOP\n",
+    },
+)
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wall_ms(fn, device):
+    """(fn(), its wall milliseconds from a synchronized start to a
+    synchronized end): a host-driven chunk's time as served."""
+    _sync(device)
+    t = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def kernel_result(net, state, ticks):
+    """The fused kernel's result from `state` (a state on the device; on a
+    CPU state its plain version) and the chunk's time."""
+    run = net.fused_runner(ticks, elide_dead_hi=False)
+    out, ms = wall_ms(lambda: run(state), net.device)
+    if net.device.type == "cuda":
+        ms = cuda_time_ms(lambda: run(state), 3)
+    return out, ms
+
+
+def state_diff(got, want):
+    """(the fields of `got` that differ from `want`, the largest absolute
+    difference), compared on the device: full-width states stay there."""
+    import torch
+
+    bad, err = [], 0
+    for f, a, b in zip(got._fields, got, want):
+        b = b.to(a.device)
+        if not torch.equal(a, b):
+            bad.append(f)
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return bad, err
+
+
+def shards_diff(shards, whole, mesh):
+    """state_diff of every shard against its cut of `whole`."""
+    from misaka_tpu_torch.parallel.mesh import shard_state
+
+    bad, err = set(), 0
+    for got, want in zip(shards, shard_state(whole, mesh)):
+        b, e = state_diff(got, want)
+        bad.update(b)
+        err = max(err, e)
+    return sorted(bad), err
+
+
+def commits_of(out, entry) -> int:
+    return int((out.retired.long() - entry.retired.long()).sum())
+
+
+def lane_case(label, net, state, want, devices, mp, ticks, engine, graph=None):
+    """One lane-sharded runner from `state` on a mesh of `devices` (row-major,
+    model=mp; `graph` as build_lane_sharded_runner's), held field by field to
+    `want` (the kernel's result from the same state), its model replicas
+    equal and its input untouched, on the device.  `ms` is the call's wall
+    time, the graph's recording (on a card: one tick) included."""
+    from misaka_tpu_torch.parallel import make_routed_runner, make_sharded_runner
+    from misaka_tpu_torch.parallel.mesh import make_mesh, replicas_agree, shard_state
+
+    mesh = make_mesh(len(devices), list(devices), model_parallel=mp)
+    make = make_routed_runner if engine == "routed" else make_sharded_runner
+    run = make(net.code, net.prog_len, mesh, ticks, graph=graph)
+    shards = shard_state(state, mesh)
+    out, ms = wall_ms(lambda: run(shards), devices[0])
+    diverged, err = shards_diff(out, want, mesh)
+    replicas = replicas_agree(out, mesh)
+    touched, _ = shards_diff(shards, state, mesh)
+    row = {"case": label, "engine": engine, "mesh": mesh.shape, "devices": len(devices),
+           "lanes": net.num_lanes, "batch": net.batch, "ticks": ticks, "graphed": run.graphed,
+           "ms": ms, "exact": not diverged and not replicas and not touched,
+           "max_abs_err": err, "out_wr_min": int(min(int(s.out_wr.min()) for s in out)),
+           "commits": sum(commits_of(o, s) for o, s in zip(out, shards))}
+    for key, bad in (("diverged_from_kernel", diverged), ("replicas_differ", replicas),
+                     ("input_mutated", touched)):
+        if bad:
+            row[key] = bad
+    return row
+
+
+def torch_device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
+def mp_runner_cases(batch, chunk, ticks, device, eager_ticks=64):
+    """The routed and gather runners against the kernel: add2 at mp2 for one
+    `chunk`-tick chunk (and for `eager_ticks` without the CUDA graph, the
+    ops issued one by one); mesh8
+    at mp2, mp4 and mp8 and dp2 x mp2 (four shards) for `ticks` ticks; every
+    shard on `device`.  The kernel runs once per network, state and tick
+    count."""
+    from misaka_tpu_torch import networks
+
+    rng = np.random.default_rng(SEED + 13)
+    rows, kernel = [], {}
+    add2 = networks.add2(**MAIN_CAPS).compile(batch=batch, device=device)
+    state = main_add2_state(add2, rng)
+    want, kernel["add2"] = kernel_result(add2, state, chunk)
+    for engine in ("routed", "gather"):
+        rows.append(lane_case("add2/mp2", add2, state, want, [device] * 2, 2, chunk, engine))
+    if torch_device_type(device) == "cuda":
+        want, kernel["add2/eager"] = kernel_result(add2, state, eager_ticks)
+        for engine in ("routed", "gather"):
+            rows.append(lane_case("add2/mp2/eager", add2, state, want, [device] * 2, 2,
+                                  eager_ticks, engine, graph=False))
+    del state, want
+    mesh8 = networks.mesh8(**MAIN_CAPS).compile(batch=batch, device=device)
+    state = with_random_hi(seeded_inputs(mesh8, rng, MAIN_CAPS["in_cap"]), rng)
+    want, kernel["mesh8"] = kernel_result(mesh8, state, ticks)
+    for label, n, mp in (("mesh8/mp2", 2, 2), ("mesh8/mp4", 4, 4), ("mesh8/mp8", 8, 8),
+                         ("mesh8/dp2xmp2", 4, 2)):
+        for engine in ("routed", "gather"):
+            rows.append(lane_case(label, mesh8, state, want, [device] * n, mp, ticks, engine))
+    return rows, kernel
+
+
+def mp_single_device_cases(batch, ticks, device, dense_rows=8192):
+    """The compact and chained steps (core/routing.py) on one device: on
+    pipeline32 against the kernel; on a fuzzed 64-lane network (past the
+    kernel's 32-lane bound) against each other at the whole batch and
+    against the dense step on its first `dense_rows` instances (the dense
+    step's election matrices are [B, 64, 256] per tick)."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.core.engine import CompiledNetwork
+    from misaka_tpu_torch.core.state import NetworkState
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    rng = np.random.default_rng(SEED + 17)
+    rows = []
+    pipe = networks.pipeline(32, **MAIN_CAPS).compile(batch=batch, device=device)
+    state = seeded_inputs(pipe, rng, MAIN_CAPS["in_cap"])
+    want, kernel_ms = kernel_result(pipe, state, ticks)
+    for engine in ("compact", "chained"):
+        out, ms = wall_ms(lambda: pipe.run(state, ticks, engine=engine), device)
+        bad, err = state_diff(out, want)
+        rows.append({"case": "pipeline32", "engine": engine, "lanes": 32, "batch": batch,
+                     "ticks": ticks, "ms": ms, "kernel_ms": kernel_ms, "exact": not bad,
+                     "max_abs_err": err, "commits": commits_of(out, state),
+                     **({"diverged": bad} if bad else {})})
+    del state, want, out
+    seed = SEED + 29
+    top = random_topology(seed, Topology, lanes=(64, 65), **MAIN_CAPS)
+    wide = top.compile(batch=batch, device=device)
+    expect(wide.num_lanes == 64 and wide.num_lanes > fused.MAX_LANES, "the fuzzed network's lanes")
+    state = seeded_inputs(wide, rng, MAIN_CAPS["in_cap"])
+    outs = {}
+    for engine in ("compact", "chained"):
+        outs[engine] = wall_ms(lambda: wide.run(state, ticks, engine=engine), device)
+    k = min(dense_rows, batch)
+    small = CompiledNetwork(code=wide.code, prog_len=wide.prog_len, num_stacks=wide.num_stacks,
+                            stack_cap=wide.stack_cap, in_cap=wide.in_cap, out_cap=wide.out_cap,
+                            batch=k, device=device)
+    head = NetworkState(*(t[:k].clone() for t in state))
+    dense, dense_ms = wall_ms(lambda: small.run(head, ticks, engine="dense"), device)
+    for engine, (got, ms) in outs.items():
+        bad, err = state_diff(NetworkState(*(t[:k] for t in got)), dense)
+        if engine == "chained":
+            vs, e2 = state_diff(got, outs["compact"][0])
+            bad += [f"{f} (vs compact)" for f in vs]
+            err = max(err, e2)
+        rows.append({"case": f"fuzzed64/seed{seed}", "engine": engine, "lanes": 64,
+                     "batch": batch, "ticks": ticks, "ms": ms, "dense_rows": k,
+                     "dense_ms": dense_ms, "exact": not bad, "max_abs_err": err,
+                     "commits": commits_of(got, state), **({"diverged": bad} if bad else {})})
+    return rows
+
+
+def mp_master_drill(batch, chunk, n_values, devices, engine, ckpt_dir, grow=True):
+    """`MasterNode(device=devices, model_parallel=2)` serving add2: a striped
+    n_values stream, every answer checked, and its replicas equal after;
+    then (grow=True) a checkpoint at mp2 -> mp1 (the kernel's master on
+    devices[0]) -> mp2, every field equal after each load, and a stack
+    grown by autogrow under mp2 (16 -> 64), replicas equal after."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.core.state import state_to_numpy
+    from misaka_tpu_torch.parallel.mesh import replicas_agree
+    from misaka_tpu_torch.runtime.master import MasterNode
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    def mp_master(top):
+        return MasterNode(top, chunk_steps=chunk, batch=batch, device=list(devices),
+                          model_parallel=2, engine="gather" if engine == "gather" else "auto")
+
+    def same(a, b, what):
+        bad = diverged_fields(state_to_numpy(a.snapshot()), state_to_numpy(b.snapshot()))
+        expect(not bad, f"{what}: fields {bad} differ after the load")
+
+    def replicas(m, what):
+        with m._state_lock:
+            bad = replicas_agree(m._state, m._mesh)
+        expect(not bad, f"{what}: model replicas of {bad} differ")
+
+    rng = np.random.default_rng(SEED + 19)
+    vals = rng.integers(-(2**31), 2**31, size=n_values, dtype=np.int64).astype(np.int32)
+    row = {"engine": engine}
+    for k in fused.launch_counts:
+        fused.launch_counts[k] = 0
+    m2 = mp_master(networks.add2(**MAIN_CAPS))
+    try:
+        expect(m2.engine_name == engine and m2.status()["mesh"] == {"data": 1, "model": 2},
+               f"mp master: {m2.engine_name} {m2.status()['mesh']}")
+        m2.run()
+        t = time.perf_counter()
+        out = m2.compute_spread(vals, timeout=600, return_array=True)
+        row["spread_s"] = time.perf_counter() - t
+        expect(np.array_equal(out, wrap_i32(vals.astype(np.int64) + 2)),
+               f"mp2 {engine}: compute_spread answers differ")
+        row["spread_values"] = int(vals.size)
+        row["spread_values_per_s"] = vals.size / row["spread_s"]
+        expect(m2.compute(41, timeout=300) == 43, "mp2: /compute")
+        m2.pause()
+        replicas(m2, "after the stream")
+        row["mp_launches"] = dict(fused.launch_counts)
+        expect(all(n == 0 for n in row["mp_launches"].values()),
+               f"the lane-sharded master launched a kernel: {row['mp_launches']}")
+        if grow:
+            m1 = MasterNode(networks.add2(**MAIN_CAPS), chunk_steps=chunk, batch=batch,
+                            device=devices[0])
+            try:
+                t = time.perf_counter()
+                m2.save_checkpoint(os.path.join(ckpt_dir, "mp2.npz"))
+                m1.load_checkpoint(os.path.join(ckpt_dir, "mp2.npz"))
+                row["checkpoint_mp2_to_mp1_s"] = time.perf_counter() - t
+                same(m1, m2, "mp2 -> mp1")
+                m1.run()
+                few = vals[:5000]
+                expect(np.array_equal(m1.compute_spread(few, timeout=300, return_array=True),
+                                      wrap_i32(few.astype(np.int64) + 2)), "mp1 after the load")
+                m1.pause()
+                t = time.perf_counter()
+                m1.save_checkpoint(os.path.join(ckpt_dir, "mp1.npz"))
+                m2.load_checkpoint(os.path.join(ckpt_dir, "mp1.npz"))
+                row["checkpoint_mp1_to_mp2_s"] = time.perf_counter() - t
+                same(m2, m1, "mp1 -> mp2")
+                replicas(m2, "after the restore")
+                m2.run()
+                expect(m2.compute(-7, timeout=300) == -5, "mp2 after the load")
+            finally:
+                m1.close()
+    finally:
+        m2.close()
+    del m2
+    if not grow:
+        return row
+    for k in fused.launch_counts:
+        fused.launch_counts[k] = 0
+    mg = mp_master(Topology(**MP_AUTOGROW, **MAIN_CAPS))
+    try:
+        cap0 = mg.status()["stack_cap"]
+        mg.run()
+        t = time.perf_counter()
+        out = mg.compute_many(list(range(1, 41)) + [0], timeout=600)
+        row["grow_request_s"] = time.perf_counter() - t
+        expect(out == [0] + list(range(40, 0, -1)), f"mp2 autogrow: {out[:8]}")
+        cap1 = mg.status()["stack_cap"]
+        expect(cap0 == 16 and cap1 == 64, f"mp2 stack_cap {cap0} -> {cap1}")
+        mg.pause()
+        replicas(mg, "after the autogrow")
+        row.update(stack_cap_before=cap0, stack_cap_after=cap1)
+        expect(all(n == 0 for n in fused.launch_counts.values()),
+               f"the lane-sharded master launched a kernel: {fused.launch_counts}")
+    finally:
+        mg.close()
+    del mg
+    return row
+
+
+MP_WORKER_PROCS = 2
+
+
+def mp_worker(port, rank, out_path, batch, ticks, device):
+    """One process of the two-process drill: joins the gloo group through
+    MISAKA_COORDINATOR, runs both lane-sharded engines on its row of add2
+    (model=2 over two shards on `device`, the data axis across the
+    processes) and hands rank 0 a digest of each field of its rows; rank 0
+    holds them to the kernel's result of the whole batch and writes the
+    verdict."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    os.environ.update({"MISAKA_COORDINATOR": f"127.0.0.1:{port}",
+                       "MISAKA_NUM_PROCESSES": str(MP_WORKER_PROCS),
+                       "MISAKA_PROCESS_ID": str(rank)})
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core.state import state_to_numpy
+    from misaka_tpu_torch.parallel import (
+        hybrid_mesh, initialize_from_env, make_global_state, make_routed_runner,
+        make_sharded_runner)
+    from misaka_tpu_torch.parallel.mesh import gather_state, replicas_agree
+
+    def digests(arrays):
+        return {f: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+                for f, v in arrays.items()}
+
+    expect(initialize_from_env(), "the process group")
+    mesh = hybrid_mesh(model_parallel=2, device=[device, device])
+    expect(mesh.shape == {"data": MP_WORKER_PROCS, "model": 2} and mesh.data_offset == rank,
+           f"hybrid mesh {mesh.shape} at {mesh.data_offset}")
+    net = networks.add2(**MAIN_CAPS).compile(batch=batch, device=device)
+    state = seeded_inputs(net, np.random.default_rng(SEED + 23), MAIN_CAPS["in_cap"])
+    mine = {}
+    for engine, make in (("routed", make_routed_runner), ("gather", make_sharded_runner)):
+        out = make(net.code, net.prog_len, mesh, ticks)(make_global_state(state, mesh))
+        expect(not replicas_agree(out, mesh), f"rank {rank} {engine}: replicas differ")
+        mine[engine] = digests(state_to_numpy(gather_state(out, mesh)))
+    reports = [None] * MP_WORKER_PROCS
+    dist.all_gather_object(reports, {"rank": rank, "offset": mesh.data_offset, "digests": mine})
+    if rank == 0:
+        want = state_to_numpy(net.fused_runner(ticks, elide_dead_hi=False)(state))
+        rows = batch // MP_WORKER_PROCS
+        verdict = {"ranks": MP_WORKER_PROCS, "batch": batch, "ticks": ticks, "exact": True,
+                   "bad": []}
+        for rep in reports:
+            part = digests({f: v[rep["offset"] * rows:(rep["offset"] + 1) * rows]
+                            for f, v in want.items()})
+            for engine, got in rep["digests"].items():
+                bad = [f for f in part if got[f] != part[f]]
+                if bad:
+                    verdict["exact"] = False
+                    verdict["bad"].append({"rank": rep["rank"], "engine": engine, "fields": bad})
+        verdict["out_wr_min"] = int(want["out_wr"].min())
+        bad_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "misaka_tpu"))
+        verdict["jax_free"] = not bad_mods
+        with open(out_path, "w") as f:
+            json.dump(verdict, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    print("MP_WORKER_OK", flush=True)
+
+
+def mp_two_processes(batch, ticks, device):
+    """Two processes of this script (`--mp-worker`) on the card: a gloo group
+    over localhost through MISAKA_COORDINATOR, each rank model=2 over two
+    shards of `device`; rank 0 verifies every rank's rows."""
+    port = free_port()
+    out = os.path.join(ROOT, "build", f"mp_workers_{os.getpid()}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker",
+                               str(port), str(r), out, str(batch), str(ticks), device],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MP_WORKER_PROCS)]
+    logs = []
+    t = time.perf_counter()
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t
+    for p, log in zip(procs, logs):
+        expect(p.returncode == 0 and "MP_WORKER_OK" in log, f"mp worker failed:\n{log[-3000:]}")
+    with open(out) as f:
+        verdict = json.load(f)
+    os.unlink(out)
+    expect(verdict["exact"] and verdict["jax_free"], f"two-process drill: {verdict}")
+    verdict["seconds"] = seconds
+    return verdict
+
+
+def phase_model_parallel(batch=MAIN_BATCH, chunk=MAIN_CHUNK, ticks=128, serve_chunk=64,
+                         n_values=100_000, device="cuda:0", card=None):
+    """Model parallel (ROADMAP A.7) and the wide-lane steps (A.9) on a mesh
+    that repeats one card, in process, at the served shapes (B=262144, caps
+    128/128/16): the routed and gather runners held field by field to the
+    fused kernel's result from the same state (add2 at mp2 for one
+    `chunk`-tick chunk; mesh8 at mp2, mp4, mp8 and dp2 x mp2 for `ticks`);
+    the compact and chained one-device steps (pipeline32 against the
+    kernel, a fuzzed 64-lane network); `MasterNode(model_parallel=2)` on
+    two shards of the card serving add2 (a striped stream, checkpoints
+    mp2 -> mp1 -> mp2, autogrow; routed, then the stream again on gather);
+    and two processes joined through MISAKA_COORDINATOR.  The path launches
+    no kernel (the reference's master.py:1359-1363): every launch counted
+    here is a comparison's.  Its times are the routed and gather chunk
+    times beside the kernel's.  `ticks` is 128, not 256: the script's time
+    limit forces fewer; the masters run `serve_chunk`-tick chunks, so a
+    restore's flush and an autogrow's stalled chunks stay short.
+    device="cpu" with small sizes rehearses it without a card."""
+    t0 = time.perf_counter()
+    split = {}
+    rows, kernel = mp_runner_cases(batch, chunk, ticks, device)
+    split["runners"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    single = mp_single_device_cases(batch, ticks, device)
+    split["single_device"] = time.perf_counter() - t
+    failed = [r for r in rows + single if not r["exact"]]
+    if failed:
+        emit({"phase": "model_parallel", "failed": failed})
+        raise SystemExit("a lane-sharded or wide-lane step disagrees with the kernel")
+    t = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-mp-", dir=os.path.join(ROOT, "build"))
+    try:
+        routed = mp_master_drill(batch, serve_chunk, n_values, (device, device), "routed",
+                                 ckpt_dir)
+        gather = mp_master_drill(batch, serve_chunk, n_values, (device, device), "gather",
+                                 ckpt_dir, grow=False)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    split["master"] = time.perf_counter() - t
+    t = time.perf_counter()
+    procs = mp_two_processes(batch, ticks, device)
+    split["two_processes"] = time.perf_counter() - t
+    times = {}
+    for r in rows:
+        net = "add2/eager" if r["case"] == "add2/mp2/eager" else r["case"].split("/")[0]
+        t = times.setdefault(r["case"], {"ticks": r["ticks"], "kernel_ms": kernel[net],
+                                         "graphed": r["graphed"]})
+        t[f"{r['engine']}_ms"] = r["ms"]
+    row = {"phase": "model_parallel", "card": card, "batch": batch, **MAIN_CAPS,
+           "runners": rows, "single_device": single, "master": {"routed": routed,
+                                                                "gather": gather},
+           "two_processes": procs, "chunk_ms": times, "kernel_ms": kernel,
+           "max_abs_err": max(r.get("max_abs_err", 0) for r in rows + single),
+           "seconds": split}
+    emit(row)
+    return row
 
 
 def cuda_time_ms(fn, reps):
@@ -4650,6 +5115,7 @@ def main() -> int:
     telemetry_row = timed("telemetry", phase_telemetry, card=smi)
     observatory_row = timed("observatory", phase_observatory, card=smi)
     fleet_row = timed("fleet", phase_fleet, card=smi)
+    timed("model_parallel", phase_model_parallel, card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -4737,4 +5203,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        # one process of phase_model_parallel's two-process drill
+        port_, rank_, out_, batch_, ticks_, device_ = sys.argv[2:8]
+        mp_worker(int(port_), int(rank_), out_, int(batch_), int(ticks_), device_)
+        sys.exit(0)
     sys.exit(main())

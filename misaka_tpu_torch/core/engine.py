@@ -10,6 +10,12 @@ card (`fused_runner`, `serve_chunk`) or the plain torch tick loop (`run`).
 The plain step and the kernel are batched, so an unbatched state runs as a
 batch of one: `as_batch` in (views, no copy), `first` out.
 
+`run` auto-selects the arbitration of the plain tick loop as the JAX
+engine's `run` does (`step_fn`, `compact_auto_lanes`, `wide_engine`): the
+dense one-hot step (core/step.py) below a lane threshold, the compact-slot
+step (core/routing.py) at or above it.  All three steps are bit-identical.
+The kernel's plain version (core/fused.py::plain_run) stays the dense step.
+
 Every member keeps the JAX signature and its refusals: the batched-only
 members raise on an unbatched network and the single-instance ones on a
 batched network, with the JAX messages.  `make_batched_serve` and
@@ -26,10 +32,51 @@ import numpy as np
 import torch
 
 from misaka_tpu_torch.core import fused
+from misaka_tpu_torch.core import routing
 from misaka_tpu_torch.core import trace as trace_mod
 from misaka_tpu_torch.core.state import NetworkState, init_state, rebase_rings
+from misaka_tpu_torch.core.step import step
 from misaka_tpu_torch.device import resolve_device
 from misaka_tpu_torch.utils import profiling
+
+# The lane count at or above which the compact-slot step (core/routing.py)
+# replaces the dense one-hot step as `run`'s auto choice, and which wide
+# step serves there, per platform: the reference's own table (cpu, tpu).
+# CUDA is a platform the reference does not name, so it takes the
+# reference's default for such a platform: 32 lanes, "compact".
+COMPACT_AUTO_LANES = 32
+_COMPACT_AUTO_BY_PLATFORM = {"cpu": 0, "tpu": COMPACT_AUTO_LANES}
+_WIDE_ENGINE_BY_PLATFORM = {"cpu": "compact", "tpu": "chained"}
+_RUN_ENGINES = ("dense", "compact", "chained")
+
+
+def default_platform() -> str:
+    """The platform an entry point runs on when not told: "cuda" with a
+    card, else "cpu" (where the entry points then raise unless asked for
+    the CPU)."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def compact_auto_lanes(platform: str | None = None) -> int:
+    """The dense -> wide step auto-switch threshold of `platform` (None: the
+    default platform); MISAKA_COMPACT_AUTO_LANES overrides it."""
+    env = os.environ.get("MISAKA_COMPACT_AUTO_LANES")
+    if env:
+        return int(env)
+    return _COMPACT_AUTO_BY_PLATFORM.get(platform or default_platform(), COMPACT_AUTO_LANES)
+
+
+def wide_engine(platform: str | None = None) -> str:
+    """The wide-network step of `platform`: "compact" (scatter elections)
+    on the CPU and on CUDA, "chained" on a TPU.  Override with
+    MISAKA_WIDE_ENGINE=compact|chained."""
+    env = os.environ.get("MISAKA_WIDE_ENGINE")
+    if env:
+        if env not in ("compact", "chained"):
+            raise ValueError(f"MISAKA_WIDE_ENGINE must be compact|chained, got {env!r}")
+        return env
+    return _WIDE_ENGINE_BY_PLATFORM.get(platform or default_platform(), "compact")
+
 
 _SINGLE_ONLY = ("feed/drain/compute_stream drive a single network instance; "
                 "for batch mode write the I/O rings directly (see bench.py)")
@@ -80,6 +127,7 @@ class CompiledNetwork:
     _code_t: torch.Tensor = field(init=False, repr=False)
     _len_t: torch.Tensor = field(init=False, repr=False)
     _serve_fns: dict = field(init=False, repr=False)
+    _steps: dict = field(init=False, repr=False)
 
     def __post_init__(self):
         # At least one (possibly phantom) stack keeps kernel shapes nonempty.
@@ -92,6 +140,7 @@ class CompiledNetwork:
         self._code_t = torch.from_numpy(self.code.copy()).to(self.device)
         self._len_t = torch.from_numpy(self.prog_len.copy()).to(self.device)
         self._serve_fns = {}
+        self._steps = {}
 
     @property
     def num_lanes(self) -> int:
@@ -103,11 +152,49 @@ class CompiledNetwork:
             self.out_cap, batch=self.batch, device=self.device,
         )
 
-    def run(self, state: NetworkState, num_steps: int) -> NetworkState:
-        """Advance `num_steps` supersteps with the plain torch tick loop."""
-        if self.batch is None:
-            return first(fused.plain_run(self._code_t, self._len_t, as_batch(state), num_steps))
-        return fused.plain_run(self._code_t, self._len_t, state, num_steps)
+    def auto_engine(self) -> str:
+        """`run`'s auto choice on this network's device: "dense" below
+        compact_auto_lanes() lanes, wide_engine() at or above."""
+        platform = self.device.type
+        if self.num_lanes < compact_auto_lanes(platform):
+            return "dense"
+        return wide_engine(platform)
+
+    def step_fn(self, engine: str | None = None):
+        """The per-tick step fn(code, prog_len, batched state) -> state of
+        `engine` (None: `auto_engine`): core/step.py's dense step, or the
+        compact-slot step with this network's route table, with its chain
+        table for "chained" (built once each).  All are bit-identical."""
+        engine = engine or self.auto_engine()
+        if engine not in _RUN_ENGINES:
+            raise ValueError(f"engine must be None|dense|compact|chained, got {engine!r}")
+        if engine == "dense":
+            return step
+        fn = self._steps.get(engine)
+        if fn is None:
+            route = routing.build_route_table(self.code, self.prog_len)
+            chain = (routing.build_chain_table(self.code, self.prog_len, route, self.num_stacks)
+                     if engine == "chained" else None)
+            route = routing.route_on(route, self.device)
+
+            def fn(code, prog_len, state):
+                return routing.step_slots(route, code, prog_len, state, chain=chain)
+
+            self._steps[engine] = fn
+        return fn
+
+    def run(self, state: NetworkState, num_steps: int, engine: str | None = None
+            ) -> NetworkState:
+        """Advance `num_steps` supersteps with the plain torch tick loop.
+
+        engine: None auto-selects by lane count on this network's device
+        (`auto_engine`); "dense", "compact" or "chained" force a step."""
+        fn = self.step_fn(engine)
+        batched = state if self.batch is not None else as_batch(state)
+        for _ in range(num_steps):
+            batched = fn(self._code_t, self._len_t, batched)
+        batched = rebase_rings(batched)
+        return batched if self.batch is not None else first(batched)
 
     def init_trace(self, cap: int = 256) -> trace_mod.TraceRing:
         """A fresh per-lane trace ring on this network's device (core/trace.py)."""

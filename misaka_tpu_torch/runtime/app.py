@@ -37,13 +37,24 @@ Environment:
                      named .npz snapshots (the JAX package's format) here
   MISAKA_FUSED_ELIDE_HI  "1" serves through the kernel's elided variant
                      (lanes with no 64-bit reader skip the hi plane)
-  MISAKA_DATA_PARALLEL   shard the batch over N devices, one kernel launch
-                     per shard per chunk (MISAKA_BATCH must divide by N): the
-                     first N cards, and the app refuses to start when the
-                     host has fewer; with MISAKA_DEVICE=cpu, N shards on the
-                     CPU.  /status then reports "mesh"
-  MISAKA_MODEL_PARALLEL  > 1 (lanes sharded across devices) is not ported:
-                     the app refuses to start
+  MISAKA_DATA_PARALLEL   shard the batch over D devices, one kernel launch
+                     per shard per chunk (MISAKA_BATCH must divide by D)
+  MISAKA_MODEL_PARALLEL  shard each instance's program lanes over M devices
+                     (the lane count must divide by M), agreeing every tick
+                     through in-process collectives: the routed engine
+                     (MISAKA_ENGINE=gather: the first-generation one).
+                     The mesh is D x M devices: the first D*M cards, and
+                     the app refuses to start when the host has fewer; with
+                     MISAKA_DEVICE=cpu, D*M shards on the CPU.  /status
+                     then reports "mesh"
+  MISAKA_COORDINATOR host:port of a torch.distributed (gloo) process group,
+                     with MISAKA_NUM_PROCESSES and MISAKA_PROCESS_ID: the
+                     process joins it before anything touches the card.
+                     Each process then serves its own network; a mesh
+                     across processes (MISAKA_DATA_PARALLEL or
+                     MISAKA_MODEL_PARALLEL > 1 in a group of more than one)
+                     is not ported (ROADMAP A.7b) and refuses to start, and
+                     so does `auto` (JAX's Cloud TPU autodetection)
   MISAKA_TOPOLOGY    a declarative topology JSON file (Topology.from_json),
                      in place of NODE_INFO/MISAKA_PROGRAMS; a compose .yml
                      refuses to start (ROADMAP A.10)
@@ -159,8 +170,9 @@ Environment:
 
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
-MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5) and
-MISAKA_COORDINATOR (A.7).  The reference's native C++ edge
+MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), and a mesh
+across the processes of a MISAKA_COORDINATOR group (A.7b).  The reference's
+native C++ edge
 (MISAKA_NATIVE_EDGE) is not ported (A.8): the CPython workers take the
 public port, as the reference's do when its native edge is unavailable,
 with one logged line.
@@ -183,6 +195,7 @@ if __name__ == "__main__":
     arm_boot_handlers()
 
 from misaka_tpu_torch import PPID_AT_IMPORT as _PPID_AT_START
+from misaka_tpu_torch.parallel import multihost
 from misaka_tpu_torch.runtime import canary, edge, frontends
 from misaka_tpu_torch.runtime.lifecycle import install_guards
 from misaka_tpu_torch.runtime.master import AutoCheckpointer, MasterNode, make_http_server
@@ -256,9 +269,17 @@ def check_env(environ=os.environ) -> None:
         edge.plane_tls_from_env(environ)
     except (ValueError, OSError) as e:
         raise SystemExit(f"MISAKA_PLANE_TLS_*: {e}") from None
-    if environ.get("MISAKA_COORDINATOR"):
-        _refuse("MISAKA_COORDINATOR: multi-host serving is not ported yet "
-                "(ROADMAP A.7)")
+    coordinator = environ.get(multihost.COORDINATOR_ENV)
+    if coordinator == "auto":
+        _refuse(f"{multihost.COORDINATOR_ENV}=auto: JAX's Cloud TPU autodetection has no "
+                "counterpart on a card's host; give host:port with "
+                f"{multihost.NUM_PROCESSES_ENV} and {multihost.PROCESS_ID_ENV}")
+    if coordinator and int(environ.get(multihost.NUM_PROCESSES_ENV, "1") or 1) > 1 and any(
+            int(environ.get(k, "0") or 0) > 1
+            for k in ("MISAKA_DATA_PARALLEL", "MISAKA_MODEL_PARALLEL")):
+        _refuse("a serving mesh across the processes of a MISAKA_COORDINATOR group "
+                "(the reference's global jax.devices()) is not ported yet "
+                "(ROADMAP A.7b); each process of a group serves its own network")
 
 
 def build_master_from_env(environ=os.environ) -> MasterNode:
@@ -365,6 +386,12 @@ def main() -> None:
     else:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     check_env(environ)
+    # the process group first, before anything touches the card (a no-op
+    # without MISAKA_COORDINATOR), as the reference's app.py:755-760
+    if multihost.initialize_from_env(environ):
+        log.info("joined process group %s as rank %d of %d",
+                 environ[multihost.COORDINATOR_ENV], multihost.process_index(),
+                 multihost.process_count())
     fleet_n = int(environ.get("MISAKA_FLEET", "0") or 0)
     if fleet_n >= 1 and not environ.get("MISAKA_FLEET_REPLICA"):
         # the fleet parent (runtime/fleet.py): N replicas of this app, the

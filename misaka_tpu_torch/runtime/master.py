@@ -65,7 +65,7 @@ series below under the reference's names, types and labels, served at GET
 the device-loop thread (utils/profiling.py::LoopCapture); the
 `misaka_usage_*`, `misaka_slo_*`, `misaka_capture_*`, `misaka_tsdb_*`
 and `misaka_spool_errors_total` series.  Left out: the series and hooks
-of planes not ported (native pool, distributed, fleet: ROADMAP A.5-A.8).
+of planes not ported (the native pool, A.8; the distributed mode, A.5).
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -77,16 +77,20 @@ on the CPU; "scan" runs the plain version on any device; "fused" requires
 the kernel.  A traced master runs the plain version with recording, as the
 reference's traced masters run its scan engine.
 
-Data parallel (`data_parallel=D`, the reference's mesh master with a
-`data` axis only): the batch is cut into D contiguous shards, one per mesh
-device (parallel/mesh.py), and the network compiles to a `ShardedNetwork`
-whose serving members take the global feed and give global counters and
-slots, so the device loop, the slot locks and the scheduler are the same
-for one device and for D.  `self._state` is then the list of shard states;
-status sums over the shards on the host, and checkpoints, `snapshot` and
-`restore` carry the global [B, ...] arrays in shard order, as the JAX mesh
-master writes them, so a checkpoint moves between D=4, 2, 1 and the JAX
-package at the same B.
+Mesh serving (`data_parallel=D`, `model_parallel=M`, the reference's mesh
+master): a [D, M] mesh of devices (parallel/mesh.py).  The batch is cut
+into D contiguous rows; with M > 1 each row's program lanes are cut into M
+slices whose shards agree every tick through the collectives of
+core/axis.py (the routed engine, parallel/routed.py, or under
+engine="gather" parallel/sharded.py), while the stacks and rings are
+replicated over the row's shards.  The network compiles to a
+`ShardedNetwork` whose serving members take the global feed (written into
+every replica) and give global counters and slots, so the device loop, the
+slot locks and the scheduler are the same for one device and for D x M.
+`self._state` is then the list of shard states, row-major; status reads
+the shards on the host, and checkpoints, `snapshot` and `restore` carry
+the global [B, ...] arrays, as the JAX mesh master writes them, so a
+checkpoint moves between any D x M and the JAX package at the same B.
 """
 
 from __future__ import annotations
@@ -782,12 +786,16 @@ class MasterNode:
         when batched) in an N-tick ring, decoded by `trace()`; a traced
         master runs the plain version with recording (the debug path).
 
-        data_parallel=D serves the batch in D contiguous shards, one per
-        device of a mesh (parallel/mesh.py): device=None the first D cards
-        (raises when the host has fewer), "cpu" D shards on the CPU, or a
-        list of D devices, which may repeat one card.  B must divide by D.
-        model_parallel > 1 (lanes sharded across devices) is not ported
-        and raises.
+        data_parallel=D / model_parallel=M serve over a [D, M] mesh
+        (parallel/mesh.py) of device=None the first D*M cards (raises when
+        the host has fewer), "cpu" D*M shards on the CPU, or a list of D*M
+        devices, row-major, which may repeat one card.  data: the batch in
+        D contiguous rows (B must divide by D), one fused-kernel launch per
+        row on a card; model: each row's lanes in M slices (the lane count
+        must divide by M) that agree every tick through in-process
+        collectives: engine "auto" or "scan" serves the routed engine
+        (parallel/routed.py), "gather" the first-generation one
+        (parallel/sharded.py), and "fused" raises, as the reference's.
 
         stack_autogrow: double a full stack's capacity when a request
         stalls on it, while the stacks' bytes stay within
@@ -807,23 +815,25 @@ class MasterNode:
                 "kernel's plain version is engine='scan'")
         if engine == "gather" and not (model_parallel and model_parallel > 1):
             raise ValueError("engine='gather' requires model_parallel > 1")
-        if model_parallel is not None and int(model_parallel) > 1:
-            raise NotImplementedError(
-                f"model_parallel={model_parallel}: lane-sharded serving is not "
-                "ported yet (ROADMAP A.7)")
         if trace_cap and not (0 <= trace_instance < (batch or 1)):
             raise ValueError(
                 f"trace_instance {trace_instance} out of range [0, {batch or 1})")
         self._mesh = None
+        self._mp = 1
         if data_parallel or model_parallel:
             if batch is None:
                 raise ValueError("mesh serving requires batch=N")
             dp = int(data_parallel or 1)
+            mp = int(model_parallel or 1)
             if batch % dp:
                 raise ValueError(f"batch {batch} not divisible by data_parallel={dp}")
             if trace_cap:
                 raise ValueError("tracing is single-chip-only (the debug path)")
-            self._mesh = make_mesh(dp, device)
+            if mp > 1 and engine in ("fused", "fused-interpret"):
+                raise ValueError("model-parallel serving uses the routed engine "
+                                 "(engine='auto', 'scan', or 'gather')")
+            self._mesh = make_mesh(dp * mp, device, model_parallel=mp)
+            self._mp = mp
         if engine == "fused" and (trace_cap or batch is None):
             raise ValueError("fused engine requires batch=N and no trace_cap "
                              "(tracing runs the scan engine)")
@@ -927,8 +937,13 @@ class MasterNode:
             topology.compile(batch=self._batch, device=self._mesh.devices[0]), self._mesh)
 
     def _shards(self) -> list[NetworkState]:
-        """The live state as a list of shard states (one off a mesh)."""
+        """The live state as a list of shard states, row-major (one off a
+        mesh)."""
         return self._state if self._mesh is not None else [self._state]
+
+    def _gather(self) -> NetworkState:
+        """The mesh's shards as one whole-batch state on the CPU."""
+        return gather_state(self._state, self._mesh)
 
     def _place(self, state: NetworkState):
         """Owned copies of a whole-batch state where this master keeps it:
@@ -948,6 +963,10 @@ class MasterNode:
             return None
         if self._batch is None:
             return net.make_serve(self._chunk, "scan" if self._engine == "scan" else "auto")
+        if self._mp > 1:
+            runner = net.lane_runner(self._chunk,
+                                     "gather" if self._engine == "gather" else "routed")
+            return net.make_batched_serve(runner, self._chunk)
         if self._engine == "scan":
             chunk = self._chunk
             return net.make_batched_serve(lambda s: net.run(s, chunk), chunk)
@@ -956,7 +975,11 @@ class MasterNode:
     @property
     def engine_name(self) -> str:
         """What runs the chunks: "fused" (the kernel), "plain" (its plain
-        torch version) or "plain-traced" (the plain version recording)."""
+        torch version), "plain-traced" (the plain version recording), or on
+        a lane-sharded mesh "routed" or "gather", as the JAX master names
+        them."""
+        if self._mp > 1:
+            return "gather" if self._engine == "gather" else "routed"
         if self._trace_cap:
             return "plain-traced"
         if self._engine == "scan" or self._net.device.type != "cuda":
@@ -1298,12 +1321,15 @@ class MasterNode:
 
         with self._state_lock:
             shards = self._shards()
+            mp = self._mp
+            heads = shards[::mp]  # each row's first shard: its replicas are equal
             topo = self._topology
             tick = int(shards[0].tick.reshape(-1)[0])
-            retired = sum(per_lane(s.retired).cpu() for s in shards).tolist()
-            stack_top = sum(per_lane(s.stack_top).cpu() for s in shards).tolist()
-            in_depth = sum(int((s.in_wr - s.in_rd).sum()) for s in shards)
-            out_depth = sum(int((s.out_wr - s.out_rd).sum()) for s in shards)
+            retired = sum(torch.cat([per_lane(s.retired).cpu() for s in shards[i:i + mp]])
+                          for i in range(0, len(shards), mp)).tolist()
+            stack_top = sum(per_lane(s.stack_top).cpu() for s in heads).tolist()
+            in_depth = sum(int((s.in_wr - s.in_rd).sum()) for s in heads)
+            out_depth = sum(int((s.out_wr - s.out_rd).sum()) for s in heads)
             stack_cap = self._net.stack_cap
         with self._submit_q.mutex:
             submitted = list(self._submit_q.queue)
@@ -1375,7 +1401,7 @@ class MasterNode:
         evicted program's copy anyway."""
         t0 = time.perf_counter()
         with self._state_lock:
-            state = self._state if self._mesh is None else gather_state(self._state)
+            state = self._state if self._mesh is None else self._gather()
             arrays = state_to_numpy(state)
             topo = self._topology
         arrays[ckpt.TOPOLOGY_KEY] = ckpt.topology_blob({
@@ -1455,7 +1481,7 @@ class MasterNode:
         a mesh the shards gathered, on the CPU."""
         with self._state_lock:
             if self._mesh is not None:
-                return gather_state(self._state)
+                return self._gather()
             return clone_state(self._state)
 
     def restore(self, state: NetworkState) -> None:

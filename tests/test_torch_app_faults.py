@@ -18,8 +18,9 @@ One test per open fault of ROADMAP C, each failing before the fix:
   to the one before, the interval snapshots rotate to `keep`, and a
   restarted app resumes its state;
 
-and the same class at lower stakes: MISAKA_COORDINATOR refuses (A.7),
-while MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX
+and the same class at lower stakes: MISAKA_COORDINATOR joins a process
+group of one and the app serves what the JAX app serves (`auto` and a mesh
+across a group's processes refuse, A.7b), MISAKA_PROGRAMS_DIR boots and seeds the default program with the JAX
 app's version ID, and MISAKA_FLEET, a MISAKA_PLANE_TLS_* triple (a partial
 one fails loud) and a comma-separated MISAKA_PLANE_SOCKET pass the boot
 checks (the fleet itself: tests/test_torch_fleet.py); MISAKA_FAULTS and
@@ -497,6 +498,10 @@ def _boot(tmp_path, env, label):
         time.sleep(0.2)
 
 
+def _jax_compute_batch(master, values):
+    return [int(v) for v in master.compute_many(values, timeout=60)]
+
+
 def _compute_batch(base, values):
     data = urllib.parse.urlencode({"values": ",".join(map(str, values))}).encode()
     with urllib.request.urlopen(base + "/compute_batch", data=data, timeout=30) as r:
@@ -538,7 +543,8 @@ def test_c5_restarted_app_resumes_from_its_auto_snapshot(tmp_path):
     ({"MISAKA_FLEET": "2"}, "boots"),
     ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_TLS_CERT": "plane.pem"}, "partial"),
     ({"MISAKA_HTTP_WORKERS": "2", "MISAKA_PLANE_SOCKET": "/tmp/a.sock,/tmp/b.sock"}, "boots"),
-    ({"MISAKA_COORDINATOR": "127.0.0.1:1234"}, "A.7"),
+    ({"MISAKA_COORDINATOR": "127.0.0.1:{port}", "MISAKA_NUM_PROCESSES": "1",
+      "MISAKA_PROCESS_ID": "0"}, "group"),
 ], ids=["programs_dir", "fleet", "plane_tls", "plane_paths", "coordinator"])
 def test_unported_planes_refuse_at_boot(extra, item, tmp_path):
     if item is None:
@@ -571,6 +577,33 @@ def test_unported_planes_refuse_at_boot(extra, item, tmp_path):
     if item == "boots":
         # ported (ROADMAP A.6): the fleet and the router pass the checks
         app.check_env({**ADD2_ENV, **extra})
+        return
+    if item == "group":
+        # ported (ROADMAP A.7): the app joins a gloo group of one through
+        # MISAKA_COORDINATOR and serves add2 as the JAX master does
+        extra = {k: v.format(port=_free_port()) for k, v in extra.items()}
+        env = {**ADD2_ENV, **extra, "MISAKA_BATCH": "2", "MISAKA_CHUNK_STEPS": "32"}
+        app.check_env(env)
+        jm = JMaster(JTopology.from_node_info_json(ADD2_ENV["NODE_INFO"], ADD2_PROGRAMS),
+                     chunk_steps=32, batch=2, engine="scan")
+        jm.run()
+        try:
+            want = _jax_compute_batch(jm, [5, -3, 40])
+        finally:
+            jm.close()
+        proc, base = _boot(tmp_path, env, "group")
+        try:
+            assert _compute_batch(base, [5, -3, 40]) == want == [7, -1, 42]
+        finally:
+            proc.terminate()
+            assert proc.wait(timeout=30) == 0
+        assert "joined process group" in (tmp_path / "group.log").read_text()
+        for bad, why in (({"MISAKA_COORDINATOR": "auto"}, "autodetection"),
+                         ({**extra, "MISAKA_NUM_PROCESSES": "2", "MISAKA_MODEL_PARALLEL": "2"},
+                          "ROADMAP A.7b")):
+            with pytest.raises(SystemExit, match=why) as exc:
+                app.check_env({**ADD2_ENV, **bad})
+            assert exc.value.code == 2
         return
     if item == "partial":
         # a partial MISAKA_PLANE_TLS_* triple fails loud, as the JAX plane's

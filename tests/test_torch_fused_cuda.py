@@ -25,6 +25,10 @@ The observability hooks on the card: the device-loop chunk histogram
 counts one observation per kernel launch (batched and unbatched), and a
 profile taken through /profile/start|stop holds the kernel's CUDA events
 and the device loop's CPU ops.
+
+Model parallel on a mesh that repeats the card: both lane-sharded runners,
+graphed and eager, and the compact and chained one-device steps, against
+the kernel.
 """
 
 import os
@@ -443,3 +447,43 @@ def test_profile_on_the_card_holds_the_kernel_and_the_loop(card, tmp_path):
         h.shutdown()
         h.server_close()
         m.close()
+
+
+# --- model parallel on a mesh that repeats the card (PR 13) ---------------------------
+
+
+@pytest.mark.parametrize("engine", ["routed", "gather"])
+@pytest.mark.parametrize("mp,dp", [(2, 1), (4, 1), (2, 2)])
+def test_lane_runners_match_the_kernel_graphed_and_eager(card, engine, mp, dp):
+    """mesh8 at B=4096 over mp x dp shards of cuda:0: the graphed runner
+    (one CUDA graph a tick) and the eager one give the kernel's result,
+    every field, twice in a row from the same state, replicas equal."""
+    row = chip_smoke.lane_case(f"mesh8/{dp}x{mp}", *_mesh8_case(card), ["cuda:0"] * (mp * dp),
+                               mp, 96, engine)
+    check(row)
+    assert row["graphed"]
+    eager = chip_smoke.lane_case(f"mesh8/{dp}x{mp}/eager", *_mesh8_case(card),
+                                 ["cuda:0"] * (mp * dp), mp, 96, engine, graph=False)
+    check(eager)
+    assert not eager["graphed"]
+
+
+def _mesh8_case(card):
+    net = networks.mesh8(**chip_smoke.MAIN_CAPS).compile(batch=4096, device=card)
+    rng = np.random.default_rng(41)
+    state = chip_smoke.with_random_hi(chip_smoke.seeded_inputs(net, rng, 128), rng)
+    want, _ = chip_smoke.kernel_result(net, state, 96)
+    return net, state, want
+
+
+def test_compact_and_chained_steps_match_the_kernel(card):
+    """pipeline32 (the kernel's widest build) at B=4096: the compact and
+    chained one-device steps against the kernel, 96 ticks."""
+    net = networks.pipeline(32, **chip_smoke.MAIN_CAPS).compile(batch=4096, device=card)
+    state = chip_smoke.seeded_inputs(net, np.random.default_rng(43), 128)
+    want, _ = chip_smoke.kernel_result(net, state, 96)
+    from misaka_tpu_torch.core.state import state_to_numpy
+
+    for engine in ("compact", "chained"):
+        got = state_to_numpy(net.run(state, 96, engine=engine))
+        assert chip_smoke.diverged_fields(got, want) == [], engine

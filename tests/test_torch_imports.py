@@ -11,7 +11,9 @@ runtime/capture.py) import no torch either: a worker process must not
 pay for it; nor do the always-on and durable planes, stdlib only as in
 the reference (utils/spool.py, tsdb.py, watchdog.py, sampler.py and
 dashboard.py), nor the fleet (runtime/fleet.py: a worker's router imports
-its HashRing).  chip_smoke.py must refuse to
+its HashRing).  The model-parallel modules (core/routing.py, core/axis.py,
+parallel/routed.py, sharded.py, multihost.py) are among those checked.
+chip_smoke.py must refuse to
 report a result without a card, and when it is alone in a directory.
 """
 
@@ -65,7 +67,9 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.replay", "misaka_tpu_torch.utils.spool",
               "misaka_tpu_torch.utils.tsdb", "misaka_tpu_torch.utils.watchdog",
               "misaka_tpu_torch.utils.sampler", "misaka_tpu_torch.utils.dashboard",
-              "misaka_tpu_torch.runtime.fleet"):
+              "misaka_tpu_torch.runtime.fleet", "misaka_tpu_torch.core.routing",
+              "misaka_tpu_torch.core.axis", "misaka_tpu_torch.parallel.routed",
+              "misaka_tpu_torch.parallel.sharded", "misaka_tpu_torch.parallel.multihost"):
         assert m in report["modules"]
 
 

@@ -10,7 +10,9 @@ the JAX package's tests run an 8-device virtual CPU mesh (tests/conftest.py).
 - shard_state / gather_state: exact inverses, shards in `P("data")` order,
   every part an owned copy.
 - The master on a mesh: the DP cases of test_mesh_serving.py, /status
-  `mesh`, and the refusals (batch % D, model parallel, too few cards).
+  `mesh`, the refusals (batch % D, lanes % M, too few cards, the kernel
+  under model parallel) and the model-parallel boots, held against the
+  JAX mesh master (tests/test_torch_mesh_mp.py serves them).
   tests/test_torch_mesh_jax.py serves beside the JAX mesh master, and
   tests/test_torch_mesh_checkpoint.py moves checkpoints between the two.
 
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from misaka_tpu import networks as jnetworks
 from misaka_tpu.runtime.master import MasterNode as JMaster
 from misaka_tpu.runtime.topology import Topology as JTopology
 from misaka_tpu_torch import networks
@@ -212,8 +215,20 @@ def test_mesh_requires_divisibility_and_refuses_model_parallel():
         MasterNode(networks.add2(), device="cpu", data_parallel=8)  # unbatched
     with pytest.raises(ValueError, match="batch 3 not divisible by data_parallel=2"):
         MasterNode(networks.add2(), batch=3, device="cpu", data_parallel=2)
-    with pytest.raises(NotImplementedError, match="model_parallel=2.*A.7"):
-        MasterNode(networks.add2(), batch=2, device="cpu", model_parallel=2)
+    with pytest.raises(ValueError, match="2 lanes not divisible by model_parallel=8"):
+        MasterNode(networks.add2(), batch=2, device="cpu", model_parallel=8)
+    with pytest.raises(ValueError, match="routed engine"):
+        MasterNode(networks.add2(), batch=2, device="cpu", model_parallel=2, engine="fused")
+    # model_parallel=2 boots, as the JAX mesh master does
+    mp = MasterNode(networks.add2(**CAPS), batch=2, device="cpu", model_parallel=2)
+    jmp = JMaster(jnetworks.add2(**CAPS), batch=2, model_parallel=2)
+    try:
+        assert mp.engine_name == jmp.engine_name == "routed"
+        assert mp.status()["mesh"] == jmp.status()["mesh"] == {"data": 1, "model": 2}
+        assert [s.pc.shape for s in mp._state] == [(2, 1), (2, 1)]
+    finally:
+        mp.close()
+        jmp.close()
     plain = MasterNode(networks.add2(**CAPS), batch=2, device="cpu")
     assert "mesh" not in plain.status()
     # model_parallel=1 alone is a mesh of one, as in the reference
@@ -245,13 +260,34 @@ def test_mesh_env_surface():
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"MISAKA_DEVICE": "cpu", "MISAKA_MODEL_PARALLEL": "2"}, NotImplementedError),
-    ({"MISAKA_DEVICE": "cpu", "MISAKA_DATA_PARALLEL": "3"}, ValueError),  # 8 % 3
+    pytest.param({"MISAKA_DEVICE": "cpu", "MISAKA_MODEL_PARALLEL": "2"}, None,
+                 id="extra0-NotImplementedError"),
+    pytest.param({"MISAKA_DEVICE": "cpu", "MISAKA_DATA_PARALLEL": "3"}, ValueError,  # 8 % 3
+                 id="extra1-ValueError"),
 ])
 def test_mesh_env_refusals_at_boot(extra, error):
+    """MISAKA_DATA_PARALLEL that does not divide the batch refuses to boot;
+    MISAKA_MODEL_PARALLEL=2 boots the routed mesh master (its two lanes one
+    per shard) and answers as the JAX one does."""
     env = {"NODE_INFO": ENV_NODES, "MISAKA_PROGRAMS": ENV_PROGRAMS, "MISAKA_BATCH": "8", **extra}
-    with pytest.raises(error):
-        app.build_master_from_env(env)
+    if error is not None:
+        with pytest.raises(error):
+            app.build_master_from_env(env)
+        return
+    master = app.build_master_from_env({**env, "MISAKA_CHUNK_STEPS": "32"})
+    jm = JMaster(JTopology.from_node_info_json(ENV_NODES, json.loads(ENV_PROGRAMS)),
+                 chunk_steps=32, batch=8, model_parallel=2)
+    try:
+        assert master.status()["mesh"] == jm.status()["mesh"] == {"data": 1, "model": 2}
+        assert master.engine_name == jm.engine_name == "routed"
+        master.run()
+        jm.run()
+        vals = [5, -3, 40, 0]
+        assert master.compute_many(vals, timeout=60) == [
+            int(v) for v in jm.compute_many(vals, timeout=60)] == [v + 2 for v in vals]
+    finally:
+        master.close()
+        jm.close()
 
 
 def test_mesh_env_needs_the_cards_it_names():
