@@ -101,7 +101,13 @@ from the same state at B=262144; a `MasterNode(model_parallel=2)` on two
 shards of the card serves add2 (a striped stream, checkpoints mp2 -> mp1
 -> mp2, autogrow); and two processes of this script (`--mp-worker`) joined
 through MISAKA_COORDINATOR run model=2 each, rank 0 verifying.  That path
-launches no kernel.
+launches no kernel.  The `native` phase runs the host C++ tier
+(engine="native", core/native_serve.py) on the card's host: its
+libraries built from the port's C++ copies with the host compiler, every
+rung of its tick ladder exact against the kernel from the same state at
+B=262144, the README env served natively beside the card's B=1 lane, a
+4096-replica pool's striped stream, checkpoints native -> card -> native,
+and a registry engine activating on the JIT rung.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -360,7 +366,11 @@ def compare(label, net, state, steps, elide=False, plain=None):
     return row
 
 
-def phase_parity():
+def phase_parity(ticks=256):
+    """The kernel against its plain version from the same seeded states:
+    the baselines and the 16- and 32-lane pipelines at caps 8 and 1024
+    (`ticks` ticks), deep stacks pushed and drained (310 and 320 ticks),
+    and random networks over every opcode (96 ticks)."""
     from misaka_tpu_torch import networks
     from misaka_tpu_torch.runtime.topology import Topology
 
@@ -369,13 +379,13 @@ def phase_parity():
     for name, make in networks.BASELINE_CONFIGS.items():
         for cap in (8, 1024):
             net = make(in_cap=cap, out_cap=cap, stack_cap=cap).compile(batch=4096, device="cuda")
-            rows.append(compare(f"{name}/cap{cap}", net, seeded_inputs(net, rng, 6), 256))
+            rows.append(compare(f"{name}/cap{cap}", net, seeded_inputs(net, rng, 6), ticks))
     # the kernel's 16- and 32-lane builds (every network of 9-32 lanes)
     for n in (16, 32):
         for cap in (8, 1024):
             net = networks.pipeline(n, in_cap=cap, out_cap=cap, stack_cap=cap).compile(
                 batch=4096, device="cuda")
-            rows.append(compare(f"pipeline{n}/cap{cap}", net, seeded_inputs(net, rng, 6), 256))
+            rows.append(compare(f"pipeline{n}/cap{cap}", net, seeded_inputs(net, rng, 6), ticks))
     # deep stacks (tests/test_fused.py:114-155 shapes): push to depth 100 ...
     push = Topology(node_info={"p": "program", "st": "stack"},
                     programs={"p": "IN ACC\nPUSH ACC, st\n"},
@@ -430,7 +440,7 @@ def mixed_seeds(Topology, fused, count, first=200):
     return seeds
 
 
-def phase_elided_parity():
+def phase_elided_parity(ticks=256):
     """The elided variant against the plain version, from states with
     random hi planes: the five baselines, overflow64 (hi-live: JLZ on a
     64-bit value), running_total and 8 random networks that mix hi-live and
@@ -453,7 +463,7 @@ def phase_elided_parity():
         for cap in (8, 1024):
             net = make(in_cap=cap, out_cap=cap, stack_cap=cap).compile(batch=4096, device="cuda")
             state = with_random_hi(seeded_inputs(net, rng, 6, -(2**31), 2**31), rng)
-            rows.append(compare(f"{name}/cap{cap}", net, state, 256, elide=True))
+            rows.append(compare(f"{name}/cap{cap}", net, state, ticks, elide=True))
     if not any(0 < r["dead_lanes"] < r["lanes"] for r in rows):
         raise SystemExit("elided parity: no case mixes hi-live and hi-dead lanes")
     return report_parity("elided_parity", rows)
@@ -564,10 +574,13 @@ def phase_dp_parity(batch=MAIN_BATCH, chunk=MAIN_CHUNK):
             state = reverse_any_state(net, np.random.default_rng(SEED + 3))
         else:
             state = with_random_hi(seeded_inputs(net, rng, net.in_cap, -100, 100), rng)
-        plain = plain_result(net, state, chunk, key)  # one plain run per network and state
+        # the random network at 512 ticks (was the chunk: a depth cut; the
+        # shared states keep the chunk their phases read)
+        ticks = chunk if name in ("add2", "reverse_any") else min(chunk, 512)
+        plain = plain_result(net, state, ticks, key)  # one plain run per network and state
         for devices in layouts:
             rows.append(compare_dp(f"{name}/{len(devices)}x{len(set(devices))}card",
-                                   net, state, chunk, devices, plain))
+                                   net, state, ticks, devices, plain))
         if name == "add2":
             rows.append(compare_dp("add2/elided/2x1card", net, state, chunk, layouts[0],
                                    plain, elide=True))
@@ -2548,10 +2561,11 @@ def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=3
                                else "engine", **r})
             row["served"] = served
             # 3. evict and revive: alternating add10 and delay, 3 tenants
-            # and the canary over a cap of 3
+            # and the canary over a cap of 3, 2 rounds of each (was 3; every
+            # round still evicts and revives)
             rounds = []
             s_all = scrape(pub)
-            for i in range(3):
+            for i in range(2):
                 for name in ("add10", "delay"):
                     before = scrape(pub)
                     if name == "delay":
@@ -3469,7 +3483,12 @@ def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s
                MISAKA_WATCHDOG=observatory_rules(), MISAKA_WATCHDOG_RECENT_S="3",
                MISAKA_USAGE_FLUSH_S="1", MISAKA_CAPTURE_SEG_S=str(seg_s),
                MISAKA_CAPTURE_MB="64", MISAKA_CAPTURE_SEG_KB=str(48 * 1024),
-               MISAKA_CAPTURE_DISK_MB="4096")
+               MISAKA_CAPTURE_DISK_MB="4096",
+               # the drill servers' collector may take 5% of a core (the
+               # default 1% governs it to ~10 s a sample under this load on
+               # the card's host, and every drill below waits on its
+               # samples); the cost pair's b keeps the default
+               MISAKA_TSDB_BUDGET="0.05")
     row = {"phase": "observatory", "card": card, "workers": workers, "batch": batch,
            "chunk_steps": chunk, **MAIN_CAPS, "hot_rule": OBS_HOT_RULE, "fault_s": OBS_FAULT_S}
     t0 = time.perf_counter()
@@ -5055,6 +5074,449 @@ def ptxas_summary(report: str):
     return out
 
 
+def host_cpu() -> dict:
+    """The host CPU's model, core count and SIMD flags, from /proc/cpuinfo
+    (the first processor's fields; vendor, family and model numbers where
+    the machine gives no model name): the native tier runs on it."""
+    import platform
+
+    first, cores = {}, 0
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if key == "processor":
+                cores += 1
+            first.setdefault(key, value.strip())
+    model = first.get("model name") or " ".join(
+        f"{k} {first[k]}" for k in ("vendor_id", "cpu family", "model", "stepping")
+        if first.get(k)) or platform.processor()
+    if not model and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        model = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                      if line.startswith("Model name")), "")
+    flags = set(first.get("flags", "").split())
+    return {"model": model or "unknown", "cores": cores,
+            "simd": [f for f in ("avx2", "avx512f", "fma") if f in flags],
+            "cpuinfo_fields": sorted(k for k in first if k)}
+
+
+NATIVE_PREBUILD = {}  # start_native_builds: the build dir, the spec dir, the builds' futures
+
+
+def start_native_builds():
+    """Start the native tier's builds, each on its own thread, so that they
+    run beside the kernel's nvcc: the interpreter, the assembler and the
+    JIT's stencils from the port's C++ copies, and the specialized
+    interpreters of add2 and mesh8 at the parity caps (128/128/16).
+    phase_native waits for them and reports each one's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import cinterp, jit, specialize
+    from misaka_tpu_torch.tis import native as tis_native
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="native-", dir=os.path.join(ROOT, "build"))
+    spec_dir = os.path.join(tmp, "spec")
+    caps = dict(in_cap=128, out_cap=128, stack_cap=16)
+
+    def timed(fn):
+        t = time.perf_counter()
+        ok = fn()
+        return {"ok": bool(ok), "wall_s": time.perf_counter() - t}
+
+    jobs = {"interpreter": cinterp.NATIVE.available, "assembler": tis_native.NATIVE.available}
+    if jit.supported():
+        jobs["stencils"] = lambda: jit.build_stencils(spec_dir)
+    for name in ("add2", "mesh8"):
+        net = getattr(networks, name)(**caps).compile(device="cpu")
+        jobs[f"specialized/{name}"] = lambda net=net: specialize.build(net, cache_dir=spec_dir)
+    pool = ThreadPoolExecutor(len(jobs))
+    futures = {k: pool.submit(timed, fn) for k, fn in jobs.items()}
+    pool.shutdown(wait=False)
+    NATIVE_PREBUILD.update(tmp=tmp, spec_dir=spec_dir, futures=futures)
+
+
+def native_lowering(reps=20):
+    """tis/native.py's two lowerers, best of `reps`, on every program of
+    pipeline32 (the widest served network) and on one program each of 8
+    to 1024 lines, their tables equal: where the native backend wins
+    (`assemble` takes it from NATIVE_MIN_LINES lines)."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.tis import native as tis_native
+    from misaka_tpu_torch.tis.lower import lower_program
+
+    top = networks.pipeline(32)
+    lanes, stacks = top.lane_ids(), top.stack_ids()
+    cases = [("pipeline32", [top.programs[n] for n in lanes])]
+    for n in (8, 16, 32, 64, 256, 1024):
+        lines = []
+        for i in range(n // 4):
+            lines += [f"L{i}: IN ACC", "ADD 2", "OUT ACC", f"JGZ L{i}"]
+        cases.append((f"{n} lines", ["\n".join(lines)]))
+
+    def best_ms(fn, progs):
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            for p in progs:
+                fn(p, lanes, stacks)
+            best = min(best, time.perf_counter() - t)
+        return best * 1e3
+
+    rows = []
+    for label, progs in cases:
+        for p in progs:
+            a, b = lower_program(p, lanes, stacks), tis_native.assemble_native(p, lanes, stacks)
+            expect(np.array_equal(a.code, b.code), f"lowering {label}: the backends differ")
+        rows.append({"case": label, "programs": len(progs),
+                     "lines": sum(p.count("\n") + 1 for p in progs),
+                     "python_ms": best_ms(lower_program, progs),
+                     "native_ms": best_ms(tis_native.assemble_native, progs)})
+    return {"reps": reps, "native_min_lines": tis_native.NATIVE_MIN_LINES, "cases": rows}
+
+
+NATIVE_RUNGS = ("jit", "specialized", "auto", "generic", "scalar")
+RUNNING_TOTAL_PROGRAM = "IN ACC\nMOV ACC, misaka1:R0\nSWP\nADD R0\nOUT ACC\nSAV"
+
+
+def native_rung(info) -> str:
+    """The live rung a pool's simd_info names."""
+    if info["jit"]:
+        return "jit"
+    if info["specialized"]:
+        return "specialized"
+    return "avx2" if info["avx2"] else ("generic" if info["width"] else "scalar")
+
+
+def native_pool_case(label, cpu_net, state_np, want, rung, ticks, spec_dir):
+    """One NativePool rung asked for by its env from `state_np` (numpy
+    arrays of the kernel's entry state), `ticks` ticks in one stateless
+    call, held field by field to `want` (the kernel's result, numpy; stack
+    slots compared below each top: pops leave residue in the kernel, the
+    interpreter's export zero-pads)."""
+    from misaka_tpu_torch.core import cinterp, jit, specialize
+
+    prev = os.environ.get("MISAKA_SIMD")
+    lib, prog = None, None
+    if rung == "specialized":
+        so = specialize.build(cpu_net, cache_dir=spec_dir)
+        expect(so is not None, f"{label}: specialized build failed")
+        lib = cinterp.load_specialized(so)
+    if rung in ("generic", "scalar"):
+        os.environ["MISAKA_SIMD"] = "generic" if rung == "generic" else "0"
+    try:
+        pool = cinterp.NativePool(cpu_net.code, cpu_net.prog_len, cpu_net.num_stacks,
+                                  cpu_net.stack_cap, cpu_net.in_cap, cpu_net.out_cap,
+                                  replicas=cpu_net.batch, lib=lib)
+    finally:
+        if prev is None:
+            os.environ.pop("MISAKA_SIMD", None)
+        else:
+            os.environ["MISAKA_SIMD"] = prev
+    try:
+        if rung == "jit":
+            prog = jit.prepare(cpu_net, cache_dir=spec_dir)
+            expect(prog is not None and pool.jit_arm(prog) == 0, f"{label}: jit did not arm")
+        got_rung = native_rung(pool.simd_info())
+        # auto: AVX2 where the CPU has it, else the generic group tick
+        allowed = ("avx2", "generic") if rung == "auto" else (rung,)
+        expect(got_rung in allowed, f"{label}: asked for {rung}, ran {got_rung}")
+        # the pool writes the chunk's state into the arrays it is given:
+        # each rung gets its own copy of the entry state
+        entry = {k: v.copy() for k, v in state_np.items()}
+        t = time.perf_counter()
+        out, _ = pool.idle(entry, ticks)
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        pool.close()
+        if prog is not None:
+            prog.close()
+    bad = []
+    for f, w in want.items():
+        g = np.asarray(out[f])
+        if f == "stack_mem":
+            col = np.arange(w.shape[-1])
+            keep = col < want["stack_top"][..., None]
+            g, w = np.where(keep, g, 0), np.where(keep, w, 0)
+        w = np.asarray(w)
+        if g.dtype != w.dtype:
+            g, w = g.astype(np.int64), w.astype(np.int64)
+        if not np.array_equal(g, w):
+            bad.append(f)
+    expect(not bad, f"{label} ({rung}): fields differ from the kernel: {bad}")
+    return {"case": label, "rung": got_rung, "ms": ms, "replicas": cpu_net.batch,
+            "ticks": ticks, "exact": True}
+
+
+def native_parity(batch, ticks, device, spec_dir, rungs_for=("add2", "mesh8")):
+    """Every rung this host offers on add2 and mesh8, the auto rung on
+    pipeline32, each against the kernel from the same state; then
+    NativeServe unbatched against the kernel's B=1 view."""
+    import torch
+
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import jit
+    from misaka_tpu_torch.core.native_serve import NativeServe
+    from misaka_tpu_torch.core.state import state_to_numpy
+
+    caps = dict(in_cap=128, out_cap=128, stack_cap=16)
+    rows = []
+    rng = np.random.default_rng(SEED + 14)
+    offered = [r for r in NATIVE_RUNGS if r != "jit" or jit.supported()]
+    for name, top in (("add2", networks.add2(**caps)), ("mesh8", networks.mesh8(**caps)),
+                      ("pipeline32", networks.pipeline(32, **caps))):
+        net = top.compile(batch=batch, device=device)
+        cpu_net = top.compile(batch=batch, device="cpu")
+        state = seeded_inputs(net, rng, 24)
+        want_state, kernel_ms = kernel_result(net, state, ticks)
+        want = state_to_numpy(want_state)
+        entry = state_to_numpy(state)
+        del want_state
+        for rung in (offered if name in rungs_for else ("auto",)):
+            row = native_pool_case(f"{name}/{rung}", cpu_net, entry, want, rung, ticks, spec_dir)
+            row["kernel_ms"] = kernel_ms
+            rows.append(row)
+        del state
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    # NativeServe, unbatched, against the kernel's B=1 view
+    top = networks.add2(**caps)
+    net1 = top.compile(device=device)
+    serve = net1.make_serve(128, "auto")
+    ns = NativeServe(top.compile(device="cpu"))
+    s_dev = net1.init_state()
+    s_nat = top.compile(device="cpu").init_state()
+    try:
+        for it in range(8):
+            vals = np.zeros((net1.in_cap,), np.int32)
+            count = int(rng.integers(0, 6))
+            vals[:count] = rng.integers(-1000, 1000, size=count)
+            s_dev, p_dev = serve(s_dev, vals, count)
+            s_nat, p_nat = ns.serve_chunk(s_nat, vals, count, 128)
+            s_nat = ns.export_resident(s_nat) or s_nat
+            expect(np.array_equal(p_dev.cpu().numpy(), p_nat), f"NativeServe packed, chunk {it}")
+            a, b = state_to_numpy(s_dev), state_to_numpy(s_nat)
+            col = np.arange(a["stack_mem"].shape[-1])
+            for s in (a, b):
+                s["stack_mem"] = np.where(col < s["stack_top"][..., None], s["stack_mem"], 0)
+            bad = [f for f in a if not np.array_equal(a[f], b[f])]
+            expect(not bad, f"NativeServe state, chunk {it}: {bad}")
+        expect(int(s_nat.out_wr) > 0, "NativeServe computed nothing")
+    finally:
+        ns.close()
+    rows.append({"case": "add2/unbatched", "rung": "interpreter", "chunks": 8, "ticks": 128,
+                 "exact": True})
+    return rows
+
+
+def phase_native(batch=MAIN_BATCH, ticks=128, served_batch=4096, n_latency=100,
+                 n_clients=32, per_client=10, n_raw=100_000, device=None, card=None,
+                 unbatched_row=None):
+    """The native host tier (engine="native", core/native_serve.py) on the
+    card's host, while no other server of this script is up:
+
+    1. build: the interpreter, the assembler, the JIT's stencils and the
+       specialized interpreters of add2 and mesh8 from the port's C++
+       copies with the host compiler (start_native_builds, beside the
+       kernel's nvcc; seconds each), the host CPU, the SIMD rung `auto`
+       picks, both lowerers timed (native_lowering); the card's `auto` path
+       builds no native engine (the native handle counters are 0 here, and
+       an in-process batched master on the card serves "fused");
+    2. parity: at B=`batch`, caps 128/128/16, every rung this host offers
+       (jit, specialized, avx2 or generic, scalar; each asked for by its
+       env and asserted as the rung that ran) on add2 and mesh8, the auto
+       rung on pipeline32, `ticks` ticks in one call against the kernel
+       from the same state, every field exact; NativeServe unbatched
+       against the kernel's B=1 view, 8 chunks;
+    3. served: the README env with MISAKA_ENGINE=native (unbatched): 99
+       quiet /compute (p50, p90) and n_clients x per_client, beside the
+       card's B=1 lane from `unbatched_row` (the unbatched_path phase);
+       then a running total loaded over /load, checkpointed, continued on
+       the card's unbatched kernel in this process, checkpointed back and
+       restored into the native server: the totals carry on.  At the same
+       time MISAKA_BATCH=`served_batch` natively: n_raw values striped on
+       /compute_raw (every answer checked, values/s, the ladder's rung
+       from /status), a checkpoint restored into a fused master on the
+       card at the same batch and back;
+    4. registry: one program uploaded to an in-process native registry
+       engine at B=`served_batch` activates on the jit rung (seconds, the
+       misaka_native_jit_total{status="armed"} delta).
+
+    device="cpu" rehearses it (the kernel's plain version in its place)."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import cinterp, jit
+    from misaka_tpu_torch.runtime.master import MasterNode
+    from misaka_tpu_torch.runtime.registry import ProgramRegistry
+    from misaka_tpu_torch.tis import native as tis_native
+    from misaka_tpu_torch.utils import nativelib
+
+    device = device or "cuda"
+    if not NATIVE_PREBUILD:
+        start_native_builds()
+    tmp, spec_dir = NATIVE_PREBUILD["tmp"], NATIVE_PREBUILD["spec_dir"]
+    steps = {}
+    try:
+        created = cinterp._C_CREATED.labels(kind="pool").value + \
+            cinterp._C_CREATED.labels(kind="interp").value
+        expect(created == 0, f"native engines built before the native phase: {created}")
+        if device != "cpu":
+            m = MasterNode(networks.add2(), batch=8, device=device)
+            expect(m.engine_name == "fused", f"auto on the card: {m.engine_name}")
+            m.close()
+        # 1. the builds, started beside the kernel's nvcc (start_native_builds)
+        t_step = time.perf_counter()
+        builds = {}
+        for name, fut in NATIVE_PREBUILD["futures"].items():
+            builds[name] = fut.result()
+            expect(builds[name]["ok"], f"{name}: the host compiler could not build it")
+        for name, lib in (("interpreter", cinterp.NATIVE), ("assembler", tis_native.NATIVE)):
+            builds[name].update(seconds=lib.build_seconds, so=os.path.relpath(lib.so_path(), ROOT))
+        steps["builds_wait"] = time.perf_counter() - t_step
+        probe = cinterp.NativePool(networks.add2().compile(device="cpu").code,
+                                   networks.add2().compile(device="cpu").prog_len,
+                                   1, 16, 16, 16, replicas=16, threads=1)
+        auto_rung = native_rung(probe.simd_info())
+        probe.close()
+        cpu = host_cpu()
+        lowering = native_lowering()
+        emit({"phase": "native_build", "builds": builds, "beside": "the kernel's nvcc",
+              "host_cpu": cpu, "auto_rung": auto_rung, "cxx": nativelib.cxx(),
+              "lowering": lowering})
+        # 2. parity against the kernel
+        t = time.perf_counter()
+        rows = native_parity(batch, ticks, device, spec_dir)
+        parity_s = steps["parity"] = time.perf_counter() - t
+        emit({"phase": "native_parity", "tolerance": "exact (integer state; stack slots "
+              "below each top)", "cases": rows, "seconds": parity_s, "card": card})
+        # 3. served
+        t_step = time.perf_counter()
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt_dir)
+        specs = [dict(label="native_unbatched", node_info=ADD2_NODES, programs=readme_programs(),
+                      batch=None, chunk=None, caps=None, device=device, autorun=False,
+                      MISAKA_ENGINE="native", MISAKA_CHECKPOINT_DIR=ckpt_dir),
+                 dict(label="native_batched", node_info=ADD2_NODES, programs=readme_programs(),
+                      batch=served_batch, chunk=None, caps=None, device=device,
+                      MISAKA_ENGINE="native", MISAKA_CHECKPOINT_DIR=ckpt_dir,
+                      MISAKA_SPEC_CACHE=spec_dir)]
+        with served_apps(specs) as [(uport, u_boot), (bport, b_boot)]:
+            st = status(uport)
+            expect(st["engine"] == "native" and st["device"] == "cpu" and "batch" not in st,
+                   f"native unbatched status {st}")
+            expect(post_form(uport, "/run") == (200, b"Success"), "/run")
+            lat = []
+            for v in list(range(-49, 50))[: n_latency - 1]:
+                t = time.perf_counter()
+                code, body = post_form(uport, "/compute", value=str(v))
+                lat.append(time.perf_counter() - t)
+                expect(code == 200 and json.loads(body) == {"value": v + 2},
+                       f"native /compute {v} -> {code} {body!r}")
+            quiet = np.sort(np.asarray(lat))
+
+            def client(i):
+                for j in range(per_client):
+                    v = i * 1000 + j
+                    c, b = post_form(uport, "/compute", value=str(v))
+                    if c != 200 or json.loads(b) != {"value": v + 2}:
+                        raise RuntimeError(f"/compute {v} -> {c} {b!r}")
+
+            errors, clients_s = run_clients(n_clients, client)
+            expect(not errors, f"native clients: {errors[:4]}")
+            ust = status(uport)
+            expect(all(n == 0 for n in ust["kernel_launches"].values()),
+                   f"the native server launched the kernel: {ust['kernel_launches']}")
+            # the running total across engines: native -> card -> native
+            code, body = post_form(uport, "/load", targetURI="misaka1",
+                                   program=RUNNING_TOTAL_PROGRAM)
+            expect(code == 200, f"/load running total: {body!r}")
+            expect(post_form(uport, "/run")[0] == 200, "/run")
+            got = [json.loads(post_form(uport, "/compute", value=str(v))[1])["value"]
+                   for v in (5, 3, 10)]
+            expect(got == [5, 8, 18], f"native running total {got}")
+            expect(post_form(uport, "/checkpoint", name="rt") == (200, b"Success"), "/checkpoint")
+            card_m = MasterNode(networks.add2(), device=device)
+            card_m.load_checkpoint(os.path.join(ckpt_dir, "rt.npz"))
+            card_m.run()
+            expect(card_m.compute(2) == 20, "the card's master did not continue the total")
+            card_engine = card_m.engine_name
+            card_m.save_checkpoint(os.path.join(ckpt_dir, "rt2.npz"))
+            card_m.close()
+            expect(post_form(uport, "/restore", name="rt2") == (200, b"Success"), "/restore")
+            expect(post_form(uport, "/run")[0] == 200, "/run")
+            code, body = post_form(uport, "/compute", value="1")
+            expect(json.loads(body) == {"value": 21}, f"native after the card: {body!r}")
+            # the batched native server: the striped stream, its rung, a
+            # checkpoint round trip through the card's fused master
+            bst = status(bport)
+            expect(bst["engine"] == "native" and bst["batch"] == served_batch, f"{bst}")
+            rng = np.random.default_rng(SEED + 15)
+            vals = rng.integers(-(2**31), 2**31, size=n_raw, dtype=np.int64).astype(np.int32)
+            raw_s = check_raw(bport, vals)
+            b_rung = native_rung(status(bport)["native"])
+            expect(post_form(bport, "/checkpoint", name="b1") == (200, b"Success"), "/checkpoint")
+            b_tick = status(bport)["tick"]
+            fm = MasterNode(networks.add2(), batch=served_batch, device=device)
+            fm.load_checkpoint(os.path.join(ckpt_dir, "b1.npz"))
+            f_tick = fm.status()["tick"]
+            fm.run()
+            expect(fm.compute_spread(list(range(10_000))) == list(range(2, 10_002)),
+                   "the card's fused master after the native checkpoint")
+            f_engine = fm.engine_name
+            fm.save_checkpoint(os.path.join(ckpt_dir, "b2.npz"))
+            fm.close()
+            expect(post_form(bport, "/restore", name="b2") == (200, b"Success"), "/restore b2")
+            expect(post_form(bport, "/run")[0] == 200, "/run")
+            check_raw(bport, np.arange(-5000, 5000, dtype=np.int32))
+            blaunch = status(bport)["kernel_launches"]
+            expect(all(n == 0 for n in blaunch.values()), f"native batched launched {blaunch}")
+        steps["served"] = time.perf_counter() - t_step
+        # 4. registry activation on the jit rung
+        t_step = time.perf_counter()
+        reg = ProgramRegistry(os.path.join(tmp, "registry"), batch=served_batch,
+                              engine="native", device="cpu")
+        try:
+            armed0 = jit.M_JIT.labels(status="armed").value
+            reg.publish("add10", tis="IN ACC\nADD 10\nOUT ACC")
+            t = time.perf_counter()
+            with reg.lease("add10") as m:
+                activation_s = time.perf_counter() - t
+                r_rung = native_rung(m.status()["native"])
+                expect(m.compute_many([5]) == [15], "registry native engine")
+            armed = jit.M_JIT.labels(status="armed").value - armed0
+        finally:
+            reg.close()
+        steps["registry"] = time.perf_counter() - t_step
+        expect(not jit.supported() or (r_rung == "jit" and armed >= 1),
+               f"registry engine rung {r_rung}, jit armed delta {armed}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "native", "card": card, "host_cpu": cpu, "auto_rung": auto_rung,
+           "builds": builds, "lowering": lowering, "steps_s": steps, "parity_cases": len(rows),
+           "parity_ms": {r["case"]: r.get("ms") for r in rows},
+           "kernel_ms": {r["case"].split("/")[0]: r["kernel_ms"] for r in rows if "kernel_ms" in r},
+           "unbatched": {"boot_s": u_boot, "compute_latency_samples": len(quiet),
+                         "compute_latency_p50_s": float(np.percentile(quiet, 50)),
+                         "compute_latency_p90_s": float(np.percentile(quiet, 90)),
+                         "clients": n_clients, "client_requests": n_clients * per_client,
+                         "client_requests_per_s": n_clients * per_client / clients_s},
+           "card_b1_lane": None if unbatched_row is None else {
+               k: unbatched_row[k] for k in ("compute_latency_p50_s", "compute_latency_p90_s",
+                                             "client_requests_per_s")},
+           "running_total_via": card_engine,
+           "batched": {"batch": served_batch, "boot_s": b_boot, "rung": b_rung,
+                       "compute_raw_values": n_raw, "compute_raw_s": raw_s,
+                       "compute_raw_values_per_s": n_raw / raw_s,
+                       "checkpoint_tick_native": b_tick, "checkpoint_tick_card": f_tick,
+                       "card_engine": f_engine},
+           "registry": {"rung": r_rung, "activation_s": activation_s,
+                        "jit_armed_delta": armed}}
+    expect(b_tick == f_tick, f"checkpoint ticks {b_tick} vs {f_tick}")
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -5082,16 +5544,22 @@ def main() -> int:
             split[phase] = time.perf_counter() - t
             print(json.dumps({"split": phase, "seconds": split[phase]}), flush=True)
 
+    # the native tier's host builds run on threads beside nvcc
+    start_native_builds()
     t = time.perf_counter()
     build.build(fused.KERNEL)
     split["build"] = time.perf_counter() - t
     emit({"phase": "build", "kernel": fused.KERNEL, "seconds": split["build"],
           "ptxas": ptxas_summary(build.ptxas_report(fused.KERNEL))})
 
-    max_err = timed("parity", phase_parity)
-    max_err_elided = timed("elided_parity", phase_elided_parity)
+    # depth cut to make room for the native phase (every case kept, their
+    # exactness resolved by earlier runs at the deeper settings): the
+    # baselines' and pipelines' parity and the elided parity at 128 ticks
+    # (was 256), the unbatched long chunk 512 ticks (was 2048)
+    max_err = timed("parity", phase_parity, ticks=128)
+    max_err_elided = timed("elided_parity", phase_elided_parity, ticks=128)
     max_err_dp, dp_rows = timed("dp_parity", phase_dp_parity)
-    max_err_unbatched = timed("unbatched_parity", phase_unbatched_parity)
+    max_err_unbatched = timed("unbatched_parity", phase_unbatched_parity, chunks=(128, 512))
 
     # Each served phase runs in a fresh server process, whose launch counts
     # start at 0 when it boots; the counts are read from its /status at the
@@ -5106,16 +5574,27 @@ def main() -> int:
     two_row = timed("two_shards", phase_two_shards)
     unbatched_row = timed("unbatched_path", phase_unbatched_path)
     timed("traced", phase_traced)
-    obs_row = timed("observability", phase_observability, card=smi)
+    # depth cut to make room for the native phase (every check kept; these
+    # figures were resolved by earlier runs): observability and frontends
+    # 32 x 20 requests (was 32 x 40), frontends 49 quiet (was 99);
+    # telemetry 32 x 6,250 raw values (was 12,500), 16 capture clients (was
+    # 32), 20 delay requests (was 40), 50 B=1 requests (was 100);
+    # observatory 4 stream clients (was 8); fleet 4 quiet a cost turn (was
+    # 8); model_parallel 50,000 served values (was 100,000)
+    obs_row = timed("observability", phase_observability, card=smi, per_client=20)
     obs_unbatched_row = timed("unbatched_observability", phase_unbatched_observability,
                               card=smi)
-    fe_row = timed("frontends", phase_frontends, card=smi, zero_workers=obs_row)
+    fe_row = timed("frontends", phase_frontends, card=smi, zero_workers=obs_row, per_client=20,
+                   n_quiet=49)
     edge_row = timed("edge", phase_edge, card=smi)
     registry_row = timed("registry", phase_registry, card=smi)
-    telemetry_row = timed("telemetry", phase_telemetry, card=smi)
-    observatory_row = timed("observatory", phase_observatory, card=smi)
-    fleet_row = timed("fleet", phase_fleet, card=smi)
-    timed("model_parallel", phase_model_parallel, card=smi)
+    telemetry_row = timed("telemetry", phase_telemetry, card=smi, raw_values=6_250,
+                          capture_clients=16, n_delay=20, n_b1=50)
+    observatory_row = timed("observatory", phase_observatory, card=smi, stream_clients=4)
+    fleet_row = timed("fleet", phase_fleet, card=smi, n_quiet=4)
+    timed("model_parallel", phase_model_parallel, card=smi, n_values=50_000)
+    # the host tier, while no other server of this script is up
+    timed("native", phase_native, card=smi, unbatched_row=unbatched_row)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",

@@ -17,12 +17,13 @@ The port's twin of misaka_tpu/__main__.py:
                              (GET /usage/export)
 
 <topology> is a baseline config name (add2, acc_loop, ring4, sorter,
-mesh8 -- misaka_tpu_torch/networks.py) or a path to a declarative JSON file
-({"nodes": {...}, "programs": {...}} -- runtime/topology.py).
+mesh8 -- misaka_tpu_torch/networks.py), a path to a declarative JSON file
+({"nodes": {...}, "programs": {...}} -- runtime/topology.py), or a
+reference docker-compose .yml whose services carry NODE_TYPE/PROGRAM envs
+(runtime/compose.py; a host without PyYAML answers it with status 2).
 
-Not ported yet, each exits with status 2 and names its ROADMAP item:
-`bench` and docker-compose .yml topologies (runtime/compose.py and PyYAML;
-A.10).
+Not ported yet, it exits with status 2: `bench` (the port's benchmark
+harness comes with the port's benchmark).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from misaka_tpu_torch import replay as replay_mod
 
 # command -> why it is missing: each answers with status 2
 NOT_PORTED = {
-    "bench": "needs the benchmark harness (ROADMAP A.10)",
+    "bench": "needs the port's benchmark harness, which is not ported yet "
+             "(it comes with the port's benchmark)",
 }
 NOT_PORTED_STATUS = 2
 
@@ -52,8 +54,14 @@ def _load_topology(spec: str):
     if spec in networks.BASELINE_CONFIGS:
         return networks.BASELINE_CONFIGS[spec]()
     if spec.endswith((".yml", ".yaml")):
-        raise NotPorted(f"docker-compose topologies ({spec}) need runtime/compose.py "
-                        "and PyYAML (ROADMAP A.10)")
+        # a reference docker-compose deployment file (runtime/compose.py)
+        from misaka_tpu_torch.runtime.compose import load_compose
+
+        try:
+            return load_compose(spec)
+        except ImportError:
+            raise NotPorted(f"docker-compose topologies ({spec}) need PyYAML, "
+                            "which this host lacks") from None
     with open(spec) as f:
         return Topology.from_json(f.read())
 

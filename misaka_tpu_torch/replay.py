@@ -230,8 +230,8 @@ def add_arguments(p) -> None:
     """The replay options (the reference's, plus --device)."""
     p.add_argument("segment", help=".mskcap segment from /captures/export, or a directory "
                    "of segments to sweep oldest-first")
-    p.add_argument("--candidate", help="candidate topology (baseline name or .json) to "
-                   "replay against")
+    p.add_argument("--candidate", help="candidate topology (baseline name, .json, or "
+                   "compose .yml) to replay against")
     p.add_argument("--program", help="replay only this program label")
     p.add_argument("--engine", help="engine override (auto/scan/fused)")
     p.add_argument("--limit", type=int, help="replay only the last N records")

@@ -14,10 +14,30 @@ Environment:
   MISAKA_CHUNK_STEPS ticks per device-loop chunk (default 128)
   MISAKA_ENGINE      auto (default: the fused kernel on the card, its plain
                      version on the CPU) | scan (the plain version) | fused
-                     (require the kernel: batched and untraced); native
-                     (the reference's host C++ tier, ROADMAP A.8) and
-                     fused-interpret refuse to start, gather needs model
+                     (require the kernel: batched and untraced) | native
+                     (the host C++ interpreter tier, core/native_serve.py,
+                     on the host whatever MISAKA_DEVICE says: one instance,
+                     or MISAKA_BATCH replicas on a thread pool);
+                     fused-interpret refuses to start, gather needs model
                      parallel
+  MISAKA_NATIVE_THREADS  the native pool's OS threads (default: the cores)
+  MISAKA_SIMD        the native ladder's SIMD rung: auto/unset (AVX2 where
+                     the CPU has it, else generic), generic, 0 (scalar);
+                     /status `native` shows the live rung
+  MISAKA_JIT         "0" disables the copy-and-patch JIT rung (core/jit.py)
+  MISAKA_SPECIALIZE  "0" disables per-program specialized builds
+                     (core/specialize.py) and the spec cache dir the boot
+                     engine is given (MISAKA_SPEC_CACHE, default
+                     build/misaka_tpu_torch/spec-cache; a registry's
+                     engines cache under <MISAKA_PROGRAMS_DIR>/<name>/native);
+                     MISAKA_SPEC_CACHE_MAX_MB / _MAX_ENTRIES bound it,
+                     MISAKA_SPEC_SWITCH_MAX caps the switch-threaded tick
+  MISAKA_NATIVE_RESIDENT  "0" serves native pools statelessly (import and
+                     export every call) instead of holding the state in C++
+  MISAKA_POOL_SPIN_US  the pool dispenser's spin budget before it parks
+  MISAKA_NATIVE_TRACE  "0" disables the native flight recorder (GET
+                     /debug/native_trace); MISAKA_NATIVE_TRACE_RING records
+                     per thread ring
   MISAKA_TRACE_CAP   N > 0 records every tick of one instance in an N-tick
                      ring: GET /debug/isa_trace?last=N (the plain version
                      serves, recording; 409 on that route without it)
@@ -56,8 +76,9 @@ Environment:
                      is not ported (ROADMAP A.7b) and refuses to start, and
                      so does `auto` (JAX's Cloud TPU autodetection)
   MISAKA_TOPOLOGY    a declarative topology JSON file (Topology.from_json),
-                     in place of NODE_INFO/MISAKA_PROGRAMS; a compose .yml
-                     refuses to start (ROADMAP A.10)
+                     in place of NODE_INFO/MISAKA_PROGRAMS, or a reference
+                     docker-compose .yml (runtime/compose.py; without
+                     PyYAML it refuses to start)
   MISAKA_TLS_CERT / MISAKA_TLS_KEY  serve HTTPS (both or neither)
   MISAKA_AUTOCKPT    N seconds: snapshot the live state into
                      MISAKA_CHECKPOINT_DIR (required) as auto-<seq>.npz and
@@ -107,8 +128,8 @@ Environment:
                      index) and MISAKA_FLEET_RESTORE (a roll replacement's
                      checkpoint, restored before any traffic in place of
                      the auto-restore) for its replicas; it also sets
-                     MISAKA_NATIVE_THREADS as the reference does, which the
-                     port's replicas ignore (no native tier, ROADMAP A.8)
+                     MISAKA_NATIVE_THREADS (the host's cores split between
+                     the replicas' native pools) unless it is set
   MISAKA_API_KEYS    the API key file: arms auth on every route but
                      /healthz and /metrics (runtime/edge.py); the app then
                      mints MISAKA_EDGE_INTERNAL_TOKEN unless it is set
@@ -172,10 +193,9 @@ Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
 MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), and a mesh
 across the processes of a MISAKA_COORDINATOR group (A.7b).  The reference's
-native C++ edge
-(MISAKA_NATIVE_EDGE) is not ported (A.8): the CPython workers take the
-public port, as the reference's do when its native edge is unavailable,
-with one logged line.
+native C++ edge (MISAKA_NATIVE_EDGE) is not ported yet (A.8b): the CPython
+workers take the public port, as the reference's do when its native edge
+is unavailable, with one logged line.
 """
 
 from __future__ import annotations
@@ -241,8 +261,14 @@ def build_topology_from_env(environ=os.environ) -> Topology:
     path = environ.get("MISAKA_TOPOLOGY")
     if path:
         if path.endswith((".yml", ".yaml")):
-            _refuse(f"MISAKA_TOPOLOGY={path}: compose .yml topologies are not ported "
-                    "yet (ROADMAP A.10); give a topology .json")
+            # a reference docker-compose deployment (runtime/compose.py)
+            from misaka_tpu_torch.runtime.compose import load_compose
+
+            try:
+                return load_compose(path, **caps)
+            except ImportError:
+                _refuse(f"MISAKA_TOPOLOGY={path}: compose .yml topologies need PyYAML, "
+                        "which this host lacks; give a topology .json")
         with open(path) as f:
             return Topology.from_json(f.read(), **caps)
     node_info = environ.get("NODE_INFO")
@@ -296,7 +322,19 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
         stack_autogrow=environ.get("MISAKA_STACK_AUTOGROW", "1") != "0",
         data_parallel=int(environ.get("MISAKA_DATA_PARALLEL", "0") or 0) or None,
         model_parallel=int(environ.get("MISAKA_MODEL_PARALLEL", "0") or 0) or None,
+        native_spec_dir=specialize_dir(environ),
     )
+
+
+def specialize_dir(environ=os.environ) -> str | None:
+    """The boot master's native compile cache, or None when the ladder's
+    compiled rungs are killed (MISAKA_SPECIALIZE=0): a master climbs
+    above the avx2 / generic rung only with a cache dir."""
+    if environ.get("MISAKA_SPECIALIZE", "1") in ("0", "off"):
+        return None
+    from misaka_tpu_torch.core import specialize
+
+    return specialize.default_cache_dir()  # MISAKA_SPEC_CACHE or the build dir
 
 
 def arm_autockpt(master: MasterNode, environ=os.environ) -> AutoCheckpointer | None:
@@ -456,8 +494,8 @@ def main() -> None:
         plane = httpd.misaka_plane = frontends.start_compute_plane(master, path,
                                                                    registry=registry)
         if environ.get("MISAKA_NATIVE_EDGE", "1") != "0" and not environ.get("MISAKA_TLS_CERT"):
-            log.warning("native edge unavailable (not ported: ROADMAP A.8); CPython workers "
-                        "take the public port")
+            log.warning("native edge unavailable (not ported yet: ROADMAP A.8b); CPython "
+                        "workers take the public port")
         supervisor = httpd.misaka_supervisor = frontends.FrontendSupervisor(
             workers, port, f"http://127.0.0.1:{engine_port}", path,
             plane_conns=int(environ.get("MISAKA_PLANE_CONNS", "2")))

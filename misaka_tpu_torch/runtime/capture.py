@@ -18,7 +18,7 @@ Surfaces, each request recorded once, where it terminated:
   "worker"  frontend workers' locally terminated rejects (shed cache,
             backlog cap), shipped up in frame metadata
 
-("edge", the reference's native C++ edge, is ROADMAP A.8.)
+("edge", the reference's native C++ edge, is ROADMAP A.8b.)
 
 Knobs, re-read by configure():
 

@@ -36,7 +36,7 @@ the stage); the admission signals carry the SLO engine's page bit
 TCP compute plane's mTLS material (MISAKA_PLANE_TLS_CERT/KEY/CA,
 `PlaneTLSReloader`, hot-reloaded on a rotation) and its typed reject
 counter live here too.  Left out: the native edge's state push (ROADMAP
-A.8).  Stdlib only, plus the port's stdlib-only utils: the frontend
+A.8b).  Stdlib only, plus the port's stdlib-only utils: the frontend
 workers import this module.
 """
 

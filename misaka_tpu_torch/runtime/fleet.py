@@ -442,9 +442,9 @@ class FleetManager:
             env["MISAKA_API_KEYS"] = keyfile
         env["MISAKA_EDGE_INTERNAL_TOKEN"] = self._internal_token
         if not self._base_env.get("MISAKA_NATIVE_THREADS") and self.n > 1:
-            # the reference splits the host's cores between the replicas'
-            # native pools; the port has no native tier (ROADMAP A.8) and
-            # its replicas ignore the variable
+            # N replicas share one box: a full-width native pool each
+            # would oversubscribe every core N times, so split the cores;
+            # an explicit MISAKA_NATIVE_THREADS always wins
             env["MISAKA_NATIVE_THREADS"] = str(max(2, (os.cpu_count() or 8) // self.n))
         programs_dir = self._base_env.get("MISAKA_PROGRAMS_DIR")
         if programs_dir:
@@ -1555,8 +1555,8 @@ def prebuild_kernel(environ=os.environ) -> None:
     the same way)."""
     if (environ.get("MISAKA_DEVICE") or "cuda").startswith("cpu"):
         return
-    if environ.get("MISAKA_ENGINE", "auto") == "scan":
-        return
+    if environ.get("MISAKA_ENGINE", "auto") in ("scan", "native"):
+        return  # the plain loop and the host tier launch no kernel
     from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.csrc import build
 

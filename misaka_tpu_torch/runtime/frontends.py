@@ -49,7 +49,7 @@ mutual TLS when MISAKA_PLANE_TLS_CERT/KEY/CA are set (runtime/edge.py
 `PlaneTLSReloader`), the HMAC handshake running inside the session; a
 peer refused at the gate is a typed, counted close.  One thread reads an
 mTLS socket and writes to it go through one lock (or one thread), never
-two at once.  Left out: the native C++ edge (ROADMAP A.8).
+two at once.  Left out: the native C++ edge (ROADMAP A.8b).
 
 This module imports the standard library and the port's stdlib-only
 modules only: a frontend worker never pays the torch import or its memory.

@@ -64,8 +64,10 @@ series below under the reference's names, types and labels, served at GET
 (utils/tracespan.py); profiles through torch.profiler, begun and ended on
 the device-loop thread (utils/profiling.py::LoopCapture); the
 `misaka_usage_*`, `misaka_slo_*`, `misaka_capture_*`, `misaka_tsdb_*`
-and `misaka_spool_errors_total` series.  Left out: the series and hooks
-of planes not ported (the native pool, A.8; the distributed mode, A.5).
+and `misaka_spool_errors_total` series; with a native engine the
+`misaka_native_*` series (core/native_serve.py), GET /debug/native_trace
+(its flight recorder's rings) and its worker spans in /debug/perfetto.
+Left out: the series and hooks of the distributed mode (A.5).
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -75,7 +77,14 @@ CUDA kernel on a card (the full kernel unbatched; batched, the elided
 variant under MISAKA_FUSED_ELIDE_HI=1) and through its plain torch version
 on the CPU; "scan" runs the plain version on any device; "fused" requires
 the kernel.  A traced master runs the plain version with recording, as the
-reference's traced masters run its scan engine.
+reference's traced masters run its scan engine.  "native" serves on the
+host C++ tier (core/native_serve.py) whatever the device: NativeServe
+unbatched, NativeServePool batched, whose tick ladder (jit, specialized,
+avx2 or generic, scalar) is climbed only at batch >= 8 with a
+`native_spec_dir`.  The state is then CPU tensors that the engine may hold
+resident in C++ between chunks: every reader of the state's content
+exports it first (`_sync_native_state`), and the batched loop ticks only
+the replicas that have work (`_native_active`).
 
 Mesh serving (`data_parallel=D`, `model_parallel=M`, the reference's mesh
 master): a [D, M] mesh of devices (parallel/mesh.py).  The batch is cut
@@ -651,6 +660,7 @@ class ServeBatcher:
         timeout_s = max(0.0, deadline - time.monotonic())
         with master._waiters_lock:
             master._waiters += 1
+        token = master._trace_ids_enter(tr for e, _, _ in segs for tr in e.traces)
 
         def record_pass_spans(bill: bool = True) -> None:
             # one serve.pass span per traced request of the pass (coalesced
@@ -720,6 +730,7 @@ class ServeBatcher:
             for e in failed:
                 e.event.set()
         finally:
+            master._trace_ids_exit(token)
             with master._waiters_lock:
                 master._waiters -= 1
             for s in used:
@@ -769,6 +780,7 @@ class MasterNode:
         stack_grow_max_bytes: int = 256 * 1024 * 1024,
         data_parallel: int | None = None,
         model_parallel: int | None = None,
+        native_spec_dir: str | None = None,
     ):
         """batch=None serves one network instance (every /compute strictly
         FIFO).  batch=B runs B independent instances in lockstep and hands
@@ -777,10 +789,16 @@ class MasterNode:
 
         engine: "auto" (the fused kernel on a card for every untraced
         path, the plain version on the CPU), "scan" (the plain torch loop
-        on the given device) or "fused" (require the kernel: batched,
-        untraced, on a card).  "native" (the reference's host C++ tier) is
-        not ported and raises NotImplementedError; "fused-interpret" and
-        "gather" raise as the reference's refusals do.
+        on the given device), "fused" (require the kernel: batched,
+        untraced, on a card) or "native" (the host C++ interpreter tier,
+        core/native_serve.py, on the host whatever `device` says; refused
+        with a trace or a mesh, as the reference's).  "fused-interpret"
+        and "gather" raise as the reference's refusals do.
+
+        native_spec_dir: the compile cache of the native tick ladder's top
+        rungs (core/jit.py, core/specialize.py); None keeps a native pool
+        on the avx2 / generic rung, so a direct construction never runs
+        the compiler.
 
         trace_cap=N records every tick of one instance (`trace_instance`
         when batched) in an N-tick ring, decoded by `trace()`; a traced
@@ -806,9 +824,13 @@ class MasterNode:
         if engine not in _ENGINES:
             raise ValueError(f"engine must be {'|'.join(_ENGINES)}, got {engine!r}")
         if engine == "native":
-            raise NotImplementedError(
-                "engine='native': the host C++ interpreter tier is not ported yet "
-                "(ROADMAP A.8)")
+            # the host-interpreter tier: one instance (latency) or B
+            # thread-pooled replicas (throughput); host, untraced
+            if trace_cap:
+                raise ValueError("tracing runs the scan engine (the debug "
+                                 "path), not the native engine")
+            if data_parallel or model_parallel:
+                raise ValueError("engine='native' is single-chip (host) serving")
         if engine == "fused-interpret":
             raise ValueError(
                 "engine='fused-interpret': the port has no kernel interpreter; the "
@@ -841,6 +863,8 @@ class MasterNode:
         self._chunk = chunk_steps
         self._batch = batch
         self._engine = engine
+        self._native = engine == "native"
+        self._native_spec_dir = native_spec_dir
         self._device = device
         self._grow = bool(stack_autogrow)
         self._grow_max_bytes = int(stack_grow_max_bytes)
@@ -864,6 +888,17 @@ class MasterNode:
         self._lifecycle_lock = threading.RLock() # serializes run/pause/reset/load
         n_slots = batch or 1
         self._n_slots = n_slots
+        # the native tier's partial-fill bookkeeping (_native_active): fed
+        # minus drained per slot, the replicas that retired instructions
+        # last chunk, and whether a progress baseline exists yet
+        self._inflight = np.zeros((n_slots,), np.int64)
+        self._native_hot = np.zeros((n_slots,), bool)
+        self._retired_prev = None
+        # the request traces of the passes in flight, for the native flight
+        # recorder's correlation (active_pass_trace_ids)
+        self._pass_traces: dict[int, tuple] = {}
+        self._pass_trace_next = 0
+        self._pass_traces_lock = threading.Lock()
         self._compute_locks = [threading.Lock() for _ in range(n_slots)]
         # ONE submission queue for all slots (payload: a list of (slot,
         # int32-array) pairs); per-slot output queues, made on first use.
@@ -932,7 +967,8 @@ class MasterNode:
         """`topology` compiled for this master: a CompiledNetwork, or on a
         mesh its sharded twin."""
         if self._mesh is None:
-            return topology.compile(batch=self._batch, device=self._device)
+            device = "cpu" if self._native else self._device
+            return topology.compile(batch=self._batch, device=device)
         return ShardedNetwork(
             topology.compile(batch=self._batch, device=self._mesh.devices[0]), self._mesh)
 
@@ -961,6 +997,8 @@ class MasterNode:
         programs), the plain version on the CPU or under engine="scan"."""
         if self._trace_cap:
             return None
+        if self._native:
+            return self._make_native(net)
         if self._batch is None:
             return net.make_serve(self._chunk, "scan" if self._engine == "scan" else "auto")
         if self._mp > 1:
@@ -972,12 +1010,103 @@ class MasterNode:
             return net.make_batched_serve(lambda s: net.run(s, chunk), chunk)
         return net.make_batched_serve(net.fused_runner(self._chunk), self._chunk)
 
+    def _make_native(self, net):
+        """The native engine of `net`: NativeServe unbatched, else a
+        NativeServePool on the tick ladder's highest rung that builds.
+        The top rungs (the copy-and-patch JIT, then the per-program
+        specialized build) are tried only with a spec dir and a full SIMD
+        group (batch >= 8); each failure drops one rung and is counted
+        (misaka_native_jit_total, misaka_native_specialize_total)."""
+        from misaka_tpu_torch.core import jit as jit_mod
+        from misaka_tpu_torch.core import specialize
+        from misaka_tpu_torch.core.native_serve import NativeServe, NativeServePool
+
+        if self._batch is None:
+            runner = NativeServe(net)
+        else:
+            spec_so = jit_prog = None
+            if self._native_spec_dir is not None and self._batch >= 8:
+                if jit_mod.enabled() and jit_mod.supported():
+                    jit_prog = jit_mod.prepare(net, cache_dir=self._native_spec_dir)
+                if jit_prog is None and specialize.enabled():
+                    spec_so = specialize.build(net, cache_dir=self._native_spec_dir)
+            runner = NativeServePool(net, chunk_steps=self._chunk, specialized=spec_so,
+                                     jit_program=jit_prog)
+        # usage attribution and flight-recorder correlation, read through a
+        # weakref at call time: the registry names engines after
+        # construction, and the runner must not keep a closed master alive
+        mref = weakref.ref(self)
+        runner.usage_label = lambda: (
+            (m.program_label or usage.DEFAULT_LABEL)
+            if (m := mref()) is not None else usage.DEFAULT_LABEL)
+        if hasattr(runner, "active_trace_ids"):
+            runner.active_trace_ids = lambda: (
+                m.active_pass_trace_ids() if (m := mref()) is not None else ())
+        return runner
+
+    @staticmethod
+    def _close_runner(serve) -> None:
+        """Release a replaced native engine's C++ handles (its interpreter
+        or its pool's OS threads) at once instead of at garbage collection;
+        a no-op for the torch serve functions."""
+        close = getattr(serve, "close", None)
+        if close is None:
+            return
+        try:
+            close()
+        except Exception:
+            log.warning("closing replaced engine failed", exc_info=True)
+
+    def _sync_native_state(self) -> None:
+        """Materialize a native engine's resident state into self._state.
+
+        The native engines keep the state in C++ between chunks and hand
+        back an identity anchor whose tensors are stale, so every path that
+        reads the state's content (status, checkpoint, snapshot, autogrow,
+        the loop's first counters, the idle ring drain) exports first.  The
+        export is gated on the anchor: a state a lifecycle path replaced is
+        left alone.  Caller holds _state_lock."""
+        export = getattr(self._serve, "export_resident", None)
+        if export is None:
+            return
+        st = export(self._state)
+        if st is not None:
+            self._state = st
+
+    def _trace_ids_enter(self, traces) -> int | None:
+        """Register a pass's request-trace IDs (None when untraced); pair
+        with _trace_ids_exit in a finally."""
+        ids = tuple(tr.trace_id for tr in traces if tr is not None)
+        if not ids:
+            return None
+        with self._pass_traces_lock:
+            token = self._pass_trace_next
+            self._pass_trace_next += 1
+            self._pass_traces[token] = ids
+        return token
+
+    def _trace_ids_exit(self, token: int | None) -> None:
+        if token is not None:
+            with self._pass_traces_lock:
+                self._pass_traces.pop(token, None)
+
+    def active_pass_trace_ids(self) -> tuple:
+        """The union of the trace IDs of the passes in flight (read by the
+        native pool once per call, core/native_serve.py)."""
+        with self._pass_traces_lock:
+            out: list = []
+            for ids in self._pass_traces.values():
+                out.extend(t for t in ids if t not in out)
+            return tuple(out)
+
     @property
     def engine_name(self) -> str:
         """What runs the chunks: "fused" (the kernel), "plain" (its plain
-        torch version), "plain-traced" (the plain version recording), or on
-        a lane-sharded mesh "routed" or "gather", as the JAX master names
-        them."""
+        torch version), "plain-traced" (the plain version recording),
+        "native" (the host C++ tier), or on a lane-sharded mesh "routed" or
+        "gather", as the JAX master names them."""
+        if self._native:
+            return "native"
         if self._mp > 1:
             return "gather" if self._engine == "gather" else "routed"
         if self._trace_cap:
@@ -1020,12 +1149,16 @@ class MasterNode:
         workers.  Nothing this master started (the loop, the scheduler's
         workers, metric callbacks) holds it afterwards, so the engine's
         device state is freed once its owner drops it (the program
-        registry's eviction and retire path)."""
+        registry's eviction and retire path).  A native engine's state is
+        exported first and its C++ handles released."""
         with self._lifecycle_lock:
             self.pause()
             if self._batcher is not None:
                 self._batcher.begin_close()
             self._drain_queues()
+            with self._state_lock:
+                self._sync_native_state()
+                self._close_runner(self._serve)
         if self._batcher is not None and not self._batcher.join(10.0):
             log.warning("serve-scheduler workers still running 10 s after close")
 
@@ -1041,6 +1174,8 @@ class MasterNode:
         (`fused.decode_lines`) were paid when the runner was built.
         Best-effort: a failure is logged and counted, and serving goes
         on."""
+        if self._native:
+            return  # the host tier pays its one-time costs (the build) at construction
         t0 = time.perf_counter()
         try:
             with self._state_lock:
@@ -1088,7 +1223,8 @@ class MasterNode:
                 self._state = new_net.init_state()
                 if self._trace_cap:
                     self._trace = new_net.init_trace(self._trace_cap)
-                self._serve = new_serve
+                old_serve, self._serve = self._serve, new_serve
+            self._close_runner(old_serve)
             self._drain_queues()
             M_ENGINE_SWAPS.labels(reason="load").inc()
             log.info("successfully loaded program")
@@ -1143,14 +1279,18 @@ class MasterNode:
             if self.program_label is not None:
                 pass_attrs["program"] = self.program_label
             t_pass = time.monotonic()
-            with tracespan.span("serve.pass", trace=tr, **pass_attrs):
-                with self._epoch_lock:
-                    epoch = self._epoch
-                    self._out_qs.make((slot,))
-                    self._submit_q.put([(slot, arr)])
-                self._work_event.set()
-                deadline = time.monotonic() + timeout
-                parts = self._collect_slot(slot, arr.size, deadline, epoch, timeout)
+            token = self._trace_ids_enter((tr,))
+            try:
+                with tracespan.span("serve.pass", trace=tr, **pass_attrs):
+                    with self._epoch_lock:
+                        epoch = self._epoch
+                        self._out_qs.make((slot,))
+                        self._submit_q.put([(slot, arr)])
+                    self._work_event.set()
+                    deadline = time.monotonic() + timeout
+                    parts = self._collect_slot(slot, arr.size, deadline, epoch, timeout)
+            finally:
+                self._trace_ids_exit(token)
             # the direct lane's submit-and-collect window is its pass;
             # billed on success only, as the scheduler's
             dur = time.monotonic() - t_pass
@@ -1215,6 +1355,7 @@ class MasterNode:
         M_COMPUTE_VALUES.inc(arr.size)
         usage.add_request(self.program_label, arr.size)
         t_pass = time.monotonic()
+        token = self._trace_ids_enter((tracespan.current(),))
         try:
             pass_attrs = {"values": int(arr.size), "slots": len(owned)}
             if self.program_label is not None:
@@ -1246,6 +1387,7 @@ class MasterNode:
             out = np.concatenate(parts)
             return out if return_array else out.tolist()
         finally:
+            self._trace_ids_exit(token)
             with self._waiters_lock:
                 self._waiters -= 1
             for s in owned:
@@ -1320,6 +1462,7 @@ class MasterNode:
             return t if self._batch is None else t.sum(dim=0)
 
         with self._state_lock:
+            self._sync_native_state()
             shards = self._shards()
             mp = self._mp
             heads = shards[::mp]  # each row's first shard: its replicas are equal
@@ -1373,6 +1516,23 @@ class MasterNode:
             # hold again
             status["device_memory"] = {"allocated_bytes": torch.cuda.memory_allocated(device),
                                        "reserved_bytes": torch.cuda.memory_reserved(device)}
+        serve = self._serve
+        if self._native and hasattr(serve, "simd_info"):
+            # the native tick ladder's live rung (group width, AVX2,
+            # specialized, jit) and the process-wide specialization-cache
+            # outcomes: "is this box running the fast paths" without a
+            # /metrics parse
+            try:
+                from misaka_tpu_torch.core.specialize import M_SPECIALIZE
+
+                status["native"] = {
+                    **serve.simd_info(),
+                    "specialize_cache": {
+                        s: int(M_SPECIALIZE.labels(status=s).value)
+                        for s in ("hit", "built", "error", "fallback", "disabled")},
+                }
+            except Exception:  # status must never 500 on telemetry
+                pass
         return status
 
     def trace(self, last: int | None = None) -> list[dict]:
@@ -1401,6 +1561,7 @@ class MasterNode:
         evicted program's copy anyway."""
         t0 = time.perf_counter()
         with self._state_lock:
+            self._sync_native_state()
             state = self._state if self._mesh is None else self._gather()
             arrays = state_to_numpy(state)
             topo = self._topology
@@ -1462,13 +1623,19 @@ class MasterNode:
             state = state_from_numpy(arrays)
             _check_shapes(state, _shapes_of(new_net, self._batch), "checkpoint")
             state = self._place(state)
+            try:
+                self._validate_native(new_serve, state)
+            except ValueError:
+                self._close_runner(new_serve)
+                raise
             with self._state_lock:
                 self._topology = new_topology
                 self._net = new_net
                 self._state = state
                 if self._trace_cap:
                     self._trace = new_net.init_trace(self._trace_cap)
-                self._serve = new_serve
+                old_serve, self._serve = self._serve, new_serve
+            self._close_runner(old_serve)
             self._drain_queues()
             self._flush_iters = self._flush_quiet = 0
             self._restore_flush = True
@@ -1480,6 +1647,7 @@ class MasterNode:
         """Whole-network state, deep-copied (programs are not included); on
         a mesh the shards gathered, on the CPU."""
         with self._state_lock:
+            self._sync_native_state()
             if self._mesh is not None:
                 return self._gather()
             return clone_state(self._state)
@@ -1507,12 +1675,24 @@ class MasterNode:
                 state = state._replace(stack_mem=torch.nn.functional.pad(
                     state.stack_mem, (0, want_cap - have_cap)))
             _check_shapes(state, _shapes_of(self._net, self._batch), "snapshot")
-            self._state = self._place(state)
+            state = self._place(state)
+            self._validate_native(self._serve, state)
+            self._state = state
         # a request submitted against the pre-restore state must fail, and
         # the snapshot's in-flight values are flushed before new work
         self._drain_queues()
         self._flush_iters = self._flush_quiet = 0
         self._restore_flush = True
+
+    @staticmethod
+    def _validate_native(serve, state: NetworkState) -> None:
+        """A native engine rejects a state it cannot execute (pc beyond the
+        program, stack_top beyond capacity, broken ring counters) at import:
+        raise that here as ValueError, before the swap, instead of stopping
+        the device loop later (the torch engines serve such a state)."""
+        validate = getattr(serve, "validate_state", None)
+        if validate is not None:
+            validate(state)
 
     # --- the device loop ----------------------------------------------------
 
@@ -1533,6 +1713,8 @@ class MasterNode:
             for i in range(len(self._out_leftover)):
                 self._out_leftover[i] = self._out_leftover[i][:0]
             self._stale = [0] * len(self._stale)
+            self._inflight[:] = 0
+            self._retired_prev = None  # the next native pass runs full-batch
             self._grow_blocked = False
             self._epoch += 1
             for q in out_qs:
@@ -1550,6 +1732,7 @@ class MasterNode:
         stack_grow_max_bytes over the whole batch (every shard of a mesh):
         past it the wedge is logged once and left parked."""
         with self._state_lock:
+            self._sync_native_state()
             net = self._net
             if not any(bool((s.stack_top >= net.stack_cap).any()) for s in self._shards()):
                 return  # stalled for another reason (e.g. starvation)
@@ -1570,14 +1753,17 @@ class MasterNode:
         new_serve = self._make_serve(new_net)
         with self._state_lock:
             if self._net is not net:  # a lifecycle swap got here first
+                self._close_runner(new_serve)
                 return
+            self._sync_native_state()
             pad = new_cap - net.stack_cap
             grown = [s._replace(stack_mem=torch.nn.functional.pad(s.stack_mem, (0, pad)))
                      for s in self._shards()]
             self._state = grown if self._mesh is not None else grown[0]
             self._topology = new_topology
             self._net = new_net
-            self._serve = new_serve
+            old_serve, self._serve = self._serve, new_serve
+        self._close_runner(old_serve)
         M_AUTOGROW.inc()
         M_ENGINE_SWAPS.labels(reason="autogrow").inc()
         log.info("grew stack capacity %d -> %d in %.3fs",
@@ -1652,7 +1838,51 @@ class MasterNode:
             if got is not None:
                 vals[b, : len(got)] = got
                 counts[b] = len(got)
+        # fed minus drained, for the native partial-fill active set: a slot
+        # owes outputs until the loop's drain takes them back out
+        self._inflight += counts
         return vals, counts
+
+    def _native_active(self, ctrs, counts=None):
+        """The native partial-fill active set of this iteration (loop
+        thread only): the replicas that are fed now, hold input-ring
+        content, owe outputs, or retired instructions last chunk (work in
+        flight inside the network).  None runs the whole batch: the first
+        pass after boot or a lifecycle swap (no progress baseline yet), or
+        a set that covers every replica anyway."""
+        if self._retired_prev is None:
+            return None
+        mask = (self._inflight > 0) | (ctrs[1] > ctrs[0]) | self._native_hot
+        if counts is not None:
+            mask |= counts > 0
+        active = np.flatnonzero(mask)
+        return None if active.size >= self._n_slots else active
+
+    def _native_note_progress(self, state, active) -> None:
+        """Refresh the hot set after a native chunk: a replica that retired
+        nothing across a whole chunk waits for input and may be skipped
+        until it is fed.  A resident pool reports measured per-replica
+        progress flags (its state tensors are stale); the stateless path
+        derives them from the exported `retired` counters."""
+        prog = self._serve.consume_progress()
+        if prog is not None:
+            if active is None:
+                self._native_hot = prog.astype(bool)
+            else:
+                self._native_hot[:] = False
+                self._native_hot[active] = prog[active].astype(bool)
+            self._retired_prev = True  # flags: the baseline is implicit
+            return
+        ret = state.retired.numpy().sum(axis=1)
+        prev = self._retired_prev if isinstance(self._retired_prev, np.ndarray) else None
+        if prev is None or active is None:
+            # no baseline: every replica stays hot one pass so deltas form
+            self._native_hot = ret > prev if prev is not None else np.ones(
+                (self._n_slots,), bool)
+        else:
+            self._native_hot[:] = False
+            self._native_hot[active] = ret[active] > prev[active]
+        self._retired_prev = ret
 
     def _serve_unbatched(self, state, ctrs):
         """One unbatched iteration: feed, chunk and pack in one call, ONE
@@ -1662,10 +1892,14 @@ class MasterNode:
         vals = _NO_VALUES if got is None else got
         if got is not None:
             M_SLOT_OCCUPANCY.observe(1)
-        state, packed = self._serve(state, vals, vals.size)
-        self._mark_ticks()
-        with profiling.mark("misaka.read"):
-            p = packed.cpu().numpy()  # the single host read
+        if self._native:  # the host tier: the packed row is host memory
+            state, p = self._serve.serve_chunk(state, vals, vals.size, self._chunk)
+            self._mark_ticks()
+        else:
+            state, packed = self._serve(state, vals, vals.size)
+            self._mark_ticks()
+            with profiling.mark("misaka.read"):
+                p = packed.cpu().numpy()  # the single host read
         rd, wr = int(p[2]), int(p[3])
         per_slot = []
         if wr > rd:
@@ -1699,6 +1933,43 @@ class MasterNode:
         if (p[:, 3] > p[:, 2]).any():
             state, per_slot = self._net.drain_batched(state, rd=p[:, 2], wr=p[:, 3])
         return state, p.T, per_slot, False
+
+    def _serve_native(self, state, ctrs):
+        """One batched iteration on a native pool: the serve/idle twins of
+        _serve_batched over the partial-fill active set, and a fully
+        quiescent batch (nothing fed, held, owed or moving) skips the
+        engine call.  The packed rows are the pool's reused host buffers:
+        what outlives the iteration is copied out."""
+        pool = self._serve
+        fed = False
+        if self._active:
+            vals, counts = self._build_feed(ctrs)
+            fed = bool(counts.any())
+        if fed:
+            M_SLOT_OCCUPANCY.observe(int((counts > 0).sum()))
+            active = self._native_active(ctrs, counts)
+            state, p = pool.serve(state, vals, counts, active=active)
+            self._native_note_progress(state, active)
+            self._mark_ticks()
+            per_slot = self._net.drain_from_snapshot(p[:, 4:], p[:, 2], p[:, 3],
+                                                     self._net.out_cap)
+            return state, p[:, :4].T.copy(), per_slot, True
+        active = self._native_active(ctrs)
+        if active is not None and active.size == 0:
+            return state, ctrs, [], False
+        state, p = pool.idle(state, active=active)
+        self._native_note_progress(state, active)
+        self._mark_ticks()
+        ctrs = p.T.copy()
+        per_slot = []
+        if (ctrs[3] > ctrs[2]).any():
+            # an unfed chunk emitted values: materialize the resident state
+            # before the host-side ring drain reads out_buf
+            exported = pool.export_resident(state)
+            if exported is not None:
+                state = exported
+            state, per_slot = self._net.drain_batched(state, rd=ctrs[2], wr=ctrs[3])
+        return state, ctrs, per_slot, False
 
     def _serve_traced(self, state, ctrs):
         """One traced iteration, piecewise (the reference's traced branch,
@@ -1736,9 +2007,11 @@ class MasterNode:
         # iteration's feed decisions: between chunks nothing on the device
         # moves, so post-run counters are exact.
         with self._state_lock:
+            self._sync_native_state()  # the one read of state content per run()
             ctrs = self._net.counters(self._state)  # [4] or [4, B]
         iteration = (self._serve_traced if self._trace_cap
                      else self._serve_unbatched if self._batch is None
+                     else self._serve_native if self._native
                      else self._serve_batched)
         while self._running:
             if self.profiling.pending():  # a capture begins or ends here
@@ -1757,6 +2030,8 @@ class MasterNode:
                     busy = True
                     if not flushing:  # a flush discards orphan outputs
                         self._out_qs[slot].put(outs)
+                        # clamped: a non-1:1 network can over- or under-produce
+                        self._inflight[slot] = max(0, self._inflight[slot] - len(outs))
             # The whole iteration, its one host read included: launches are
             # asynchronous, so a clock stopped at the launch would time the
             # launch, not the chunk.
@@ -1770,7 +2045,8 @@ class MasterNode:
                 # input rings; capped at 64 chunks so a generator network
                 # cannot flush forever
                 self._flush_iters += 1
-                quiet = not busy and not bool(np.any(ctrs[1] > ctrs[0]))
+                quiet = (not busy and not bool(np.any(ctrs[1] > ctrs[0]))
+                         and not self._native_hot.any())
                 self._flush_quiet = self._flush_quiet + 1 if quiet else 0
                 if self._flush_quiet >= 8 or self._flush_iters >= 64:
                     self._restore_flush = False
@@ -1796,6 +2072,16 @@ class MasterNode:
                 waiting = self._waiters
             if not waiting and self._submit_q.empty():
                 self._work_event.wait(0.05)
+
+
+def _flight_mem_bytes() -> int:
+    """The native flight recorder's ring bytes across live pools; 0 while
+    no native engine was ever built in this process (the module is not
+    imported until then)."""
+    import sys
+
+    mod = sys.modules.get("misaka_tpu_torch.core.native_serve")
+    return mod.flight_mem_bytes() if mod is not None else 0
 
 
 def _shapes_of(net, batch: int | None) -> NetworkState:
@@ -2254,8 +2540,21 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     self._json(tr.to_dict())
                 elif path == "/debug/perfetto":
                     # Chrome trace-event JSON of the recorder (Perfetto,
-                    # chrome://tracing), one process per tier
+                    # chrome://tracing), one process per tier (the native
+                    # pools' worker spans ride the native tier's source)
                     self._json(tracespan.perfetto())
+                elif path == "/debug/native_trace":
+                    # the native flight recorder's per-thread rings, decoded
+                    # (core/native_serve.flight_payload); ?n= caps records
+                    # per ring
+                    from misaka_tpu_torch.core import native_serve
+
+                    q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+                    try:
+                        max_records = int(q["n"]) if "n" in q else None
+                    except ValueError:
+                        max_records = None
+                    self._json(native_serve.flight_payload(max_records))
                 elif path == "/debug/usage":
                     self._json(usage.debug_payload())  # the per-program ledger
                 elif path == "/usage/export":
@@ -2400,13 +2699,16 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     "consecutive_full_failures": cst["consecutive_full_failures"],
                     "tiers": {t: v.get("ok") for t, v in cst["tiers"].items()},
                 }
-            # the debug rings' memory: the request tracer's and the capture
-            # ring's (the native flight recorder is ROADMAP A.8: 0)
+            # the debug rings' memory: the request tracer's, the native
+            # flight recorder's (0 until a native pool serves) and the
+            # capture ring's
+            flight_b = _flight_mem_bytes()
             cap_b = capture_mod.mem_bytes()
-            M_DEBUG_MEM.labels(plane="flight").set(0)
+            M_DEBUG_MEM.labels(plane="flight").set(flight_b)
             M_DEBUG_MEM.labels(plane="capture").set(cap_b)
-            payload["debug_mem"] = {"trace_bytes": trace_b, "flight_bytes": 0,
-                                    "capture_bytes": cap_b, "total_bytes": trace_b + cap_b}
+            payload["debug_mem"] = {"trace_bytes": trace_b, "flight_bytes": flight_b,
+                                    "capture_bytes": cap_b,
+                                    "total_bytes": trace_b + flight_b + cap_b}
             if degraded is not None:
                 payload["degraded"] = degraded
             if edge_chain.armed:

@@ -46,9 +46,10 @@ program's captured requests byte for byte (runtime/capture.py), and
 with the capture spool armed the newest rotated segments too
 (MISAKA_REPLAY_HISTORY); the ``swap_during_load`` fault point
 (utils/faults.py) holds the park gate.  Left out, each answered as the
-reference answers and naming its ROADMAP item: ``compose`` uploads
-(runtime/compose.py and PyYAML, A.10: a 400), the native spec cache
-(A.8).
+reference answers: a ``compose`` upload on a host without PyYAML is a
+400.  Each activated engine's native compile cache (core/specialize.py,
+core/jit.py) lives beside its version store, ``<dir>/<name>/native``, so
+a reactivation or a restart reuses the content-keyed builds.
 """
 
 from __future__ import annotations
@@ -371,7 +372,8 @@ class ProgramRegistry:
         TIS source wraps into a single-node network (node "main"), line
         endings normalized (trailing newlines are kept: they cost a NOP
         slot, reference parity).  A topology JSON's own caps override the
-        registry's.  Compose YAML is not ported (ROADMAP A.10)."""
+        registry's.  Compose YAML maps through runtime/compose.py (PyYAML
+        needed: without it the upload is refused)."""
         given = [s for s in (tis, topology_json, compose) if s is not None]
         if len(given) != 1:
             raise RegistryError(
@@ -397,9 +399,15 @@ class ProgramRegistry:
                     caps[field] = int(raw[field])
             return Topology(node_info=dict(raw["nodes"]),
                             programs=dict(raw.get("programs", {})), **caps)
-        raise RegistryError("compose uploads are not ported yet (ROADMAP A.10: "
-                            "runtime/compose.py and PyYAML); upload TIS source or "
-                            "topology JSON")
+        from misaka_tpu_torch.runtime.compose import ComposeError, parse_compose
+
+        try:
+            return parse_compose(compose, **self._caps)
+        except ImportError:
+            raise RegistryError("compose uploads need PyYAML, which this host lacks; "
+                                "upload TIS source or topology JSON") from None
+        except ComposeError as e:
+            raise RegistryError(str(e)) from e
 
     # --- seeding (the boot program) ------------------------------------------
 
@@ -757,7 +765,10 @@ class ProgramRegistry:
 
         t0 = time.perf_counter()
         master = MasterNode(topology_from_canonical(source), chunk_steps=self._chunk,
-                            batch=self._batch, engine=self._engine, device=self._device)
+                            batch=self._batch, engine=self._engine, device=self._device,
+                            # the native ladder's compiled rungs, cached beside
+                            # the version store (reused on reactivation)
+                            native_spec_dir=os.path.join(self._name_dir(name), "native"))
         master.program_label = name
         t1 = time.perf_counter()
         ckpt = self._state_path(name, version)

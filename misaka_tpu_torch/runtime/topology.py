@@ -3,8 +3,11 @@
 The port's twin of misaka_tpu/runtime/topology.py.  One `Topology` owns the
 node declarations (the reference's NODE_INFO JSON shape, `{name: {"type":
 ...}}`, master.go:24-26, is accepted verbatim) and every program node's
-source, and lowers them to the dense tables the superstep consumes.  The
-port assembles with the Python frontend (tis/lower.py).
+source, and lowers them to the dense tables the superstep consumes.
+`assemble` (tis/native.py) lowers a long program with the native C++
+assembler when the host compiler can build it and every other program
+with the Python frontend (tis/lower.py); the two are held equal by
+tests/test_torch_native.py.
 
 Lane/stack ids are assigned in declaration order; that order is also the
 deterministic arbitration priority (core/step.py).
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from misaka_tpu_torch.core.engine import CompiledNetwork
-from misaka_tpu_torch.tis.lower import DEFAULT_PROGRAM, lower_program, pad_programs
+from misaka_tpu_torch.tis.lower import DEFAULT_PROGRAM, pad_programs
+from misaka_tpu_torch.tis.native import assemble
 
 
 class TopologyError(ValueError):
@@ -111,7 +115,7 @@ class Topology:
             raise TopologyError("network has no program nodes")
         stack_ids = self.stack_ids()
         lowered = [
-            lower_program(self.programs[name], lane_ids, stack_ids)
+            assemble(self.programs[name], lane_ids, stack_ids)
             for name in lane_ids
         ]
         code, lengths = pad_programs(lowered)

@@ -13,8 +13,10 @@ single-program surface accounts under "default"):
                       billed to the program the pass served: the sum over
                       programs equals misaka_serve_pass_wall_seconds_total,
                       the anchor the pass sites accumulate on their own
-  native_seconds      the reference's host C++ pool time; the port has no
-                      such pool (ROADMAP A.8), so it stays 0
+  native_seconds      MEASURED time in the native host tier's C++ pool
+                      (the busy-ns counters of csrc/native/interpreter.cpp,
+                      core/native_serve.py) or, unbatched, the wall time of
+                      the interpreter call on the calling thread
   queue_seconds       time requests waited ahead of their first dispatch
                       (scheduler queue delay and direct-lane slot waits)
 
@@ -107,7 +109,8 @@ class _Account:
     `account`, under the cardinality guard)."""
 
     __slots__ = ("label", "requests", "values", "cpu_seconds", "native_seconds",
-                 "queue_seconds", "_lock", "_m_reqs", "_m_values", "_m_cpu", "_m_queue")
+                 "queue_seconds", "_lock", "_m_reqs", "_m_values", "_m_cpu", "_m_native",
+                 "_m_queue")
 
     def __init__(self, label: str, children):
         self.label = label
@@ -117,7 +120,7 @@ class _Account:
         self.native_seconds = 0.0
         self.queue_seconds = 0.0
         self._lock = threading.Lock()
-        self._m_reqs, self._m_values, self._m_cpu, self._m_queue = children
+        self._m_reqs, self._m_values, self._m_cpu, self._m_native, self._m_queue = children
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -161,10 +164,10 @@ def account(program: str | None) -> _Account:
                                      exempt=EXEMPT_LABELS)
         acct = _accounts.get(label)
         if acct is None:
-            M_USAGE_NATIVE.labels(program=label)  # rendered at 0, as the reference's
             acct = _accounts[label] = _Account(label, (
                 M_USAGE_REQS.labels(program=label), M_USAGE_VALUES.labels(program=label),
-                M_USAGE_CPU.labels(program=label), M_USAGE_QUEUE.labels(program=label)))
+                M_USAGE_CPU.labels(program=label), M_USAGE_NATIVE.labels(program=label),
+                M_USAGE_QUEUE.labels(program=label)))
     return acct
 
 
@@ -187,6 +190,17 @@ def add_cpu(program: str | None, seconds: float) -> None:
     with a._lock:
         a.cpu_seconds += seconds
     a._m_cpu.inc(seconds)
+
+
+def add_native(program: str | None, seconds: float) -> None:
+    """Measured C++-pool busy time (busy-ns counter delta) for one of
+    this program's engine calls."""
+    if not _ENABLED or seconds <= 0:
+        return
+    a = account(program)
+    with a._lock:
+        a.native_seconds += seconds
+    a._m_native.inc(seconds)
 
 
 def add_queue(program: str | None, seconds: float) -> None:
@@ -242,6 +256,17 @@ def debug_payload() -> dict:
     }
     if _spool is not None:
         payload["cumulative"] = cumulative_snapshot()
+    try:
+        # the live native pools' measured busy/idle split (None when no
+        # pool is serving); imported here: this module stays stdlib-only
+        # for every process that never runs a native engine
+        from misaka_tpu_torch.core import native_serve
+
+        pool = native_serve.pool_counters()
+        if pool is not None:
+            payload["native_pool"] = pool
+    except Exception:  # the ledger must always answer
+        pass
     return payload
 
 

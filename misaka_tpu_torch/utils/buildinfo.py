@@ -7,8 +7,10 @@ fleet; the same dict rides /status as `build`.  The port stamps `torch`
 where the reference stamps `jax`, and its `native` block holds the build
 key (csrc/build.py: a hash of the .cu source and the nvcc flags) of every
 CUDA kernel this process has loaded: `{}` before the first build, and
-always `{}` on the CPU.  `native_interp` stays "absent": the host C++
-interpreter tier is not ported (ROADMAP A.8).
+always `{}` on the CPU.  The host C++ interpreter (core/cinterp.py) is
+the reference's `interp` row: once its library has loaded in this process,
+`native` carries `interp` (the source hash its build embeds) and the
+gauge's `native_interp` label the same hash; "absent" before.
 
 git is asked once (`MISAKA_BUILD_SHA` wins; "unknown" without either).
 """
@@ -21,7 +23,7 @@ import sys
 
 from misaka_tpu_torch import __version__
 from misaka_tpu_torch.csrc import build
-from misaka_tpu_torch.utils import metrics
+from misaka_tpu_torch.utils import metrics, nativelib
 
 _base_cache: dict | None = None
 
@@ -56,7 +58,22 @@ def info() -> dict:
             "python": ".".join(str(v) for v in sys.version_info[:3]),
             "torch": getattr(torch_mod, "__version__", "unloaded"),
         }
-    return {**_base_cache, "native": build.loaded_keys()}
+    native = build.loaded_keys()
+    interp = _native_interp()
+    if interp != "absent":
+        native["interp"] = interp
+    return {**_base_cache, "native": native}
+
+
+def _native_interp() -> str:
+    """The interpreter library's source hash once it has loaded in this
+    process (utils/nativelib.py embeds it at build time), else "absent"."""
+    from misaka_tpu_torch.core import cinterp
+
+    lib = cinterp.NATIVE
+    if lib._lib is None:
+        return "absent"
+    return nativelib.src_hash(lib.src)
 
 
 def install_metric() -> None:
@@ -71,5 +88,5 @@ def install_metric() -> None:
     )
     g.labels(
         version=i["version"], git_sha=i["git_sha"], python=i["python"],
-        torch=i["torch"], native_interp="absent",
+        torch=i["torch"], native_interp=i["native"].get("interp", "absent"),
     ).set(1)

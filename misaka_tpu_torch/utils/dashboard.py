@@ -6,9 +6,10 @@ The port's copy of misaka_tpu/utils/dashboard.py (stdlib only): the same
 at render time and drawn as inline SVG by a little vanilla JS.  Panels:
 throughput, p50/p99, error rate, admission sheds, queue depth,
 native-pool busy fraction, replica health, canary success and latency,
-per-program value rates and p99.  The port has no native pool (ROADMAP
-A.8): those panels render empty, as they do on the reference's
-accelerator hosts.  In fleet mode the parent serves the same page over
+per-program value rates and p99.  The native panels (pool busy fraction,
+residency, dispenser wait and spin, SIMD width, specialized and JIT
+engines, elided rows) read the native host tier's series
+(core/native_serve.py) and render empty while no native engine serves.  In fleet mode the parent serves the same page over
 its replica-merged series (each carries a ``replica`` label there), and
 the page's label filters become the per-replica drill-down.
 

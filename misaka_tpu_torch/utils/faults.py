@@ -35,10 +35,16 @@ Hook sites in the port (the reference's sites, in the ported code):
                            `value` s after the fleet starts, once per boot
                            (runtime/fleet.py)
 
+  specialize_fail          a per-program specialized build fails: the
+                           engine serves one rung down (core/specialize.py)
+  jit_fail                 the copy-and-patch splice fails: one rung down
+                           (core/jit.py)
+  resident_fallback        a native serve call takes the stateless path
+                           after a coherent export (core/native_serve.py)
+
 The points whose sites are in modules the port does not have yet parse
 and fire nowhere: rpc_drop and rpc_delay (the distributed mode, ROADMAP
-A.5), specialize_fail, jit_fail, resident_fallback and edge_native_build
-(the native host tier, A.8).
+A.5) and edge_native_build (the native edge, A.8b).
 
 Checks cost one dict lookup while nothing is armed.  Stdlib only: the
 frontend workers import it.

@@ -22,10 +22,12 @@ Memory is bounded: at most ``MISAKA_SAMPLER_MAX_STACKS`` distinct stacks
 all counts halve (below 1 an entry is pruned): an exponentially decayed
 window over recent behaviour.
 
-The reference's payload adds the measured busy/idle split of its C++
-serving pool (``native_pool``) when one serves.  The port has no such
-pool (ROADMAP A.8), so its payload omits the key, as the reference's does
-when ``pool_counters()`` is None.
+A sampler sees the threads CPython knows; the native host tier's C++
+pool threads (core/native_serve.py) are invisible to it.  So while a pool
+serves, the payload carries the pool's MEASURED per-thread busy/idle
+nanosecond counters (``native_pool``, from
+core/native_serve.pool_counters) next to the CPython aggregate, and
+omits the key when no pool serves.
 
 ``GET /debug/flamegraph`` serves JSON ({folded, stacks, ...}); ``?html=1``
 a self-contained viewer.  ``MISAKA_SAMPLER=0`` never starts the thread;
@@ -235,7 +237,7 @@ class StackSampler:
 
     def payload(self) -> dict:
         stacks, samples = self.snapshot()
-        return {
+        out = {
             "enabled": True,
             "running": self.running,
             "rate_hz": self.hz,
@@ -258,6 +260,17 @@ class StackSampler:
             # snapshot here could disagree with it mid-sample
             "folded": self._fold(stacks),
         }
+        try:
+            # the measured C++ split (None when no pool serves): "time in
+            # the native pool" next to "time in CPython", one view
+            from misaka_tpu_torch.core import native_serve
+
+            pool = native_serve.pool_counters()
+            if pool is not None:
+                out["native_pool"] = pool
+        except Exception:  # the payload must always answer
+            pass
+        return out
 
 
 _lock = threading.Lock()

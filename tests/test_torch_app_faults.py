@@ -117,11 +117,17 @@ def test_c1_topology_file_builds_the_same_network_as_jax():
         m.close()
 
 
-def test_c1_compose_yml_exits_2_naming_a10(capsys):
-    with pytest.raises(SystemExit, match="A.10") as exc:
-        app.build_topology_from_env({"MISAKA_TOPOLOGY": "deploy/docker-compose.yml"})
+def test_c1_compose_yml_exits_2_naming_a10(capsys, monkeypatch):
+    """A compose .yml (ROADMAP A.10) boots the network the JAX app boots
+    from it; on a host without PyYAML (hidden here) the app exits 2."""
+    env = {"MISAKA_TOPOLOGY": "deploy/docker-compose.yml"}
+    got, want = app.build_topology_from_env(env), japp.build_topology_from_env(env)
+    assert (got.node_info, got.programs) == (want.node_info, want.programs)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(SystemExit, match="PyYAML") as exc:
+        app.build_topology_from_env(env)
     assert exc.value.code == 2
-    assert "A.10" in capsys.readouterr().err
+    assert "PyYAML" in capsys.readouterr().err
 
 
 def test_c1_neither_variable_names_both():

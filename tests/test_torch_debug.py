@@ -11,6 +11,7 @@ have yet exit with status 2 and name their ROADMAP item.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -196,20 +197,56 @@ def test_cli_debug_scripted_matches_jax():
     assert "BREAK [('misaka2', 2)]" in outs[1] and '"acc": 7' in outs[1] and "[7]" in outs[1]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["bench"], "A.10"),
-    (["check", "deploy.yml"], "A.10"), (["disasm", "deploy.yaml"], "A.10"),
-    (["debug", "deploy.yml", "--device", "cpu"], "A.10")])
-def test_cli_unported_commands_exit_2(capsys, argv, item):
+@pytest.mark.parametrize("argv,why", [
+    (["bench"], "benchmark harness"),
+    (["check", "deploy.yml"], "PyYAML"), (["disasm", "deploy.yaml"], "PyYAML"),
+    (["debug", "deploy.yml", "--device", "cpu"], "PyYAML")],
+    ids=["argv0-A.10", "argv1-A.10", "argv2-A.10", "argv3-A.10"])
+def test_cli_unported_commands_exit_2(capsys, monkeypatch, tmp_path, argv, why):
+    """The CLI leftovers (ROADMAP A.10) answer status 2 where the port
+    cannot serve them: `bench` (the benchmark harness is not ported) and a
+    compose file (the repo's deploy/docker-compose.yml) on a host without
+    PyYAML (hidden here)."""
+    argv = list(argv)
+    for i, a in enumerate(argv):
+        if a.startswith("deploy."):
+            argv[i] = str(tmp_path / a)
+            shutil.copy(os.path.join(ROOT, "deploy", "docker-compose.yml"), argv[i])
+    monkeypatch.setitem(sys.modules, "yaml", None)
     assert tcli(argv) == 2
     err = capsys.readouterr().err
-    assert err.startswith("error: ") and f"ROADMAP {item})" in err
+    assert err.startswith("error: ") and why in err
+
+
+ADD2_COMPOSE = """services:
+  misaka1:
+    environment:
+      NODE_TYPE: program
+      PROGRAM: |
+        IN ACC
+        ADD 1
+        MOV ACC, misaka2:R0
+        MOV R0, ACC
+        OUT ACC
+  misaka2:
+    environment:
+      NODE_TYPE: program
+      PROGRAM: |
+        MOV R0, ACC
+        ADD 1
+        PUSH ACC, misaka3
+        POP misaka3, ACC
+        MOV ACC, misaka1:R0
+  misaka3:
+    environment:
+      NODE_TYPE: stack
+"""
 
 
 def test_cli_replay_and_usage_report_run(capsys, tmp_path, monkeypatch):
     """The two commands of the telemetry planes, served since the planes
-    were ported: `replay` drives an exported segment green on the CPU (and
-    refuses a compose candidate with status 2, naming A.10), and
+    were ported: `replay` drives an exported segment green on the CPU (a
+    compose candidate too, refused with status 2 without PyYAML), and
     `usage-report` verifies the signed export and prints the totals the
     JAX CLI prints for the same server."""
     import threading
@@ -240,8 +277,15 @@ def test_cli_replay_and_usage_report_run(capsys, tmp_path, monkeypatch):
         capsys.readouterr()
         assert tcli(["replay", seg, "--device", "cpu"]) == 0
         assert capsys.readouterr().out == "default: replay green — 3 requests byte-for-byte identical\n"
-        assert tcli(["replay", seg, "--candidate", "new.yml", "--device", "cpu"]) == 2
-        assert "ROADMAP A.10)" in capsys.readouterr().err
+        # a compose candidate (runtime/compose.py): the same add2 network
+        # replays green; without PyYAML it is refused with status 2
+        yml = tmp_path / "new.yml"
+        yml.write_text(ADD2_COMPOSE)
+        assert tcli(["replay", seg, "--candidate", str(yml), "--device", "cpu"]) == 0
+        capsys.readouterr()
+        monkeypatch.setitem(sys.modules, "yaml", None)
+        assert tcli(["replay", seg, "--candidate", str(yml), "--device", "cpu"]) == 2
+        assert "PyYAML" in capsys.readouterr().err
         reports = []
         for cli in (tcli, jcli):
             assert cli(["usage-report", "--url", base, "--secret", "k"]) == 0

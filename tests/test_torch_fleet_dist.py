@@ -687,8 +687,9 @@ def test_gossip_bounds_fleet_over_admission(still_clock):
 
 
 def test_replica_that_cannot_boot_fails_the_parent(tmp_path):
-    # the replicas refuse MISAKA_ENGINE=native (ROADMAP A.8); the parent's
-    # own checks pass, so only a replica's exit can end the boot
+    # the replicas refuse MISAKA_ENGINE=fused-interpret (the port has no
+    # kernel interpreter); the parent's own checks pass, so only a
+    # replica's exit can end the boot
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
 
     port = tfe.pick_free_port()
@@ -697,7 +698,7 @@ def test_replica_that_cannot_boot_fails_the_parent(tmp_path):
         "NODE_INFO": json.dumps({"misaka1": {"type": "program"}, "misaka2": {"type": "program"},
                                  "misaka3": {"type": "stack"}}),
         "MISAKA_PROGRAMS": json.dumps(ADD2_PROGRAMS), "MISAKA_DEVICE": "cpu",
-        "MISAKA_BATCH": "4", "MISAKA_ENGINE": "native", "MISAKA_FLEET": "2",
+        "MISAKA_BATCH": "4", "MISAKA_ENGINE": "fused-interpret", "MISAKA_FLEET": "2",
         "MISAKA_HTTP_WORKERS": "2", "MISAKA_PORT": str(port),
         "MISAKA_FLEET_DIR": str(tmp_path / "fleet"), "MISAKA_TTL_S": "300",
         "MISAKA_CANARY": "0", "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")})

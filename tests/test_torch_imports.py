@@ -12,8 +12,11 @@ pay for it; nor do the always-on and durable planes, stdlib only as in
 the reference (utils/spool.py, tsdb.py, watchdog.py, sampler.py and
 dashboard.py), nor the fleet (runtime/fleet.py: a worker's router imports
 its HashRing).  The model-parallel modules (core/routing.py, core/axis.py,
-parallel/routed.py, sharded.py, multihost.py) are among those checked.
-chip_smoke.py must refuse to
+parallel/routed.py, sharded.py, multihost.py) and the native host tier's
+(utils/nativelib.py, tis/native.py, core/cinterp.py, specialize.py, jit.py,
+native_serve.py) are among those checked, with runtime/compose.py and
+utils/intmath.py; a native master maps only the port's own builds of its
+C++ copies, never the reference's native/*.so.  chip_smoke.py must refuse to
 report a result without a card, and when it is alone in a directory.
 """
 
@@ -69,8 +72,48 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.utils.sampler", "misaka_tpu_torch.utils.dashboard",
               "misaka_tpu_torch.runtime.fleet", "misaka_tpu_torch.core.routing",
               "misaka_tpu_torch.core.axis", "misaka_tpu_torch.parallel.routed",
-              "misaka_tpu_torch.parallel.sharded", "misaka_tpu_torch.parallel.multihost"):
+              "misaka_tpu_torch.parallel.sharded", "misaka_tpu_torch.parallel.multihost",
+              "misaka_tpu_torch.utils.nativelib", "misaka_tpu_torch.tis.native",
+              "misaka_tpu_torch.core.cinterp", "misaka_tpu_torch.core.specialize",
+              "misaka_tpu_torch.core.jit", "misaka_tpu_torch.core.native_serve",
+              "misaka_tpu_torch.runtime.compose", "misaka_tpu_torch.utils.intmath"):
         assert m in report["modules"]
+
+
+NATIVE_PROBE = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+os.environ["MISAKA_NATIVE_THREADS"] = "2"
+from misaka_tpu_torch import networks
+from misaka_tpu_torch.runtime.master import MasterNode
+m = MasterNode(networks.add2(), batch=8, engine="native", device="cpu",
+               native_spec_dir=sys.argv[2])
+m.run()
+assert m.compute_many([5]) == [7]
+rung = m.status()["native"]
+m.close()
+with open("/proc/self/maps") as f:
+    maps = sorted({line.split()[-1] for line in f if "libmisaka" in line or "interp-spec" in line})
+print(json.dumps({"maps": maps, "rung": rung}))
+"""
+
+
+def test_native_libraries_come_from_the_port_build():
+    """A native master's libraries are the port's own builds (its copies of
+    the C++ sources, built into build/misaka_tpu_torch/ and the spec
+    cache): no .so of the reference's native/ directory is mapped."""
+    spec_dir = os.path.join(ROOT, "build", "misaka_tpu_torch", "test-imports-spec")
+    out = subprocess.run(
+        [sys.executable, "-c", NATIVE_PROBE, ROOT, spec_dir], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["maps"], report
+    for path in report["maps"]:
+        assert not path.startswith(os.path.join(ROOT, "native") + os.sep), path
+        assert path.startswith((os.path.join(ROOT, "build", "misaka_tpu_torch") + os.sep,
+                                spec_dir + os.sep)), path
+    assert report["rung"]["jit"] or report["rung"]["specialized"] or report["rung"]["width"]
 
 
 LEAN_PROBE = r"""

@@ -8,8 +8,8 @@ folded text and the payload of the same aggregate are equal, the
 duty-cycle governor stretches the period by the same rule, a parked
 thread is served from the fold cache, and MISAKA_SAMPLER=0 starts
 nothing.  Then GET /debug/flamegraph on both servers: the same JSON keys
-(the port has no native pool, so no `native_pool`, as the reference's
-payload without one) and the same self-contained viewer around the data.
+(`native_pool` on either side while a native pool of that package is live
+in the process) and the same self-contained viewer around the data.
 The reference's test of its jax.profiler 409 has its counterpart in
 tests/test_torch_observability.py (the port's /profile routes).
 """
@@ -72,10 +72,12 @@ def test_samples_capture_busy_thread():
             hit = [k for k in stacks if k.startswith("sampler-busy-probe;")]
             assert hit, sorted(stacks)[:5]
             hits.append(hit)
-        # the same labels: function (file) context, leaf last, no lines
-        leaf = [{k.split(";")[-1] for k in h} for h in hits]
-        assert leaf[0] & leaf[1]
-        assert any("busy (" in k for k in hits[1])
+        # the same labels: function (file) context, leaf last, no lines.
+        # Each sampler may catch the thread in `busy` or in its generator,
+        # so the labels are compared along the whole stack, not at the leaf
+        frames = [{f for k in h for f in k.split(";")[1:]} for h in hits]
+        assert frames[0] & frames[1]
+        assert all(any("busy (" in k for k in h) for h in hits)
     finally:
         stop.set()
         for s in samplers:
@@ -131,8 +133,8 @@ def test_folded_format_and_payload_equal():
             s._stacks = {"a;b;c": 5.0, "a;d": 2.0, "e": 0.5}
             s._samples = 7
         payload = s.payload()
-        # the reference's measured C++ pool split, when an earlier test in
-        # this process served through its native pool: the port has none
+        # the measured C++ pool split, when an earlier test in this
+        # process left a native pool of either package live
         payload.pop("native_pool", None)
         return s.folded(), payload
 
@@ -226,6 +228,8 @@ def test_flamegraph_route_json_and_html_equal(monkeypatch):
         assert hctype.startswith("text/html") and "misaka continuous profiler" in page
         assert body["running"] is True and body["rate_hz"] > 0 and body["samples"] > 0
         assert body["stacks"] and body["folded"]
-    assert set(out["torch"][2]) == set(out["jax"][2]) - {"native_pool"}
+    # `native_pool` rides either body while that package has a native
+    # pool live in this process (an earlier test file on this worker)
+    assert set(out["torch"][2]) - {"native_pool"} == set(out["jax"][2]) - {"native_pool"}
     strip = re.compile(r"const DATA = .*?;\n", re.S)
     assert strip.sub("", out["torch"][5]) == strip.sub("", out["jax"][5])

@@ -575,8 +575,17 @@ def test_engine_refusals_match_jax(kw):
 
 
 def test_port_only_engine_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        TMaster(tnet.add2(**CAPS), engine="native", device="cpu")
+    # the host tier builds (core/native_serve.py) and refuses what the
+    # reference's does, with its messages
+    m = TMaster(tnet.add2(**CAPS), engine="native", device="cpu")
+    assert m.engine_name == "native"
+    m.close()
+    for kw in (dict(trace_cap=8), dict(batch=4, data_parallel=2)):
+        with pytest.raises(ValueError) as want:
+            JMaster(jnet.add2(**CAPS), engine="native", **kw)
+        with pytest.raises(ValueError) as got:
+            TMaster(tnet.add2(**CAPS), engine="native", device="cpu", **kw)
+        assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="no kernel interpreter.*engine='scan'"):
         TMaster(tnet.add2(**CAPS), engine="fused-interpret", device="cpu")
     with pytest.raises(ValueError, match="needs a CUDA device"):
@@ -666,8 +675,9 @@ def test_app_reads_trace_instance():
 @pytest.mark.parametrize("batch", [None, "2"], ids=["unbatched", "batched"])
 def test_app_reads_engine(batch):
     env = {**README_ENV, "MISAKA_DEVICE": "cpu", **({"MISAKA_BATCH": batch} if batch else {})}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        app.build_master_from_env({**env, "MISAKA_ENGINE": "native"})
+    m = app.build_master_from_env({**env, "MISAKA_ENGINE": "native"})
+    assert m.status()["engine"] == "native" and m.status()["device"] == "cpu"
+    m.close()
     with pytest.raises(ValueError, match="engine must be"):
         app.build_master_from_env({**env, "MISAKA_ENGINE": "bogus"})
     m = app.build_master_from_env({**env, "MISAKA_ENGINE": "scan"})
