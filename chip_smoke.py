@@ -107,7 +107,16 @@ libraries built from the port's C++ copies with the host compiler, every
 rung of its tick ladder exact against the kernel from the same state at
 B=262144, the README env served natively beside the card's B=1 lane, a
 4096-replica pool's striped stream, checkpoints native -> card -> native,
-and a registry engine activating on the JIT rung.
+and a registry engine activating on the JIT rung.  The `native_edge`
+phase puts the native C++ edge (csrc/native/frontend.cpp, the default
+topology behind MISAKA_HTTP_WORKERS) on the public port in front of the
+card's engine with a key file: the reference's parity corpus equal on the
+edge and on the engine's own route table, MSK1 streams and small and
+quiet /compute on the edge against the workers of the same boot (a b b a,
+every answer checked), the edge's plane frames and the kernel's launches
+against the loop's iterations, the native decimal codec against numpy
+over a million values, and `auto` flipping to the host tier on the CPU
+only.  The phases that measure the worker tier pin MISAKA_NATIVE_EDGE=0.
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -791,7 +800,8 @@ def _await_app(label, proc, port, autorun=True):
     while True:
         expect(proc.poll() is None, f"{label}: server exited early (rc {proc.returncode})")
         try:
-            if json.loads(http(port, "/healthz", timeout=60)[1])["running"] or not autorun:
+            # .get: a native edge answers {"ok": true} until its first push
+            if json.loads(http(port, "/healthz", timeout=60)[1]).get("running") or not autorun:
                 return
         except (urllib.error.URLError, ConnectionError, OSError):
             pass
@@ -1635,7 +1645,8 @@ def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_cl
     kernel's CUDA events and the device loop's CPU ops, and gives the
     by-phase split of an iteration; a second window over one client's 20
     requests gives the same split without concurrent handlers.  The same load again with
-    MISAKA_TRACE_REQUESTS=0 gives the tracing overhead.  device="cpu"
+    MISAKA_TRACE_REQUESTS=0 (a second server, booted beside the first and
+    paused until its turn) gives the tracing overhead.  device="cpu"
     rehearses it (no kernel: the profile checks are skipped)."""
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
 
@@ -1644,9 +1655,12 @@ def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_cl
     row = {"phase": "observability", "card": card, "batch": batch, "chunk_steps": chunk,
            **MAIN_CAPS}
     try:
-        with served_app("obs", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
-                        device=device, MISAKA_PROFILE_DIR=prof_dir,
-                        MISAKA_TRACE_REQUESTS="1") as (port, _):
+        # both servers booted at once, the untraced one paused until its turn
+        base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                    caps=MAIN_CAPS, device=device)
+        specs = [dict(base, label="obs", MISAKA_PROFILE_DIR=prof_dir, MISAKA_TRACE_REQUESTS="1"),
+                 dict(base, label="obs_untraced", autorun=False, MISAKA_TRACE_REQUESTS="0")]
+        with served_apps(specs) as [(port, _), (uport, _)]:
             expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
             s0, m0 = paused_window(port), scrape(port)
             expect(post_form(port, "/run")[0] == 200, "/run")
@@ -1689,11 +1703,12 @@ def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_cl
                 trace = take_profile(port, "obs_quiet", lambda: small_requests(
                     port, 1, 20, base=6_000_000))
                 row["profile_one_client"] = profile_split(trace)
-        with served_app("obs_untraced", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
-                        device=device, MISAKA_TRACE_REQUESTS="0") as (port, _):
-            expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
-            n2, secs2 = small_requests(port, n_clients, per_client)
-            _, hd, _ = http_full(port, "/compute", b"value=7")
+            # the untraced server's turn, the traced one paused
+            expect(post_form(port, "/pause")[0] == 200, "/pause")
+            expect(post_form(uport, "/run")[0] == 200, "/run untraced")
+            expect(post_form(uport, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
+            n2, secs2 = small_requests(uport, n_clients, per_client)
+            _, hd, _ = http_full(uport, "/compute", b"value=7")
             expect("X-Misaka-Trace" not in hd, "tracing off still answers a trace ID")
         row.update({"untraced_small_requests_per_s": n2 / secs2,
                     "tracing_rate_ratio": (n / secs) / (n2 / secs2)})
@@ -1803,8 +1818,10 @@ def phase_frontends(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client
     over 32 x 10 requests split by profile_split (the device loop's host ms
     per iteration, to set beside `observability`'s, whose row is
     `zero_workers`); last, the engine is terminated and no worker may be
-    left 5 s later.  device="cpu" rehearses it (no kernel: no profile; the
-    streams default to 400 values, the plain loop's pace)."""
+    left 5 s later.  MISAKA_NATIVE_EDGE=0: this phase measures the worker
+    tier, whose figures are compared across PRs (the native edge has a
+    phase of its own).  device="cpu" rehearses it (no kernel: no profile;
+    the streams default to 400 values, the plain loop's pace)."""
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
 
     workers = workers or frontend_workers()
@@ -1817,7 +1834,7 @@ def phase_frontends(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client
     try:
         with served_app("frontends", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
                         device=device, procs=procs, MISAKA_HTTP_WORKERS=str(workers),
-                        MISAKA_PROFILE_DIR=prof_dir,
+                        MISAKA_NATIVE_EDGE="0", MISAKA_PROFILE_DIR=prof_dir,
                         MISAKA_PLANE_SOCKET=os.path.join(prof_dir, "plane.sock")) as (port, boot_s):
             from misaka_tpu_torch.runtime import frontends
 
@@ -2170,7 +2187,9 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
       per_client one-value /compute and quiet /compute p50/p90.  The servers not measured are
       paused.
 
-    device="cpu" rehearses it at a small B."""
+    Every server pins MISAKA_NATIVE_EDGE=0: the phase measures the edge
+    chain behind the worker tier, as in earlier runs.  device="cpu"
+    rehearses it at a small B."""
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
 
     workers = workers or frontend_workers()
@@ -2185,7 +2204,8 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
     row = {"phase": "edge", "card": card, "workers": workers, "cpu_count": os.cpu_count(),
            "batch": batch, "chunk_steps": chunk, **MAIN_CAPS}
     t0 = time.perf_counter()
-    keyed = dict(base, MISAKA_API_KEYS=keys, MISAKA_HTTP_WORKERS=str(workers))
+    keyed = dict(base, MISAKA_API_KEYS=keys, MISAKA_HTTP_WORKERS=str(workers),
+                 MISAKA_NATIVE_EDGE="0")
     specs = [dict(keyed, label="edge_drill", MISAKA_TOKEN_SECRET=os.urandom(16).hex(),
                   MISAKA_PLANE_SOCKET=os.path.join(tmp, "drill.sock")),
              dict(keyed, label="edge_admission", MISAKA_ADMISSION_HIGH=str(4 * flood_values),
@@ -2195,6 +2215,7 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
     # the workers and with none
     cost_cfgs = [(cfg, n) for n in (workers, 0) for cfg in ("a", "b")]
     specs += [dict(base, label=f"edge_cost_{cfg}_{n}", MISAKA_HTTP_WORKERS=str(n),
+                   MISAKA_NATIVE_EDGE="0",
                    MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}{n}.sock"),
                    **({"MISAKA_EDGE": "0"} if cfg == "b" else {}))
               for cfg, n in cost_cfgs]
@@ -2477,7 +2498,8 @@ def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=3
        set) and b (unset), the small-request rate and quiet /compute
        p50/p90 in turns a b b a, the partner paused.
 
-    device="cpu" rehearses it at a small B."""
+    Every server pins MISAKA_NATIVE_EDGE=0 (the worker tier, as in earlier
+    runs).  device="cpu" rehearses it at a small B."""
     from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
     from misaka_tpu_torch.runtime import frontends
@@ -2486,7 +2508,8 @@ def phase_registry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=3
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="registry-", dir=os.path.join(ROOT, "build"))
     base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
-                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers))
+                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers),
+                MISAKA_NATIVE_EDGE="0")
     row = {"phase": "registry", "card": card, "workers": workers, "batch": batch,
            "chunk_steps": chunk, **MAIN_CAPS}
     t0 = time.perf_counter()
@@ -3020,6 +3043,9 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
     6. the cost, a b b a: a with MISAKA_USAGE=0 MISAKA_CAPTURE=0 and no
        MISAKA_SLO, b with the ledger, MISAKA_SLO and a recording.
 
+    Every server pins MISAKA_NATIVE_EDGE=0 (the worker tier, as in earlier
+    runs).
+
     device="cpu" rehearses it at a small B (no memory checks; canary=False,
     a looser objective and a longer fault there: on the CPU every idle
     engine burns a core, and the plain version serves in seconds)."""
@@ -3031,7 +3057,8 @@ def phase_telemetry(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="telemetry-", dir=os.path.join(ROOT, "build"))
     base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
-                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers))
+                caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers),
+                MISAKA_NATIVE_EDGE="0")
     row = {"phase": "telemetry", "card": card, "workers": workers, "batch": batch,
            "chunk_steps": chunk, **MAIN_CAPS}
     t0 = time.perf_counter()
@@ -3464,7 +3491,8 @@ def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s
        points from before it (history through the checkpoint alone: b's
        TSDB starts empty).
 
-    device="cpu" rehearses it at a small B (no memory checks)."""
+    Every server pins MISAKA_NATIVE_EDGE=0 (the worker tier, as in earlier
+    runs).  device="cpu" rehearses it at a small B (no memory checks)."""
     from misaka_tpu_torch.core import fused
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
     from misaka_tpu_torch.runtime import frontends
@@ -3475,7 +3503,7 @@ def phase_observatory(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, series_s
     tsdb_dir, ckpt_dir = os.path.join(tmp, "tsdb"), os.path.join(tmp, "ckpt")
     base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
                 caps=MAIN_CAPS, device=device, MISAKA_HTTP_WORKERS=str(workers),
-                MISAKA_CHECKPOINT_DIR=ckpt_dir)
+                MISAKA_NATIVE_EDGE="0", MISAKA_CHECKPOINT_DIR=ckpt_dir)
     # canary traffic would join the replayed stream; a 64 MiB ring rotated
     # every seg_s (or at 48 MiB) keeps each segment whole (no eviction)
     obs = dict(base, MISAKA_PROGRAMS_DIR=os.path.join(tmp, "programs"), MISAKA_CANARY="0",
@@ -4121,8 +4149,9 @@ def phase_fleet(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, 
              MISAKA_PORT=str(peer_http), MISAKA_PLANE_SOCKET=peer_plane,
              MISAKA_CHECKPOINT_DIR=os.path.join(tmp, "peer"), MISAKA_API_KEYS=keys,
              MISAKA_EDGE_INTERNAL_TOKEN=peer_key, **tls_env),
+        # the single engine behind the worker tier (a fleet starts no native edge)
         dict(base, label="fleet_cost_a", MISAKA_HTTP_WORKERS=str(workers),
-             MISAKA_PLANE_SOCKET=os.path.join(tmp, "a.sock")),
+             MISAKA_NATIVE_EDGE="0", MISAKA_PLANE_SOCKET=os.path.join(tmp, "a.sock")),
         dict(base, label="fleet_cost_b", MISAKA_FLEET="2", MISAKA_HTTP_WORKERS=str(workers),
              MISAKA_FLEET_DIR=os.path.join(tmp, "fleet_b"),
              MISAKA_FAULTS=f"replica_kill={kill_after_s}"),
@@ -5106,15 +5135,18 @@ NATIVE_PREBUILD = {}  # start_native_builds: the build dir, the spec dir, the bu
 
 def start_native_builds():
     """Start the native tier's builds, each on its own thread, so that they
-    run beside the kernel's nvcc: the interpreter, the assembler and the
-    JIT's stencils from the port's C++ copies, and the specialized
-    interpreters of add2 and mesh8 at the parity caps (128/128/16).
-    phase_native waits for them and reports each one's seconds."""
+    run beside the kernel's nvcc: the interpreter, the assembler, the JIT's
+    stencils, the native edge and the decimal codec from the port's C++
+    copies, and the specialized interpreters of add2 and mesh8 at the
+    parity caps (128/128/16).  phase_native waits for them and reports each
+    one's seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from misaka_tpu_torch import networks
     from misaka_tpu_torch.core import cinterp, jit, specialize
+    from misaka_tpu_torch.runtime import frontends
     from misaka_tpu_torch.tis import native as tis_native
+    from misaka_tpu_torch.utils import textcodec
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="native-", dir=os.path.join(ROOT, "build"))
@@ -5126,7 +5158,9 @@ def start_native_builds():
         ok = fn()
         return {"ok": bool(ok), "wall_s": time.perf_counter() - t}
 
-    jobs = {"interpreter": cinterp.NATIVE.available, "assembler": tis_native.NATIVE.available}
+    jobs = {"interpreter": cinterp.NATIVE.available, "assembler": tis_native.NATIVE.available,
+            "frontend": frontends._FRONTEND_LIB.available,
+            "textcodec": textcodec._NATIVE.available}
     if jit.supported():
         jobs["stencils"] = lambda: jit.build_stencils(spec_dir)
     for name in ("add2", "mesh8"):
@@ -5348,9 +5382,10 @@ def phase_native(batch=MAIN_BATCH, ticks=128, served_batch=4096, n_latency=100,
     from misaka_tpu_torch import networks
     from misaka_tpu_torch.core import cinterp, jit
     from misaka_tpu_torch.runtime.master import MasterNode
+    from misaka_tpu_torch.runtime import frontends
     from misaka_tpu_torch.runtime.registry import ProgramRegistry
     from misaka_tpu_torch.tis import native as tis_native
-    from misaka_tpu_torch.utils import nativelib
+    from misaka_tpu_torch.utils import nativelib, textcodec
 
     device = device or "cuda"
     if not NATIVE_PREBUILD:
@@ -5371,7 +5406,9 @@ def phase_native(batch=MAIN_BATCH, ticks=128, served_batch=4096, n_latency=100,
         for name, fut in NATIVE_PREBUILD["futures"].items():
             builds[name] = fut.result()
             expect(builds[name]["ok"], f"{name}: the host compiler could not build it")
-        for name, lib in (("interpreter", cinterp.NATIVE), ("assembler", tis_native.NATIVE)):
+        for name, lib in (("interpreter", cinterp.NATIVE), ("assembler", tis_native.NATIVE),
+                          ("frontend", frontends._FRONTEND_LIB),
+                          ("textcodec", textcodec._NATIVE)):
             builds[name].update(seconds=lib.build_seconds, so=os.path.relpath(lib.so_path(), ROOT))
         steps["builds_wait"] = time.perf_counter() - t_step
         probe = cinterp.NativePool(networks.add2().compile(device="cpu").code,
@@ -5517,6 +5554,335 @@ def phase_native(batch=MAIN_BATCH, ticks=128, served_batch=4096, n_latency=100,
     return row
 
 
+# --- the native edge: the C++ epoll frontend on the public port ------------------
+
+# the keys of the reference's native edge tests: an admin, two `vps<4`
+# tenants with the same spec (the 413 probe sends each tier its own, so that
+# the process's buckets never mix legs) and a disabled key
+NE_KEYS = [
+    {"key": "adm-secret", "tenant": "ops", "admin": True},
+    {"key": "tiny-a-secret", "tenant": "tiny-a", "quota": "vps<4"},
+    {"key": "tiny-b-secret", "tenant": "tiny-b", "quota": "vps<4"},
+    {"key": "eve-secret", "tenant": "eve", "disabled": True},
+]
+NE_ADMIN = {"X-Misaka-Key": "adm-secret"}
+# compared byte for byte when present on either side; the per-request ones
+# (Date, Server, Server-Timing, X-Misaka-Trace) are not
+NE_PARITY_HEADERS = ("content-type", "content-length", "retry-after", "www-authenticate")
+
+
+def raw_call(port, method, path, body=None, headers=None, timeout=120):
+    """(status, lower-cased headers, body) of one request sent as given
+    (http.client adds no Content-Type of its own)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+    finally:
+        conn.close()
+
+
+def native_edge_corpus():
+    """(label, method, path, body, headers, how): the reference's parity
+    corpus (tests/test_native_edge.py).  how: "bytes" (status, body and the
+    parity headers equal), "413" (the same with each tier's own tenant),
+    "shape" (status and the typed message), "keys" (status and the JSON
+    keys: the engine's /status, proxied)."""
+    from misaka_tpu_torch.utils import wire
+
+    msk = {**NE_ADMIN, "Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+    i32 = lambda *v: np.asarray(v, "<i4").tobytes()  # noqa: E731
+    good = wire.pack(i32(1, 2, 3))
+    return [
+        ("raw_legacy", "POST", "/compute_raw", i32(1, 2, 3, 4), NE_ADMIN, "bytes"),
+        ("raw_msk1", "POST", "/compute_raw", wire.pack(i32(10, 20, 30)), msk, "bytes"),
+        ("form_compute", "POST", "/compute", b"value=7", NE_ADMIN, "bytes"),
+        ("batch_mixed_widths", "POST", "/compute_batch", b"values=5,-17,300&spread=1",
+         NE_ADMIN, "bytes"),
+        ("401_missing", "POST", "/compute_raw", i32(1, 2), {}, "bytes"),
+        ("401_unknown", "POST", "/compute_raw", i32(1, 2), {"X-Misaka-Key": "who-is-this"},
+         "bytes"),
+        ("403_disabled", "POST", "/compute_raw", i32(1, 2), {"X-Misaka-Key": "eve-secret"},
+         "bytes"),
+        ("413_burst", "POST", "/compute_raw", i32(*range(16)), None, "413"),
+        ("400_msk1_short", "POST", "/compute_raw", b"short", msk, "bytes"),
+        ("400_msk1_truncated", "POST", "/compute_raw", good[:-4], msk, "bytes"),
+        ("400_msk1_garbage", "POST", "/compute_raw", b"\xff" * 12, msk, "bytes"),
+        ("400_misaligned", "POST", "/compute_raw", b"\x01\x02\x03", NE_ADMIN, "bytes"),
+        ("404_program", "POST", "/programs/no-such-prog/compute_raw", i32(1, 2), NE_ADMIN,
+         "shape"),
+        ("status_401_proxied", "GET", "/status", None, {}, "bytes"),
+        ("status_proxied", "GET", "/status", None, NE_ADMIN, "keys"),
+    ]
+
+
+def native_edge_parity(edge_port, engine_port):
+    """Each corpus case on the public port (the native edge) and on the
+    engine's own port (the CPython route table): the rows, every one equal."""
+    rows = []
+    for label, method, path, body, headers, how in native_edge_corpus():
+        if how == "413":
+            want = raw_call(engine_port, method, path, body, {"X-Misaka-Key": "tiny-a-secret"})
+            got = raw_call(edge_port, method, path, body, {"X-Misaka-Key": "tiny-b-secret"})
+            got = (got[0], got[1], got[2].replace(b"tiny-b", b"tiny-a"))
+            expect(want[0] == 413 and b"split the request" in want[2]
+                   and "retry-after" not in got[1], f"413 burst: {want} / {got}")
+        else:
+            want = raw_call(engine_port, method, path, body, headers)
+            got = raw_call(edge_port, method, path, body, headers)
+        expect(got[1].get("server") == "misaka-native-edge/1" or how in ("shape", "keys")
+               or label.endswith("proxied"), f"{label}: not answered by the native edge")
+        if how == "shape":
+            same = got[0] == want[0] == 404 and all(
+                b"cannot route to program 'no-such-prog'" in b for b in (got[2], want[2]))
+        elif how == "keys":
+            same = got[0] == want[0] == 200 and (json.loads(got[2]).keys()
+                                                 == json.loads(want[2]).keys())
+        else:
+            same = (got[0], got[2]) == (want[0], want[2]) and all(
+                got[1].get(h) == want[1].get(h) for h in NE_PARITY_HEADERS)
+        expect(same, f"native edge parity {label}: edge {got[0]} {got[2][:120]!r} "
+               f"!= engine {want[0]} {want[2][:120]!r}")
+        rows.append({"case": label, "status": got[0], "bytes": len(got[2]), "equal": how})
+    # every success answer is add2's, not just equal
+    from misaka_tpu_torch.utils import wire
+
+    ok = raw_call(edge_port, "POST", "/compute_raw", wire.pack(np.asarray([10, -20], "<i4")
+                                                               .tobytes()),
+                  {**NE_ADMIN, "Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE})
+    expect(ok[0] == 200 and np.frombuffer(wire.unpack(ok[2]), "<i4").tolist() == [12, -18],
+           f"MSK1 answer {ok}")
+    return rows
+
+
+def native_edge_turn(port, streams, n_clients, per_client, n_quiet, base):
+    """One turn of the load on `port`, every answer checked: the MSK1
+    /compute_raw streams at once, n_clients x per_client one-value
+    /compute, then n_quiet quiet /compute.  Returns the turn's figures."""
+    from misaka_tpu_torch.utils import wire
+
+    msk = {**NE_ADMIN, "Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+
+    def stream(i):
+        c, _, b = raw_call(port, "POST", "/compute_raw", wire.pack(streams[i].tobytes()), msk)
+        want = wrap_i32(streams[i].astype(np.int64) + 2)
+        if c != 200 or not np.array_equal(np.frombuffer(wire.unpack(b), "<i4"), want):
+            raise RuntimeError(f"MSK1 stream {i}: {c} {b[:80]!r}")
+
+    errors, raw_s = run_clients(len(streams), stream)
+    expect(not errors, f"MSK1 streams on :{port}: {errors[:4]}")
+
+    def small(i):
+        for j in range(per_client):
+            v = base + i * 1000 + j
+            c, _, b = raw_call(port, "POST", "/compute", f"value={v}".encode(), NE_ADMIN)
+            if c != 200 or json.loads(b) != {"value": v + 2}:
+                raise RuntimeError(f"/compute {v}: {c} {b!r}")
+
+    errors, small_s = run_clients(n_clients, small)
+    expect(not errors, f"small requests on :{port}: {errors[:4]}")
+    lat = []
+    for v in list(range(-49, 50))[:n_quiet]:
+        t = time.perf_counter()
+        c, _, b = raw_call(port, "POST", "/compute", f"value={v}".encode(), NE_ADMIN)
+        lat.append(time.perf_counter() - t)
+        expect(c == 200 and json.loads(b) == {"value": v + 2}, f"quiet /compute {v}: {b!r}")
+    values = sum(s.size for s in streams)
+    return {"stream_values_per_s": values / raw_s,
+            "small_requests_per_s": n_clients * per_client / small_s,
+            "quiet_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "quiet_p90_ms": float(np.percentile(lat, 90)) * 1e3}
+
+
+def codec_timing(n=1_000_000, reps=3):
+    """n int32 values formatted and parsed in this process by the native
+    codec and by numpy (MISAKA_NATIVE_CODEC=1, 0): equal bytes and arrays,
+    the best of `reps` in ms per million values each way."""
+    from misaka_tpu_torch.utils import textcodec
+
+    vals = np.random.default_rng(SEED + 21).integers(
+        -(2**31), 2**31, size=n, dtype=np.int64).astype(np.int32)
+    saved = os.environ.get("MISAKA_NATIVE_CODEC")
+    out, texts = {}, {}
+    try:
+        for name, knob in (("native", "1"), ("numpy", "0")):
+            os.environ["MISAKA_NATIVE_CODEC"] = knob
+            fmt, parse = [], []
+            for _ in range(reps):
+                t = time.perf_counter()
+                text = textcodec.ints_to_dec(vals, b",")
+                fmt.append(time.perf_counter() - t)
+                t = time.perf_counter()
+                back = textcodec.dec_to_ints(text)
+                parse.append(time.perf_counter() - t)
+                expect(np.array_equal(back, vals), f"{name} codec round trip")
+            texts[name] = text
+            out[name] = {"format_ms_per_million": min(fmt) * 1e9 / n,
+                         "parse_ms_per_million": min(parse) * 1e9 / n}
+    finally:
+        if saved is None:
+            os.environ.pop("MISAKA_NATIVE_CODEC", None)
+        else:
+            os.environ["MISAKA_NATIVE_CODEC"] = saved
+    expect(texts["native"] == texts["numpy"], "the native codec's bytes differ from numpy's")
+    return {"values": n, "bytes": len(texts["native"]), **out}
+
+
+def worker_port(label) -> int:
+    """The loopback port of the workers behind a native edge (app log)."""
+    with open(os.path.join(ROOT, "build", f"chip_smoke_{label}.log")) as f:
+        m = re.search(r"frontend workers on :(\d+) \(plane [^)]*\); native edge on :\d+", f.read())
+    expect(m is not None, f"{label}: no native edge in the app log")
+    return int(m.group(1))
+
+
+def phase_native_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_streams=32,
+                      stream_values=3_125, n_clients=32, per_client=10, n_quiet=49,
+                      codec_values=1_000_000, batch_values=100_000, device=None, card=None):
+    """The native C++ edge (runtime/frontends.py NativeFrontendSupervisor over
+    csrc/native/frontend.cpp) on the public port in front of the card's
+    engine: add2 at B, caps 128/128/16, `chunk` ticks, N workers, the
+    default MISAKA_NATIVE_EDGE and a key file (the reference's native edge
+    test keys: an admin, two vps<4 tenants, a disabled key).
+
+    1. the edge is up: /healthz `native_edge.up` and misaka_native_edge_up 1;
+    2. parity: the reference's corpus on the public port and on the
+       engine's own port (the CPython route table): status, body and
+       content-type/-length, retry-after, www-authenticate equal;
+    3. load, every answer checked, on the edge (a) and on the workers of
+       the same boot through their loopback port (b), a b b a: n_streams
+       concurrent MSK1 /compute_raw streams of stream_values values,
+       n_clients x per_client one-value /compute, n_quiet quiet /compute;
+       between two paused windows around it the engine's reading:
+       misaka_native_edge_plane_frames_total rose, the kernel's launches
+       advanced and equal the device loop's iterations;
+    4. the codec: codec_values values formatted and parsed in this process
+       by the native codec and by numpy (equal bytes, ms per million each
+       way), and one batch_values-value /compute_batch through the edge
+       (striped: spread=1), its answer checked;
+    5. the flip: MasterNode(device) with `auto` serves the fused kernel on
+       the card, MasterNode(device="cpu", batch=4) the native tier.
+
+    The edge's threads (default min(8, cores/2)), the workers and the
+    engine share the host's cores with this script's clients: the row
+    reports the counts.  device="cpu" rehearses it at a small B (the
+    engine there is the native tier: no launches)."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+    from misaka_tpu_torch.runtime.master import MasterNode
+
+    workers = workers or frontend_workers()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="native-edge-", dir=os.path.join(ROOT, "build"))
+    keys = os.path.join(tmp, "keys.json")
+    with open(keys, "w") as f:
+        json.dump({"keys": NE_KEYS}, f)
+    row = {"phase": "native_edge", "card": card, "workers": workers,
+           "cpu_count": os.cpu_count(), "batch": batch, "chunk_steps": chunk, **MAIN_CAPS}
+    t0 = time.perf_counter()
+    try:
+        with served_app("native_edge", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
+                        device=device, MISAKA_HTTP_WORKERS=str(workers), MISAKA_API_KEYS=keys,
+                        MISAKA_PLANE_SOCKET=os.path.join(tmp, "plane.sock")) as (pub, boot_s):
+            eng, wport = engine_port("native_edge"), worker_port("native_edge")
+            # 1. up: the engine's /healthz block and the series
+            deadline = time.monotonic() + 30
+            while True:
+                hz = json.loads(http(eng, "/healthz")[1])
+                if hz.get("native_edge", {}).get("up") and hz["frontends"]["alive"] == workers:
+                    break
+                expect(time.monotonic() < deadline, f"native edge not up: {hz}")
+                time.sleep(0.2)
+            expect(series(scrape(eng), "misaka_native_edge_up") == 1, "misaka_native_edge_up")
+            row.update(boot_s=boot_s, edge_threads=hz["native_edge"]["threads"])
+            # 2. parity
+            row["parity"] = native_edge_parity(pub, eng)
+            # 3. load, between paused windows
+            rng = np.random.default_rng(SEED + 19)
+            streams = [rng.integers(-2**31, 2**31, stream_values, dtype=np.int64)
+                       .astype(np.int32) for _ in range(n_streams)]
+
+            def window():
+                expect(call(eng, "/pause", b"", NE_ADMIN)[0] == 200, "/pause")
+                st = json.loads(call(eng, "/status", headers=NE_ADMIN)[2])
+                time.sleep(1.1)  # the watcher pumps the edge's counters every 0.5 s
+                return st, scrape(eng)
+
+            s0, m0 = window()
+            expect(call(eng, "/run", b"", NE_ADMIN)[0] == 200, "/run")
+            turns = []
+            for i, (tier, port) in enumerate((("edge", pub), ("workers", wport),
+                                              ("workers", wport), ("edge", pub))):
+                turns.append(dict(tier=tier, **native_edge_turn(
+                    port, streams, n_clients, per_client, n_quiet, base=i * 100_000)))
+            s1, m1 = window()
+            expect(call(eng, "/run", b"", NE_ADMIN)[0] == 200, "/run")
+
+            def moved(name):
+                return m1.get(name, 0.0) - m0.get(name, 0.0)
+
+            serve = moved('misaka_device_loop_iterations_total{kind="serve"}')
+            idle = moved('misaka_device_loop_iterations_total{kind="idle"}')
+            launched = (sum(s1["kernel_launches"].values())
+                        - sum(s0["kernel_launches"].values()))
+            edge_frames = moved("misaka_native_edge_plane_frames_total")
+            expect(edge_frames > 0, "no plane frame from the native edge in the window")
+            expect(device == "cpu" or serve + idle == launched > 0,
+                   f"iterations {serve} + {idle} != {launched} kernel launches")
+            row.update({
+                "turns": turns,
+                "edge": {k: [t[k] for t in turns if t["tier"] == "edge"] for k in turns[0]
+                         if k != "tier"},
+                "workers_tier": {k: [t[k] for t in turns if t["tier"] == "workers"]
+                                 for k in turns[0] if k != "tier"},
+                "stream_values": stream_values, "streams": n_streams,
+                "small_requests": n_clients * per_client, "quiet_requests": n_quiet,
+                "window": {"iterations_serve": serve, "iterations_idle": idle,
+                           "kernel_launches": launched, "edge_plane_frames": edge_frames,
+                           "plane_frames": moved("misaka_plane_frames_total"),
+                           "edge_requests": moved("misaka_native_edge_requests_total"),
+                           "edge_proxied": moved("misaka_native_edge_proxied_total")},
+            })
+            # 4. the codec: one bulk /compute_batch through the edge
+            vals = rng.integers(-2**31, 2**31, batch_values, dtype=np.int64).astype(np.int32)
+            t = time.perf_counter()
+            c, _, b = raw_call(pub, "POST", "/compute_batch",
+                               b"spread=1&values=" + ",".join(map(str, vals.tolist())).encode(),
+                               NE_ADMIN)
+            bulk_s = time.perf_counter() - t
+            expect(c == 200 and np.array_equal(np.asarray(json.loads(b)["values"], np.int64),
+                                               wrap_i32(vals.astype(np.int64) + 2)),
+                   f"/compute_batch of {batch_values} through the edge: {c}")
+            row["compute_batch"] = {"values": batch_values, "seconds": bulk_s}
+            hz = json.loads(http(eng, "/healthz")[1])
+            row["native_edge_block"] = hz["native_edge"]
+            row["kernel_launches"] = json.loads(
+                call(eng, "/status", headers=NE_ADMIN)[2])["kernel_launches"].get(
+                fused.KERNEL, 0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["codec"] = codec_timing(codec_values)
+    # 5. the flip
+    m = MasterNode(networks.add2(), batch=8, device=device or "cuda")
+    card_engine = m.engine_name
+    m.close()
+    m = MasterNode(networks.add2(), batch=4, device="cpu")
+    cpu_engine = m.engine_name
+    m.run()
+    expect(m.compute_many([5, 6]) == [7, 8], "the native-auto CPU master")
+    m.close()
+    expect(cpu_engine == "native" and (device == "cpu" or card_engine == "fused"),
+           f"auto: card {card_engine}, cpu {cpu_engine}")
+    row["auto"] = {"card": card_engine, "cpu": cpu_engine}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -5552,14 +5918,14 @@ def main() -> int:
     emit({"phase": "build", "kernel": fused.KERNEL, "seconds": split["build"],
           "ptxas": ptxas_summary(build.ptxas_report(fused.KERNEL))})
 
-    # depth cut to make room for the native phase (every case kept, their
-    # exactness resolved by earlier runs at the deeper settings): the
-    # baselines' and pipelines' parity and the elided parity at 128 ticks
-    # (was 256), the unbatched long chunk 512 ticks (was 2048)
-    max_err = timed("parity", phase_parity, ticks=128)
-    max_err_elided = timed("elided_parity", phase_elided_parity, ticks=128)
+    # depth cut to make room for the native and native_edge phases (every
+    # case kept, their exactness resolved by earlier runs at the deeper
+    # settings): the baselines' and pipelines' parity and the elided parity
+    # at 64 ticks (was 256), the unbatched long chunk 256 ticks (was 2048)
+    max_err = timed("parity", phase_parity, ticks=64)
+    max_err_elided = timed("elided_parity", phase_elided_parity, ticks=64)
     max_err_dp, dp_rows = timed("dp_parity", phase_dp_parity)
-    max_err_unbatched = timed("unbatched_parity", phase_unbatched_parity, chunks=(128, 512))
+    max_err_unbatched = timed("unbatched_parity", phase_unbatched_parity, chunks=(128, 256))
 
     # Each served phase runs in a fresh server process, whose launch counts
     # start at 0 when it boots; the counts are read from its /status at the
@@ -5567,34 +5933,41 @@ def main() -> int:
     # process's counts just before it and reads them just after.
     for k in fused.launch_counts:
         fused.launch_counts[k] = 0
-    main_row = timed("main_path", phase_main_path)
+    # depth cut: the main and data-parallel lanes' streams 25,000 values
+    # (was 100,000; the pinned stream 196 chunks, was 782)
+    main_row = timed("main_path", phase_main_path, n_raw=25_000)
     grow_row = timed("autogrow", phase_autogrow)
     elided_row = timed("elided_path", phase_elided_path)
-    dp_row = timed("dp_path", phase_main_path, data_parallel=count)
+    dp_row = timed("dp_path", phase_main_path, data_parallel=count, n_raw=25_000)
     two_row = timed("two_shards", phase_two_shards)
     unbatched_row = timed("unbatched_path", phase_unbatched_path)
     timed("traced", phase_traced)
-    # depth cut to make room for the native phase (every check kept; these
-    # figures were resolved by earlier runs): observability and frontends
-    # 32 x 20 requests (was 32 x 40), frontends 49 quiet (was 99);
-    # telemetry 32 x 6,250 raw values (was 12,500), 16 capture clients (was
-    # 32), 20 delay requests (was 40), 50 B=1 requests (was 100);
-    # observatory 4 stream clients (was 8); fleet 4 quiet a cost turn (was
-    # 8); model_parallel 50,000 served values (was 100,000)
-    obs_row = timed("observability", phase_observability, card=smi, per_client=20)
+    # depth cut to make room for the native and native_edge phases (every
+    # check kept; these figures were resolved by earlier runs):
+    # observability and frontends 32 x 10 requests (was 32 x 40), frontends
+    # 49 quiet (was 99); the edge's flood 3 s (was 5); the registry's stream
+    # 10,000 values (was 20,000); telemetry 32 x 3,125 raw values (was
+    # 12,500), 8 capture clients (was 32), 10 delay requests (was 40), 25
+    # B=1 requests (was 100); observatory 4 stream clients (was 8); fleet
+    # 32 x 10 requests and 4 quiet a cost turn (was 32 x 20 and 8);
+    # model_parallel 25,000 served values (was 100,000)
+    obs_row = timed("observability", phase_observability, card=smi, per_client=10)
     obs_unbatched_row = timed("unbatched_observability", phase_unbatched_observability,
                               card=smi)
-    fe_row = timed("frontends", phase_frontends, card=smi, zero_workers=obs_row, per_client=20,
+    fe_row = timed("frontends", phase_frontends, card=smi, zero_workers=obs_row, per_client=10,
                    n_quiet=49)
-    edge_row = timed("edge", phase_edge, card=smi)
-    registry_row = timed("registry", phase_registry, card=smi)
-    telemetry_row = timed("telemetry", phase_telemetry, card=smi, raw_values=6_250,
-                          capture_clients=16, n_delay=20, n_b1=50)
+    edge_row = timed("edge", phase_edge, card=smi, flood_s=3.0)
+    registry_row = timed("registry", phase_registry, card=smi, n_stream=10_000)
+    telemetry_row = timed("telemetry", phase_telemetry, card=smi, raw_values=3_125,
+                          capture_clients=8, n_delay=10, n_b1=25)
     observatory_row = timed("observatory", phase_observatory, card=smi, stream_clients=4)
-    fleet_row = timed("fleet", phase_fleet, card=smi, n_quiet=4)
-    timed("model_parallel", phase_model_parallel, card=smi, n_values=50_000)
+    fleet_row = timed("fleet", phase_fleet, card=smi, per_client=10, n_quiet=4)
+    timed("model_parallel", phase_model_parallel, card=smi, n_values=25_000)
     # the host tier, while no other server of this script is up
     timed("native", phase_native, card=smi, unbatched_row=unbatched_row)
+    # the native edge in front of the card's engine (after `native`, whose
+    # first check is that no native engine was built before it)
+    ne_row = timed("native_edge", phase_native_edge, card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -5612,7 +5985,8 @@ def main() -> int:
             "launches": main_row["kernel_launches"][fused.KERNEL]
             + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
             + registry_row["kernel_launches"] + telemetry_row["kernel_launches"]
-            + observatory_row["kernel_launches"] + fleet_row["fleet_launches"],
+            + observatory_row["kernel_launches"] + fleet_row["fleet_launches"]
+            + ne_row["kernel_launches"],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -5640,6 +6014,8 @@ def main() -> int:
             # the peer, the replica_kill fleet's replicas and the cost's
             # single engine
             "fleet_launches": fleet_row["fleet_launches"],
+            # the native_edge phase's server, behind the C++ edge
+            "native_edge_launches": ne_row["kernel_launches"],
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

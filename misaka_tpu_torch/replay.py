@@ -20,8 +20,9 @@ the exit status is 1.  The same verdict as the in-process
 
 The shadow runs on the card unless `--device cpu` (or MISAKA_DEVICE=cpu)
 asks for the CPU, through the engine the port picks there (the fused
-kernel on a card, its plain version on the CPU: the two are bit-exact,
-as the reference's engine ladder is) unless `--engine` names one.  A
+kernel on a card; on the CPU the host C++ tier, or the kernel's plain
+version where `auto` keeps it: all bit-exact, as the reference's engine
+ladder is) unless `--engine` names one.  A
 directory sweeps every segment in it oldest-first.
 """
 

@@ -12,8 +12,12 @@ Environment:
                      concurrent requests across them (default, or 0: one
                      instance, every /compute strictly FIFO)
   MISAKA_CHUNK_STEPS ticks per device-loop chunk (default 128)
-  MISAKA_ENGINE      auto (default: the fused kernel on the card, its plain
-                     version on the CPU) | scan (the plain version) | fused
+  MISAKA_ENGINE      auto (default: the fused kernel on the card; on the CPU
+                     the host C++ tier, as the reference's auto serves it
+                     with no TPU attached, unless MISAKA_NATIVE_AUTO=0, a
+                     trace, a mesh or a batch over
+                     MISAKA_NATIVE_AUTO_MAX_BATCH (default 4096) keeps the
+                     plain version) | scan (the plain version) | fused
                      (require the kernel: batched and untraced) | native
                      (the host C++ interpreter tier, core/native_serve.py,
                      on the host whatever MISAKA_DEVICE says: one instance,
@@ -102,6 +106,19 @@ Environment:
                      server moves to a free port as their proxy target, and
                      /healthz and /status carry `frontends`.
                      MISAKA_PLANE_CONNS connections per worker (default 2)
+  MISAKA_NATIVE_EDGE with MISAKA_HTTP_WORKERS > 0: 1 (default) puts the C++
+                     epoll edge (runtime/frontends.py
+                     NativeFrontendSupervisor) on the public port: HTTP
+                     keep-alive and the MSK1 binary wire end in C++, the
+                     hot compute routes go straight over the plane, the
+                     rest is proxied to the workers, which move to a
+                     loopback port; /healthz carries `native_edge`.  0, an
+                     armed MISAKA_TLS_CERT (the native tier does not
+                     terminate TLS), or a failed build or start leaves the
+                     workers on the public port, with one logged line.
+                     MISAKA_NATIVE_EDGE_THREADS (default min(8, cores/2),
+                     at least 2), MISAKA_NATIVE_EDGE_MAX_CONNS (default
+                     4096), MISAKA_PLANE_TIMEOUT_S (30) and MISAKA_MAX_BODY
   MISAKA_PLANE_SERVE "1" serves the compute plane beside the engine's own
                      listener when there are no workers
   MISAKA_PLANE_WINDOW_US / _PIPELINE / _SHM / _SECRET[_FILE] / _DEPTH_MAX
@@ -192,10 +209,7 @@ Environment:
 Refused at boot, naming the ROADMAP item that ports them (the reference
 serves them; the port would otherwise ignore them without a word):
 MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), and a mesh
-across the processes of a MISAKA_COORDINATOR group (A.7b).  The reference's
-native C++ edge (MISAKA_NATIVE_EDGE) is not ported yet (A.8b): the CPython
-workers take the public port, as the reference's do when its native edge
-is unavailable, with one logged line.
+across the processes of a MISAKA_COORDINATOR group (A.7b).
 """
 
 from __future__ import annotations
@@ -415,6 +429,30 @@ def _remove(path: str) -> None:
         pass
 
 
+def start_native_edge(port: int, engine_port: int, path: str, registry, plane_conns: int,
+                      environ=os.environ):
+    """The native C++ edge on the public `port`, its workers' loopback port
+    picked as its `proxy_port`; None, with one logged line, when
+    MISAKA_NATIVE_EDGE=0, a TLS cert is armed (the native tier does not
+    terminate TLS), or it fails to build or start (the workers then take
+    the public port, as the reference's do)."""
+    if environ.get("MISAKA_NATIVE_EDGE", "1") == "0":
+        log.info("native edge off (MISAKA_NATIVE_EDGE=0); CPython workers take the public port")
+        return None
+    if environ.get("MISAKA_TLS_CERT"):
+        log.info("native edge off (MISAKA_TLS_CERT: the native tier does not terminate TLS); "
+                 "CPython workers take the public port")
+        return None
+    try:
+        return frontends.NativeFrontendSupervisor(
+            port=port, proxy_port=frontends.pick_free_port(), plane_path=path,
+            registry=registry, healthz_url=f"http://127.0.0.1:{engine_port}/healthz",
+            plane_conns=plane_conns, environ=environ)
+    except Exception as e:
+        log.warning("native edge unavailable (%s); CPython workers take the public port", e)
+        return None
+
+
 def main() -> None:
     environ = os.environ
     if environ.get("MISAKA_LOG_JSON") == "1":
@@ -441,14 +479,16 @@ def main() -> None:
         run_fleet(fleet_n, environ)
         return
     master = build_master_from_env(environ)
-    autockpt = httpd = pidfile = plane = supervisor = registry = None
+    autockpt = httpd = pidfile = plane = supervisor = registry = native_edge = None
 
     def stop() -> None:
-        # the workers go first (no new frames), then the device loop (no
-        # launch after it), then the sockets; a signal exits through
-        # os._exit, past atexit: drop the pidfile here, even when a signal
-        # that lands mid-/run makes a close raise
+        # the edge and the workers go first (no new frames), then the
+        # device loop (no launch after it), then the sockets; a signal
+        # exits through os._exit, past atexit: drop the pidfile here, even
+        # when a signal that lands mid-/run makes a close raise
         try:
+            if native_edge is not None:
+                native_edge.close()
             if supervisor is not None:
                 supervisor.close()
             canary.shutdown()
@@ -484,23 +524,27 @@ def main() -> None:
     server_kw = dict(checkpoint_dir=environ.get("MISAKA_CHECKPOINT_DIR") or None,
                      profile_dir=environ.get("MISAKA_PROFILE_DIR") or None, registry=registry)
     if workers > 0:
-        # the multi-process front (runtime/frontends.py): the workers take
-        # the public port and terminate TLS; the engine's own server is
-        # their plain-HTTP proxy target on a free port
+        # the multi-process front (runtime/frontends.py): the native edge
+        # takes the public port and the workers move to a loopback port as
+        # its proxy target, or the workers take it and terminate TLS; the
+        # engine's own server is their plain-HTTP proxy target on a free port
         sys.setswitchinterval(0.001)  # many handler threads: no convoys
         httpd = make_http_server(master, port=0, tls=False, **server_kw)
         engine_port = httpd.server_address[1]
         path = plane_path(environ)
         plane = httpd.misaka_plane = frontends.start_compute_plane(master, path,
                                                                    registry=registry)
-        if environ.get("MISAKA_NATIVE_EDGE", "1") != "0" and not environ.get("MISAKA_TLS_CERT"):
-            log.warning("native edge unavailable (not ported yet: ROADMAP A.8b); CPython "
-                        "workers take the public port")
+        plane_conns = int(environ.get("MISAKA_PLANE_CONNS", "2"))
+        native_edge = start_native_edge(port, engine_port, path, registry, plane_conns,
+                                        environ)
+        httpd.misaka_native_edge = native_edge
+        worker_port = port if native_edge is None else native_edge.proxy_port
         supervisor = httpd.misaka_supervisor = frontends.FrontendSupervisor(
-            workers, port, f"http://127.0.0.1:{engine_port}", path,
-            plane_conns=int(environ.get("MISAKA_PLANE_CONNS", "2")))
+            workers, worker_port, f"http://127.0.0.1:{engine_port}", path,
+            plane_conns=plane_conns)
         log.info("engine http on 127.0.0.1:%d; %d supervised frontend workers on :%d "
-                 "(plane %s)", engine_port, workers, port, path)
+                 "(plane %s)%s", engine_port, workers, worker_port, path,
+                 f"; native edge on :{port}" if native_edge is not None else "")
     else:
         httpd = make_http_server(master, port=port, **server_kw)
         if environ.get("MISAKA_PLANE_SERVE") == "1":

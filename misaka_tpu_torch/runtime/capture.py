@@ -17,8 +17,9 @@ Surfaces, each request recorded once, where it terminated:
             rejections)
   "worker"  frontend workers' locally terminated rejects (shed cache,
             backlog cap), shipped up in frame metadata
-
-("edge", the reference's native C++ edge, is ROADMAP A.8b.)
+  "edge"    the native C++ edge's locally terminated rejects (401, 413,
+            shed cache, overload), drained by its supervisor
+            (runtime/frontends.py), sampled in C++
 
 Knobs, re-read by configure():
 

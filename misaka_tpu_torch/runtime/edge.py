@@ -35,9 +35,10 @@ the stage); the admission signals carry the SLO engine's page bit
 (utils/faults.py) force a shed at the admission and quota sites.  The
 TCP compute plane's mTLS material (MISAKA_PLANE_TLS_CERT/KEY/CA,
 `PlaneTLSReloader`, hot-reloaded on a rotation) and its typed reject
-counter live here too.  Left out: the native edge's state push (ROADMAP
-A.8b).  Stdlib only, plus the port's stdlib-only utils: the frontend
-workers import this module.
+counter live here too, and so does `native_edge_state`, the snapshot of
+the chain that the native C++ edge (runtime/frontends.py
+`NativeFrontendSupervisor`) is pushed.  Stdlib only, plus the port's
+stdlib-only utils: the frontend workers import this module.
 """
 
 from __future__ import annotations
@@ -1090,6 +1091,53 @@ def count_plane_tls_reject(reason: str) -> None:
     close)."""
     M_PLANE_TLS_REJECTED.labels(
         reason=reason if reason in ("plaintext", "bad_cert") else "handshake").inc()
+
+
+# --- the native edge's state push ---------------------------------------------
+
+
+def native_edge_state(chain: EdgeChain | None = None) -> dict:
+    """The chain's auth and quota surface as the native C++ edge takes it
+    (runtime/frontends.py `NativeFrontendSupervisor` pushes it through
+    msk_edge_push_state).  The native tier is a cache, never an authority:
+
+    * `digests` lists every known key's digest (hex; raw keys never cross
+      the boundary), disabled keys included, so that a disabled key
+      reaches the engine's chain and gets its 403, not a local 401;
+    * burst caps ride only on keys whose own spec pins `vps` (a key's spec
+      overrides the program's and the env's field by field, so the cap is
+      exact there); `burst_msg_mid` is the message's middle, rendered with
+      %g here, so that C++ never formats a Python float;
+    * the 401 bodies are shipped verbatim.
+
+    With tenant tokens armed the native tier must not reject locally: a
+    valid token is verified, not looked up, so `auth_armed` is false and
+    every request goes to the engine's chain.  The fleet's internal token
+    is listed as tenant `_fleet`."""
+    if chain is None:
+        chain = current()
+    state: dict = {
+        "auth_armed": chain.keyfile is not None and chain.token_secret is None,
+        "digests": {},
+        "reject_missing": "API key required (X-Misaka-Key header or Authorization: Bearer <key>)",
+        "reject_unknown": "unknown API key",
+    }
+    kf = chain.keyfile
+    if kf is not None:
+        kf._load()
+        for digest, entry in kf._by_digest.items():
+            d: dict = {"tenant": entry["tenant"]}
+            spec = entry.get("quota_spec")
+            if chain.quota_enabled and not entry.get("disabled") and spec and "vps" in spec:
+                vps = float(spec["vps"])
+                cap = max(1.0, vps * chain.burst_s)
+                d["burst_cap"] = cap
+                d["burst_msg_mid"] = (f" values exceeds this tenant's burst capacity "
+                                      f"({cap:g} at {vps:g} values/s); split the request")
+            state["digests"][digest.hex()] = d
+    if chain.internal_token is not None:
+        state["digests"][_digest(chain.internal_token).hex()] = {"tenant": "_fleet"}
+    return state
 
 
 # --- compute-plane shared secret ---------------------------------------------

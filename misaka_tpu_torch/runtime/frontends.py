@@ -49,7 +49,19 @@ mutual TLS when MISAKA_PLANE_TLS_CERT/KEY/CA are set (runtime/edge.py
 `PlaneTLSReloader`), the HMAC handshake running inside the session; a
 peer refused at the gate is a typed, counted close.  One thread reads an
 mTLS socket and writes to it go through one lock (or one thread), never
-two at once.  Left out: the native C++ edge (ROADMAP A.8b).
+two at once.
+
+The native edge (`NativeFrontendSupervisor`, the reference's r19 tier):
+the port's copy of the reference's C++ epoll frontend
+(csrc/native/frontend.cpp with msk_http.hpp and msk_frame.hpp, built by
+utils/nativelib.py) takes the public port in the engine's own process,
+terminates HTTP/1.1 keep-alive and the MSK1 binary wire with no GIL on
+the data path, ships the hot compute routes straight over the plane, and
+proxies everything else to the CPython workers.  Python stays the control
+plane: a watcher pushes the edge chain's key digests and burst caps, the
+registry's programs, the tracing, SLO and capture flags and the engine's
+/healthz body into C++, and pumps the tier's counters, spans and capture
+rows back out.
 
 This module imports the standard library and the port's stdlib-only
 modules only: a frontend worker never pays the torch import or its memory.
@@ -57,6 +69,7 @@ modules only: a frontend worker never pays the torch import or its memory.
 
 from __future__ import annotations
 
+import ctypes
 import http.client
 import json
 import logging
@@ -80,6 +93,7 @@ from misaka_tpu_torch.runtime import edge as edge_mod
 from misaka_tpu_torch.utils import faults, metrics, slo, tracespan, wire
 from misaka_tpu_torch.utils.backoff import Backoff
 from misaka_tpu_torch.utils.httpfast import fast_parse_request
+from misaka_tpu_torch.utils.nativelib import NativeLib
 
 log = logging.getLogger("misaka_tpu_torch.frontends")
 
@@ -2319,6 +2333,323 @@ def pick_free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+
+# --- the native edge: the C++ epoll frontend tier ---------------------------------
+
+M_NE_UP = metrics.gauge(
+    "misaka_native_edge_up",
+    "1 while the C++ native edge tier is serving the public port "
+    "(0/absent = CPython worker tier)",
+)
+M_NE_CONNS = metrics.gauge(
+    "misaka_native_edge_connections_open",
+    "Client connections currently open on the native edge",
+)
+M_NE_REQUESTS = metrics.counter(
+    "misaka_native_edge_requests_total",
+    "HTTP requests terminated by the native edge (served or proxied)",
+)
+M_NE_PLANE = metrics.counter(
+    "misaka_native_edge_plane_frames_total",
+    "Compute frames the native edge shipped directly over the plane "
+    "(the no-GIL hot path)",
+)
+M_NE_PROXIED = metrics.counter(
+    "misaka_native_edge_proxied_total",
+    "Requests the native edge proxied to the CPython worker tier "
+    "(admin routes, GETs, cold programs, bulk bodies)",
+)
+M_NE_LOCAL_REJECTS = metrics.counter(
+    "misaka_native_edge_local_rejects_total",
+    "Requests the native edge rejected from pushed edge state without "
+    "a plane round-trip (401 unknown/missing key, 413 burst, shed "
+    "cache, overload) — each also bills misaka_edge_rejected_total "
+    "via frame metadata",
+)
+
+
+def _configure_frontend(lib: ctypes.CDLL) -> None:
+    lib.msk_edge_start.restype = ctypes.c_int
+    lib.msk_edge_start.argtypes = [ctypes.c_char_p]
+    lib.msk_edge_port.restype = ctypes.c_int
+    lib.msk_edge_port.argtypes = []
+    lib.msk_edge_push_state.restype = ctypes.c_int
+    lib.msk_edge_push_state.argtypes = [ctypes.c_char_p]
+    lib.msk_edge_stats.restype = ctypes.c_int64
+    lib.msk_edge_stats.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.msk_edge_spans.restype = ctypes.c_int64
+    lib.msk_edge_spans.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.msk_edge_captures.restype = ctypes.c_int64
+    lib.msk_edge_captures.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.msk_edge_stop.restype = None
+    lib.msk_edge_stop.argtypes = []
+    lib.msk_edge_last_error.restype = ctypes.c_char_p
+    lib.msk_edge_last_error.argtypes = []
+
+
+# frontend.cpp includes the two codec headers: the library's content tag
+# hashes all three, in the reference Makefile's order
+_FRONTEND_LIB = NativeLib("frontend", _configure_frontend, so_env="MISAKA_FRONTEND_SO",
+                          parts=("msk_http.hpp", "msk_frame.hpp", "frontend.cpp"))
+
+# the Perfetto exporter reads the edge's spans through a module-level
+# source holding the live supervisor weakly: a closed one pins nothing,
+# and registering again across server restarts in one process is a no-op
+_ACTIVE_NATIVE_EDGE = None  # weakref.ref[NativeFrontendSupervisor] | None
+
+
+def _native_edge_spans() -> list:
+    sup = _ACTIVE_NATIVE_EDGE() if _ACTIVE_NATIVE_EDGE is not None else None
+    if sup is None:
+        return []
+    return sup.recent_spans()
+
+
+def _read_json(fn, cap: int):
+    """A JSON document the C++ tier writes into a buffer (`fn(buf, cap)`:
+    its length, negative when the buffer is too small): one retry at 4x
+    the size; None when it does not fit or does not parse."""
+    for _ in range(2):
+        buf = ctypes.create_string_buffer(cap)
+        n = fn(buf, cap)
+        if n >= 0:
+            try:
+                return json.loads(buf.raw[:n].decode("utf-8", "replace")) if n else None
+            except ValueError:
+                return None
+        cap *= 4
+    return None
+
+
+class NativeFrontendSupervisor:
+    """Build, start and feed the in-process C++ edge.
+
+    Its contract is FrontendSupervisor's (`port`, state(), close()), so the
+    app treats either tier alike.  The watcher thread is the push plane:
+    every 0.5 s it snapshots the edge chain (the key file is stat'd inside,
+    so a rotation lands within a second), the registry's programs, the
+    tracing, SLO and capture flags and, every other tick, the engine's
+    /healthz body, and pushes the bundle into C++ only when it changed.
+    The same thread pumps the tier's counters into the `misaka_native_edge_*`
+    series, drains its spans into the Perfetto export and ingests its
+    capture rows under surface "edge".
+
+    Any failure in __init__ raises: the app catches it and keeps the
+    CPython workers on the public port."""
+
+    def __init__(self, *, port: int, proxy_port: int, plane_path: str, chain=None,
+                 registry=None, healthz_url: str | None = None, threads: int | None = None,
+                 max_conns: int | None = None, plane_conns: int = 2, environ=os.environ):
+        # the fallback's own chaos point, where a missing toolchain fails
+        if faults.armed() and faults.fire("edge_native_build") is not None:
+            raise RuntimeError("native edge build failed (injected fault)")
+        lib = _FRONTEND_LIB.load()
+        if lib is None:
+            raise RuntimeError(
+                "native edge unavailable: frontend.so failed to build/load (no g++?)")
+        self._lib = lib
+        self._chain = chain if chain is not None else edge_mod.current()
+        self._registry = registry
+        self._healthz_url = healthz_url
+        if threads is None:
+            threads = int(environ.get("MISAKA_NATIVE_EDGE_THREADS", "")
+                          or min(8, max(2, (os.cpu_count() or 2) // 2)))
+        if max_conns is None:
+            max_conns = int(environ.get("MISAKA_NATIVE_EDGE_MAX_CONNS", "") or 4096)
+        config = {
+            "port": int(port),
+            "threads": int(threads),
+            "max_conns": int(max_conns),
+            "plane_conns": int(plane_conns),
+            "plane_depth_max": int(environ.get("MISAKA_PLANE_DEPTH_MAX", "") or 256),
+            "proxy_port": int(proxy_port),
+            "proxy_host": "127.0.0.1",
+            "max_body": int(environ.get("MISAKA_MAX_BODY", "") or 64 * 1024 * 1024),
+            "plane_body_limit": MAX_FRAME_VALUES * 2,
+            "plane_timeout_s": float(environ.get("MISAKA_PLANE_TIMEOUT_S", "") or 30.0),
+            # the C++ tier dials unix planes only: the first of the list
+            # (the Python router owns a fleet's TCP peers)
+            "plane_path": next((p for p in plane_path.split(",")
+                                if p and parse_plane_addr(p)[0] == "unix"), None),
+        }
+        if config["plane_path"] is None:
+            raise RuntimeError(
+                f"native edge unavailable: no unix plane in {plane_path!r} (the C++ "
+                "tier does not speak the TCP plane transport)")
+        secret = edge_mod.plane_secret(environ)
+        if secret is not None:
+            config["handshake_hex"] = edge_mod.plane_handshake(secret).hex()
+        if lib.msk_edge_start(json.dumps(config).encode()) != 0:
+            raise RuntimeError("native edge failed to start: "
+                               + (lib.msk_edge_last_error() or b"?").decode("utf-8", "replace"))
+        self.port = int(lib.msk_edge_port())
+        self.proxy_port = int(proxy_port)
+        self._lock = threading.Lock()
+        self._closed = False
+        self._last_push: str | None = None
+        self._healthz_body: bytes | None = None
+        self._healthz_ctype: str | None = None
+        self._span_buf: deque = deque(maxlen=4096)
+        self._last_stats: dict = {}
+        try:
+            self._push(force=True)
+        except Exception:
+            # the C++ loop is live: release it, or the process's one edge
+            # stays taken for every later boot
+            lib.msk_edge_stop()
+            raise
+        import weakref
+
+        global _ACTIVE_NATIVE_EDGE
+        _ACTIVE_NATIVE_EDGE = weakref.ref(self)
+        tracespan.register_tier_source(_native_edge_spans)
+        ref = weakref.ref(self)
+        M_NE_UP.set_function(lambda: 0 if (s := ref()) is None or s._closed else 1)
+        M_NE_CONNS.set_function(
+            lambda: s._last_stats.get("conns_open", 0) if (s := ref()) is not None else 0)
+        self._watcher = threading.Thread(target=self._watch_loop, daemon=True,
+                                         name="misaka-native-edge-supervisor")
+        self._watcher.start()
+        log.info("native edge serving :%d (%d threads, proxy -> 127.0.0.1:%d, plane %s)",
+                 self.port, threads, proxy_port, config["plane_path"])
+
+    # --- the push plane -------------------------------------------------------
+
+    def _snapshot(self) -> dict:
+        state = edge_mod.native_edge_state(self._chain)
+        if self._registry is not None:
+            try:
+                state["programs"] = sorted(self._registry._entries.keys())
+            except Exception:
+                state["programs"] = []
+        state["trace_enabled"] = tracespan.enabled()
+        state["trace_sample"] = float(getattr(tracespan, "_SAMPLE", 1.0))
+        state["slo_armed"] = bool(slo.armed())
+        # the edge records its local rejects only while the engine's
+        # recorder runs, at its sample rate
+        state["capture_enabled"] = capture_mod.recording()
+        state["capture_sample"] = capture_mod.sample_rate()
+        if self._healthz_body is not None:
+            state["healthz_body"] = self._healthz_body.decode("utf-8", "replace")
+            state["healthz_ctype"] = self._healthz_ctype or "application/json"
+        return state
+
+    def _push(self, force: bool = False) -> None:
+        js = json.dumps(self._snapshot(), sort_keys=True)
+        if not force and js == self._last_push:
+            return
+        if self._lib.msk_edge_push_state(js.encode()) != 0:
+            log.warning("native edge rejected state push: %s",
+                        (self._lib.msk_edge_last_error() or b"?").decode("utf-8", "replace"))
+            return
+        self._last_push = js
+
+    def _fetch_healthz(self) -> None:
+        if self._healthz_url is None:
+            return
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self._healthz_url, timeout=2) as r:
+                self._healthz_body = r.read()
+                self._healthz_ctype = r.headers.get("Content-Type", "application/json")
+        except Exception:
+            pass  # the engine is booting or draining: keep the last snapshot
+
+    # --- observability ----------------------------------------------------------
+
+    def _read_stats(self) -> dict:
+        buf = ctypes.create_string_buffer(1024)
+        n = self._lib.msk_edge_stats(buf, len(buf))
+        if n <= 0:
+            return {}
+        try:
+            return json.loads(buf.raw[:n].decode())
+        except ValueError:
+            return {}
+
+    def _pump_metrics(self) -> None:
+        stats = self._read_stats()
+        if not stats:
+            return
+        prev = self._last_stats
+        for field, counter in (("requests", M_NE_REQUESTS), ("plane", M_NE_PLANE),
+                               ("proxied", M_NE_PROXIED)):
+            d = stats.get(field, 0) - prev.get(field, 0)
+            if d > 0:
+                counter.inc(d)
+        local = ("local_401", "local_413", "shed_hits", "overload")
+        rejects = sum(stats.get(f, 0) for f in local) - sum(prev.get(f, 0) for f in local)
+        if rejects > 0:
+            M_NE_LOCAL_REJECTS.inc(rejects)
+        self._last_stats = stats
+
+    def _drain_spans(self) -> None:
+        recs = _read_json(self._lib.msk_edge_spans, 256 * 1024)
+        if not recs:
+            return
+        with self._lock:
+            for r in recs:
+                attrs = {"_lane": r.get("lane") or "edge"}
+                if r.get("trace"):
+                    attrs["trace_ids"] = [r["trace"]]
+                self._span_buf.append(tracespan.Span(
+                    r.get("name", "frontend.edge"), float(r.get("start", 0.0)),
+                    float(r.get("dur", 0.0)), attrs))
+
+    def _drain_captures(self) -> None:
+        """The edge's capture rows (its local rejects, sampled there) into
+        the engine's capture ring."""
+        if not capture_mod.RECORDING:
+            return
+        payload = _read_json(self._lib.msk_edge_captures, 256 * 1024)
+        rows = (payload or {}).get("records") or []
+        if rows:
+            capture_mod.ingest("edge", rows, pre_sampled=True)
+
+    def recent_spans(self, window_s: float = 15.0) -> list:
+        """The edge's per-request spans of the last `window_s` for the
+        Perfetto export (a tier source): `_lane` per edge thread and
+        `trace_ids`, so one X-Misaka-Trace still renders one timeline from
+        the edge down to the engine."""
+        self._drain_spans()
+        now = time.monotonic()
+        with self._lock:
+            return [s for s in self._span_buf if now - s.start <= window_s]
+
+    def state(self) -> dict:
+        """The /healthz `native_edge` block."""
+        stats = self._read_stats() or dict(self._last_stats)
+        stats["up"] = not self._closed
+        return stats
+
+    # --- lifecycle ---------------------------------------------------------------
+
+    def _watch_loop(self) -> None:
+        tick = 0
+        while not self._closed:
+            time.sleep(0.5)
+            if self._closed:
+                return
+            try:
+                if tick % 2 == 0:
+                    self._fetch_healthz()
+                self._push()
+                self._pump_metrics()
+                self._drain_spans()
+                self._drain_captures()
+            except Exception:
+                log.exception("native edge watcher tick failed")
+            tick += 1
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._lib.msk_edge_stop()
 
 
 if __name__ == "__main__":

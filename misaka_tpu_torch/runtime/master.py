@@ -74,14 +74,17 @@ interval, rotates, and restores the newest valid snapshot at boot.
 
 Engines (`engine=`): "auto" runs every untraced chunk through the fused
 CUDA kernel on a card (the full kernel unbatched; batched, the elided
-variant under MISAKA_FUSED_ELIDE_HI=1) and through its plain torch version
-on the CPU; "scan" runs the plain version on any device; "fused" requires
-the kernel.  A traced master runs the plain version with recording, as the
-reference's traced masters run its scan engine.  "native" serves on the
-host C++ tier (core/native_serve.py) whatever the device: NativeServe
-unbatched, NativeServePool batched, whose tick ladder (jit, specialized,
-avx2 or generic, scalar) is climbed only at batch >= 8 with a
-`native_spec_dir`.  The state is then CPU tensors that the engine may hold
+variant under MISAKA_FUSED_ELIDE_HI=1); on the CPU it serves through the
+host C++ tier below where the reference's does (`_use_native_auto`:
+untraced, no mesh, a batch of at most MISAKA_NATIVE_AUTO_MAX_BATCH,
+MISAKA_NATIVE_AUTO not "0", the interpreter builds), else through the
+kernel's plain torch version; "scan" runs the plain version on any
+device; "fused" requires the kernel.  A traced master runs the plain
+version with recording, as the reference's traced masters run its scan
+engine.  "native" serves on the host C++ tier (core/native_serve.py)
+whatever the device: NativeServe unbatched, NativeServePool batched,
+whose tick ladder (jit, specialized, avx2 or generic, scalar) is climbed
+only at batch >= 8 with a `native_spec_dir`.  The state is then CPU tensors that the engine may hold
 resident in C++ between chunks: every reader of the state's content
 exports it first (`_sync_native_state`), and the batched loop ticks only
 the replicas that have work (`_native_active`).
@@ -142,7 +145,8 @@ from misaka_tpu_torch.runtime.registry import ProgramNotFound, RegistryError, Re
 from misaka_tpu_torch.runtime.topology import Topology, TopologyError
 from misaka_tpu_torch.tis.lower import TISLowerError
 from misaka_tpu_torch.tis.parser import TISParseError
-from misaka_tpu_torch.utils import buildinfo, faults, metrics, profiling, slo, tracespan, wire
+from misaka_tpu_torch.utils import (buildinfo, faults, metrics, profiling, slo, textcodec,
+                                    tracespan, wire)
 from misaka_tpu_torch.utils import dashboard as dashboard_mod
 from misaka_tpu_torch.utils import sampler as sampler_mod
 from misaka_tpu_torch.utils import tsdb as tsdb_mod
@@ -788,7 +792,8 @@ class MasterNode:
         strictly FIFO.  device=None serves on the card, which must exist.
 
         engine: "auto" (the fused kernel on a card for every untraced
-        path, the plain version on the CPU), "scan" (the plain torch loop
+        path; on the CPU the host C++ tier where `_use_native_auto` says
+        so, else the plain version), "scan" (the plain torch loop
         on the given device), "fused" (require the kernel: batched,
         untraced, on a card) or "native" (the host C++ interpreter tier,
         core/native_serve.py, on the host whatever `device` says; refused
@@ -863,9 +868,11 @@ class MasterNode:
         self._chunk = chunk_steps
         self._batch = batch
         self._engine = engine
-        self._native = engine == "native"
-        self._native_spec_dir = native_spec_dir
         self._device = device
+        # the instruction trace ring (core/trace.py): one instance's history
+        self._trace_cap = trace_cap
+        self._native = engine == "native" or (engine == "auto" and self._use_native_auto())
+        self._native_spec_dir = native_spec_dir
         self._grow = bool(stack_autogrow)
         self._grow_max_bytes = int(stack_grow_max_bytes)
         self._stall_iters = 0
@@ -877,8 +884,6 @@ class MasterNode:
             raise ValueError("engine='fused' needs a CUDA device: on the CPU the "
                              "kernel's plain version serves (engine='auto' or 'scan')")
         self._state = self._net.init_state()
-        # the instruction trace ring (core/trace.py): one instance's history
-        self._trace_cap = trace_cap
         self._trace_instance = trace_instance
         self._trace = self._net.init_trace(trace_cap) if trace_cap else None
         self._serve = self._make_serve(self._net)
@@ -962,6 +967,28 @@ class MasterNode:
         M_CKPT_AGE.set_function(
             lambda: time.monotonic() - m._last_ckpt_mono
             if (m := ref()) is not None and m._last_ckpt_mono is not None else -1.0)
+
+    def _use_native_auto(self) -> bool:
+        """Does engine="auto" serve through the host C++ tier?  As the
+        reference's (master.py `_use_native_auto`): when the engine's device
+        is the CPU (the reference: no TPU attached; on a card `auto` stays
+        the fused kernel), there is no trace and no mesh, MISAKA_NATIVE_AUTO
+        is not "0", the interpreter builds, and the engine is unbatched or
+        its batch is at most MISAKA_NATIVE_AUTO_MAX_BATCH (default 4096; an
+        explicit engine="native" takes any batch)."""
+        if self._trace_cap or self._mesh is not None:
+            return False
+        if os.environ.get("MISAKA_NATIVE_AUTO", "1") == "0":
+            return False
+        # None is the card; a card never flips
+        if self._device is None or torch.device(self._device).type != "cpu":
+            return False
+        from misaka_tpu_torch.core import native_serve
+
+        if not native_serve.available():
+            return False
+        max_batch = int(os.environ.get("MISAKA_NATIVE_AUTO_MAX_BATCH", "") or "4096")
+        return self._batch is None or self._batch <= max_batch
 
     def _compile(self, topology: Topology):
         """`topology` compiled for this master: a CompiledNetwork, or on a
@@ -2206,7 +2233,8 @@ def make_http_server(master: MasterNode, port: int = 8000,
     compute plane too, runs before every route body; MISAKA_EDGE=0
     disarms it.  The app sets the server's
     `misaka_supervisor` (the frontend workers: /status and /healthz carry
-    its `frontends` block) and `misaka_plane` (the compute plane
+    its `frontends` block), `misaka_native_edge` (the native C++ edge:
+    /healthz `native_edge`) and `misaka_plane` (the compute plane
     /fleet/drain drains; 404 without one), as the reference's does.
     /checkpoint and /restore answer 403 unless `checkpoint_dir` is set,
     /profile/* unless `profile_dir` is;
@@ -2230,6 +2258,10 @@ def make_http_server(master: MasterNode, port: int = 8000,
     fast_http = os.environ.get("MISAKA_FAST_HTTP", "1") != "0"
     profiler = profiling.Profiler(master.profiling)
     boot_mono = time.monotonic()  # /healthz uptime anchor (server, not master)
+    # the native decimal codec builds at its first use (about a second of
+    # g++): here, so that the build never lands inside the first
+    # /compute_batch
+    textcodec.native_available()
     buildinfo.install_metric()
 
     # The always-on planes, process-wide (one thread each however many
@@ -2677,6 +2709,11 @@ def make_http_server(master: MasterNode, port: int = 8000,
             if sup is not None:
                 payload["frontends"] = sup.state()
                 degraded = payload["frontends"]["degraded"]
+            # the native C++ edge (runtime/app.py sets it): its counters ride
+            # the same probe, so one scrape shows which tier owns the port
+            ne = getattr(self.server, "misaka_native_edge", None)
+            if ne is not None:
+                payload["native_edge"] = ne.state()
             # the SLO engine (utils/slo.py): a paging burn rate raises the
             # same `degraded` flag; `ok` stays liveness
             slo_state = slo.overall_state()

@@ -7,10 +7,11 @@ fleet; the same dict rides /status as `build`.  The port stamps `torch`
 where the reference stamps `jax`, and its `native` block holds the build
 key (csrc/build.py: a hash of the .cu source and the nvcc flags) of every
 CUDA kernel this process has loaded: `{}` before the first build, and
-always `{}` on the CPU.  The host C++ interpreter (core/cinterp.py) is
-the reference's `interp` row: once its library has loaded in this process,
-`native` carries `interp` (the source hash its build embeds) and the
-gauge's `native_interp` label the same hash; "absent" before.
+always `{}` on the CPU.  The host C++ libraries are the reference's rows
+(`_native_labels`): once the interpreter (core/cinterp.py) or the decimal
+codec (utils/textcodec.py) has loaded in this process, `native` carries
+`interp` or `textcodec`, the source hash its build embeds; the gauge's
+`native_interp` label carries the interpreter's, "absent" before.
 
 git is asked once (`MISAKA_BUILD_SHA` wins; "unknown" without either).
 """
@@ -23,7 +24,7 @@ import sys
 
 from misaka_tpu_torch import __version__
 from misaka_tpu_torch.csrc import build
-from misaka_tpu_torch.utils import metrics, nativelib
+from misaka_tpu_torch.utils import metrics
 
 _base_cache: dict | None = None
 
@@ -58,22 +59,18 @@ def info() -> dict:
             "python": ".".join(str(v) for v in sys.version_info[:3]),
             "torch": getattr(torch_mod, "__version__", "unloaded"),
         }
-    native = build.loaded_keys()
-    interp = _native_interp()
-    if interp != "absent":
-        native["interp"] = interp
-    return {**_base_cache, "native": native}
+    return {**_base_cache, "native": {**build.loaded_keys(), **_native_labels()}}
 
 
-def _native_interp() -> str:
-    """The interpreter library's source hash once it has loaded in this
-    process (utils/nativelib.py embeds it at build time), else "absent"."""
+def _native_labels() -> dict[str, str]:
+    """The source hash (utils/nativelib.py embeds it at build time) of each
+    host C++ library loaded in this process, by the reference's row name."""
     from misaka_tpu_torch.core import cinterp
+    from misaka_tpu_torch.utils import textcodec
 
-    lib = cinterp.NATIVE
-    if lib._lib is None:
-        return "absent"
-    return nativelib.src_hash(lib.src)
+    return {name: lib.src_hash()
+            for name, lib in (("interp", cinterp.NATIVE), ("textcodec", textcodec._NATIVE))
+            if lib._lib is not None}
 
 
 def install_metric() -> None:

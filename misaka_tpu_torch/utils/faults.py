@@ -41,10 +41,13 @@ Hook sites in the port (the reference's sites, in the ported code):
                            (core/jit.py)
   resident_fallback        a native serve call takes the stateless path
                            after a coherent export (core/native_serve.py)
+  edge_native_build        the native edge's build fails where a missing
+                           toolchain would: the app keeps the CPython
+                           workers on the public port (runtime/frontends.py)
 
 The points whose sites are in modules the port does not have yet parse
 and fire nowhere: rpc_drop and rpc_delay (the distributed mode, ROADMAP
-A.5) and edge_native_build (the native edge, A.8b).
+A.5).
 
 Checks cost one dict lookup while nothing is armed.  Stdlib only: the
 frontend workers import it.

@@ -12,9 +12,14 @@ name, then `os.replace`), so concurrent processes race benignly.
 Staleness is decided by CONTENT: each .cpp embeds a
 "MISAKA-SRC-HASH:<sha256[:16]>" tag injected at build time, and the loader
 scans the .so bytes for the tag of the current source; a binary with a
-wrong or missing tag is rebuilt.  A process-wide failure latch makes an
-unavailable toolchain answer "unavailable" at once on every later call
-instead of retrying the compiler.
+wrong or missing tag is rebuilt.  A library built from several units (the
+native edge: frontend.cpp includes msk_http.hpp and msk_frame.hpp) names
+them as `parts`, and its hash is the sha256 of their concatenation in that
+order (the reference Makefile's `cat ... | sha256sum`), so a change to a
+header rebuilds it; the units' directory is passed as an include path.
+A process-wide failure latch makes an unavailable toolchain answer
+"unavailable" at once on every later call instead of retrying the
+compiler.
 
 `so_env` names an environment variable that, when set, OVERRIDES the .so
 path and disables the rebuild (an instrumented build whose bytes never
@@ -76,26 +81,35 @@ def compile_atomic(args: list[str], out: str) -> None:
             os.unlink(tmp)
 
 
-def src_hash(path: str | os.PathLike) -> str:
-    with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()[:16]
+def src_hash(*paths: str | os.PathLike) -> str:
+    """sha256[:16] of the files' bytes, concatenated in the order given."""
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
 
 
-def build_dir(src: str | os.PathLike, root: str | os.PathLike = BUILD_ROOT) -> Path:
-    """`<root>/native-<hash of src>/` (root: build/misaka_tpu_torch)."""
-    return Path(root) / f"native-{src_hash(src)}"
+def build_dir(*srcs: str | os.PathLike, root: str | os.PathLike = BUILD_ROOT) -> Path:
+    """`<root>/native-<hash of srcs>/` (root: build/misaka_tpu_torch)."""
+    return Path(root) / f"native-{src_hash(*srcs)}"
 
 
 class NativeLib:
     """Lazy loader for one shared object built from one C++ source file:
     csrc/native/<name>.cpp into build/misaka_tpu_torch/native-<hash>/
-    (`src` and `build_root` name others)."""
+    (`src` and `build_root` name others).  `parts`: the units the source
+    includes and itself, in hash order, as file names beside the source."""
 
     def __init__(self, name: str, configure: Callable[[ctypes.CDLL], None],
                  so_env: str | None = None, *, src: str | os.PathLike | None = None,
-                 build_root: str | os.PathLike | None = None):
+                 build_root: str | os.PathLike | None = None,
+                 parts: tuple[str, ...] | None = None):
         self.name = name
         self._src = str(src) if src is not None else str(NATIVE_SRC / f"{name}.cpp")
+        src_dir = os.path.dirname(self._src)
+        self._parts = (tuple(os.path.join(src_dir, p) for p in parts) if parts
+                       else (self._src,))
         self._build_root = Path(build_root) if build_root is not None else BUILD_ROOT
         self._so_env = so_env
         self._configure = configure  # declares restype/argtypes; may raise
@@ -108,8 +122,12 @@ class NativeLib:
     def src(self) -> str:
         return self._src
 
+    def src_hash(self) -> str:
+        """The content tag of this library's sources (every part)."""
+        return src_hash(*self._parts)
+
     def so_path(self) -> str:
-        return str(build_dir(self._src, self._build_root) / f"libmisaka_{self.name}.so")
+        return str(build_dir(*self._parts, root=self._build_root) / f"libmisaka_{self.name}.so")
 
     def _so_matches_src(self, so: str) -> bool:
         """True iff the on-disk .so embeds the current source's hash tag."""
@@ -121,7 +139,7 @@ class NativeLib:
         i = data.find(_TAG)
         if i < 0:
             return False
-        want = src_hash(self._src).encode()
+        want = self.src_hash().encode()
         return data[i + len(_TAG): i + len(_TAG) + len(want)] == want
 
     def _build(self, so: str) -> None:
@@ -129,7 +147,8 @@ class NativeLib:
 
         t0 = time.perf_counter()
         os.makedirs(os.path.dirname(so), exist_ok=True)
-        compile_atomic([*CXX_FLAGS, f'-DMISAKA_SRC_HASH="{src_hash(self._src)}"', self._src], so)
+        compile_atomic([*CXX_FLAGS, f"-I{os.path.dirname(self._src)}",
+                        f'-DMISAKA_SRC_HASH="{self.src_hash()}"', self._src], so)
         self.build_seconds = time.perf_counter() - t0
 
     def load(self) -> ctypes.CDLL | None:

@@ -1,8 +1,7 @@
 """Vectorized decimal text codec for int32 value streams (/compute_batch).
 
-The port's own copy of misaka_tpu/utils/textcodec.py, numpy path only (the
-reference's ctypes fast path belongs to its native tier, which the port has
-not taken yet).  Same accepted syntax, same bytes out, same ValueErrors:
+The port's own copy of misaka_tpu/utils/textcodec.py.  Same accepted
+syntax, same bytes out, same ValueErrors:
 
 - `ints_to_dec(arr, sep, zero_pad=False)` -- ints -> decimal tokens joined
   by one separator byte.  Tokens are right-aligned in fixed-width fields
@@ -13,13 +12,57 @@ not taken yet).  Same accepted syntax, same bytes out, same ValueErrors:
   fixed-stride stream (everything `ints_to_dec` emits) parses through a
   reshape; anything ragged falls back to a general parser.  Malformed input
   raises ValueError either way.
+
+Both directions carry a native single-pass C++ fast path (the port's copy
+of the reference's native/textcodec.cpp, csrc/native/textcodec.cpp, built
+by utils/nativelib.py at first use; the GIL is released for the whole
+call).  `MISAKA_NATIVE_CODEC` unset means auto (native where it builds),
+`0` forces the numpy path, `1` requires the native codec and raises
+without it.  tests/test_torch_textcodec.py holds the two paths and the JAX
+package byte for byte.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
 import warnings
 
 import numpy as np
+
+from misaka_tpu_torch.utils.nativelib import NativeLib
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.misaka_fmt_i32.restype = ctypes.c_int64
+    lib.misaka_fmt_i32.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_uint8,
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+    ]
+    lib.misaka_parse_i32.restype = ctypes.c_int64
+    lib.misaka_parse_i32.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+    ]
+
+
+_NATIVE = NativeLib("textcodec", _configure)
+
+
+def _native_lib() -> ctypes.CDLL | None:
+    """The codec library per MISAKA_NATIVE_CODEC: auto (unset), 0 off, 1 required."""
+    knob = os.environ.get("MISAKA_NATIVE_CODEC", "").strip()
+    if knob == "0":
+        return None
+    lib = _NATIVE.load()
+    if lib is None and knob == "1":
+        raise RuntimeError("MISAKA_NATIVE_CODEC=1 but no native codec (no g++?)")
+    return lib
+
+
+def native_available() -> bool:
+    return _NATIVE.available()
+
 
 _SEPS = (ord(" "), ord(","), ord("+"), ord("\t"), ord("\n"), ord("\r"))
 _SEP_TABLE = bytes.maketrans(b",+\t\n\r", b"     ")
@@ -50,6 +93,19 @@ def ints_to_dec(arr: np.ndarray, sep: bytes = b" ", zero_pad: bool = False) -> b
     n = a.size
     if n == 0:
         return b""
+    if a.dtype == np.int32:
+        lib = _native_lib()
+        if lib is not None:
+            src = np.ascontiguousarray(a.ravel())
+            # width <= 11 (10 digits and the sign column): field and separator <= 12 bytes
+            out = np.empty(12 * n, np.uint8)
+            rc = lib.misaka_fmt_i32(
+                src.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n,
+                sep[0], int(zero_pad),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
+            )
+            if rc >= 0:
+                return out[:rc].tobytes()
     v = a.astype(np.int64).ravel()
     neg = v < 0
     mag = np.where(neg, -v, v).astype(np.uint32)  # int32 min fits unsigned
@@ -162,6 +218,20 @@ def dec_to_ints(text: bytes | str) -> np.ndarray:
     raw = np.frombuffer(text, np.uint8)
     if raw.size == 0:
         return np.empty((0,), np.int32)
+    lib = _native_lib()
+    if lib is not None:
+        if not isinstance(text, bytes):  # bytearray or memoryview: c_char_p takes bytes
+            text = bytes(text)
+        # every token but the last needs a separator byte, so (len+1)//2
+        # bounds the token count
+        out = np.empty((raw.size + 1) // 2, np.int32)
+        rc = lib.misaka_parse_i32(
+            text, raw.size,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), out.size,
+        )
+        if rc < 0:
+            raise ValueError("cannot parse values")
+        return out[:rc].copy()
     fixed = _parse_fixed(raw)
     if fixed is not None:
         return fixed

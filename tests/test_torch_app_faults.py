@@ -332,7 +332,8 @@ def test_c4_programs_dir_keyfile_and_cpu_quota_refuse(tmp_path, monkeypatch, cap
         _close((jh, jm))
     proc, base = _boot(tmp_path, {**ADD2_ENV, "MISAKA_BATCH": "2", "MISAKA_PIDFILE": "off",
                                   "MISAKA_IN_CAP": "8", "MISAKA_OUT_CAP": "8",
-                                  "MISAKA_STACK_CAP": "8", "MISAKA_CANARY": "0"}, "cpu_quota")
+                                  "MISAKA_STACK_CAP": "8", "MISAKA_CANARY": "0",
+                                  "MISAKA_ENGINE": "scan"}, "cpu_quota")
     try:
         got = _cpu_probe(base)
     finally:
@@ -496,7 +497,8 @@ def _boot(tmp_path, env, label):
         assert proc.poll() is None, (tmp_path / f"{label}.log").read_text()
         try:
             with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
-                if json.loads(r.read())["running"]:
+                # the native edge answers {"ok": true} until its first push
+                if json.loads(r.read()).get("running"):
                     return proc, base
         except (urllib.error.URLError, OSError, ValueError):
             pass

@@ -254,7 +254,8 @@ def test_export_anchor_checkpoints_load_in_both_packages(tmp_path):
     apath = res["anchors"]["default"]
     assert os.path.exists(apath + ".manifest")
     header, _ = capture.read_segment(res["path"], verify=True)
-    assert header["anchors"]["default"] == {"tick": a["tick"], "batch": 2, "engine": "plain",
+    # no card: `auto` serves on the host C++ tier
+    assert header["anchors"]["default"] == {"tick": a["tick"], "batch": 2, "engine": "native",
                                             "dropped_since_anchor": 0,
                                             "file": os.path.basename(apath)}
     tmeta, tstate = capture.load_anchor_checkpoint(apath)

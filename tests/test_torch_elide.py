@@ -154,6 +154,7 @@ def test_env_switch_reaches_the_served_path(monkeypatch):
 
     monkeypatch.setattr(fused, "fused_superstep", spy)
     monkeypatch.setenv("MISAKA_FUSED_ELIDE_HI", "1")
+    monkeypatch.setenv("MISAKA_NATIVE_AUTO", "0")  # the kernel wrapper's path on the CPU
     m = MasterNode(tnet.add2(**CAPS), chunk_steps=16, batch=2, device="cpu")
     m.run()
     try:

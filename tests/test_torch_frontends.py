@@ -65,7 +65,7 @@ CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 SEED = 20261017
 MAX_BODY = 4096
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"native_edge", "canary"}
+UNPORTED_BLOCKS = {"canary"}
 FE = {"jax": jfe, "port": tfe}
 METRICS = {"jax": jmetrics, "port": tmetrics}
 ADD2_ENV = {
@@ -606,7 +606,8 @@ def test_app_serves_through_supervised_workers(tmp_path, workers):
     """One worker also rides the shared-memory plane, across processes: the
     payload goes through the segment, and no segment is left behind."""
     env = {"MISAKA_HTTP_WORKERS": str(workers), "MISAKA_BATCH": "4",
-           "MISAKA_PLANE_SOCKET": str(tmp_path / "plane.sock")}
+           "MISAKA_PLANE_SOCKET": str(tmp_path / "plane.sock"),
+           "MISAKA_NATIVE_EDGE": "0"}  # the worker tier on the public port
     if workers == 1:
         env["MISAKA_PLANE_SHM"] = "1"
     proc, port = _boot(tmp_path, env, f"workers{workers}")

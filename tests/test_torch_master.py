@@ -135,7 +135,8 @@ def test_http_session_matches_jax(name, monkeypatch):
     for switch in ("MISAKA_SAMPLER", "MISAKA_TSDB", "MISAKA_WATCHDOG"):
         monkeypatch.setenv(switch, "0")
     jm = JMaster(jnet.BASELINE_CONFIGS[name](**CAPS), chunk_steps=32, batch=4, engine="scan")
-    tm = TMaster(tnet.BASELINE_CONFIGS[name](**CAPS), chunk_steps=32, batch=4, device="cpu")
+    tm = TMaster(tnet.BASELINE_CONFIGS[name](**CAPS), chunk_steps=32, batch=4, engine="scan",
+                 device="cpu")
     jh, th = j_http(jm, port=0), t_http(tm, port=0)
     jb, tb = serve(jh), serve(th)
     try:
@@ -309,14 +310,24 @@ def test_app_env_errors(env, match):
         app.build_master_from_env(env)
 
 
-def test_app_env_builds_the_master():
+def test_app_env_builds_the_master(monkeypatch):
     m = app.build_master_from_env({
         **ADD2_ENV, "MISAKA_BATCH": "3", "MISAKA_DEVICE": "cpu", "MISAKA_CHUNK_STEPS": "16",
         "MISAKA_STACK_CAP": "16", "MISAKA_IN_CAP": "8", "MISAKA_OUT_CAP": "8",
     })
     st = m.status()
-    assert (st["batch"], st["stack_cap"], st["device"], st["engine"]) == (3, 16, "cpu", "plain")
+    # no card: `auto` serves on the host C++ tier (the reference's flip);
+    # MISAKA_NATIVE_AUTO=0 keeps the plain version
+    assert (st["batch"], st["stack_cap"], st["device"], st["engine"]) == (3, 16, "cpu", "native")
     assert m._chunk == 16 and m._net.in_cap == 8
+    m.close()
+    m = app.build_master_from_env({**ADD2_ENV, "MISAKA_BATCH": "3", "MISAKA_DEVICE": "cpu"})
+    assert m.status()["engine"] == "native"
+    m.close()
+    monkeypatch.setenv("MISAKA_NATIVE_AUTO", "0")
+    m = app.build_master_from_env({**ADD2_ENV, "MISAKA_BATCH": "3", "MISAKA_DEVICE": "cpu"})
+    assert m.status()["engine"] == "plain"
+    m.close()
 
 
 def test_app_without_a_card_refuses_to_start():

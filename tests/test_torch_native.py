@@ -1,9 +1,11 @@
 """The port's native assembler, build scaffolding and C++ copies.
 
-- The port's C++ sources (misaka_tpu_torch/csrc/native/*.cpp) are
-  byte-equal to the reference's (native/*.cpp) and are what the port
-  builds, into build/misaka_tpu_torch/native-<hash>/ (never beside the
-  source, never the reference's native/*.so).
+- The port's C++ sources (misaka_tpu_torch/csrc/native/*.cpp, *.hpp) are
+  byte-equal to the reference's (native/) and are what the port builds,
+  into build/misaka_tpu_torch/native-<hash>/ (never beside the source,
+  never the reference's native/*.so); the native edge's library hashes its
+  three units as the reference's loader does, so a header change rebuilds
+  it.
 - tis/native.py's `assemble_native` equals the port's Python lowerer and
   JAX's `assemble_native` on a corpus, on the error taxonomy (messages
   included) and on fuzzed programs; runtime/topology.py lowers through it.
@@ -31,7 +33,8 @@ from tests.test_differential import random_program
 from tests.torch_native_helpers import every_handle_closed, small_pools  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COPIES = ("interpreter.cpp", "stencils.cpp", "assembler.cpp")
+COPIES = ("interpreter.cpp", "stencils.cpp", "assembler.cpp", "textcodec.cpp", "frontend.cpp",
+          "msk_http.hpp", "msk_frame.hpp")
 
 LANES = {"misaka1": 0, "misaka2": 1}
 STACKS = {"misaka3": 0}
@@ -67,6 +70,48 @@ def test_libraries_build_from_the_port_copy_into_build_dir(module):
     assert so.startswith(os.path.join(REPO, "build", "misaka_tpu_torch", "native-"))
     assert os.path.basename(os.path.dirname(so)) == f"native-{nativelib.src_hash(lib.src)}"
     assert lib._so_matches_src(so)
+
+
+@pytest.mark.parametrize("module", ["textcodec", "frontend"])
+def test_edge_libraries_hash_like_the_reference(module):
+    from misaka_tpu.runtime import frontends as jfe
+    from misaka_tpu.utils import textcodec as jcodec
+    from misaka_tpu_torch.runtime import frontends as tfe
+    from misaka_tpu_torch.utils import textcodec as tcodec
+
+    lib, ref = {"textcodec": (tcodec._NATIVE, jcodec._NATIVE),
+                "frontend": (tfe._FRONTEND_LIB, jfe._FRONTEND_LIB)}[module]
+    assert lib.available()
+    assert lib.src_hash() == ref._src_hash()
+    so = lib.so_path()
+    assert so.startswith(os.path.join(REPO, "build", "misaka_tpu_torch", "native-"))
+    assert os.path.basename(os.path.dirname(so)) == f"native-{lib.src_hash()}"
+    assert lib._so_matches_src(so)
+
+
+def test_a_header_change_rebuilds_a_multi_part_library(tmp_path):
+    if not toolchain():
+        pytest.skip("no C++ compiler")
+    (tmp_path / "part.hpp").write_text("static int answer() { return 41; }\n")
+    (tmp_path / "probe.cpp").write_text(
+        '#include "part.hpp"\n'
+        'extern "C" int probe_answer() { return answer(); }\n'
+        '#ifndef MISAKA_SRC_HASH\n#define MISAKA_SRC_HASH "unbuilt"\n#endif\n'
+        'extern "C" const char probe_tag[] = "MISAKA-SRC-HASH:" MISAKA_SRC_HASH;\n')
+
+    def load():
+        nl = nativelib.NativeLib("probe", lambda lib: None, src=str(tmp_path / "probe.cpp"),
+                                 build_root=str(tmp_path / "b"), parts=("part.hpp", "probe.cpp"))
+        lib = nl.load()
+        return nl, lib.probe_answer()
+
+    first, got = load()
+    assert got == 41
+    first_so = first.so_path()
+    (tmp_path / "part.hpp").write_text("static int answer() { return 42; }\n")
+    second, got = load()
+    assert got == 42 and second.so_path() != first_so
+    assert second.src_hash() == nativelib.src_hash(tmp_path / "part.hpp", tmp_path / "probe.cpp")
 
 
 @pytest.mark.parametrize("idx", range(len(CORPUS)))

@@ -72,7 +72,7 @@ torch.set_num_threads(1)
 CAPS = dict(in_cap=8, out_cap=8, stack_cap=8)
 TRACE_ID = "feedc0de12345678"
 # /healthz blocks of planes the port has not taken (absent, not faked)
-UNPORTED_BLOCKS = {"frontends", "native_edge", "canary", "degraded"}
+UNPORTED_BLOCKS = {"frontends", "canary", "degraded"}
 
 
 @pytest.fixture(autouse=True)
@@ -99,7 +99,8 @@ class Pair:
 
     def __init__(self, batch, profile_dir=None):
         self.jm = JMaster(jnet.add2(**CAPS), chunk_steps=8, batch=batch, engine="scan")
-        self.tm = TMaster(tnet.add2(**CAPS), chunk_steps=8, batch=batch, device="cpu")
+        self.tm = TMaster(tnet.add2(**CAPS), chunk_steps=8, batch=batch, engine="scan",
+                          device="cpu")
         pj = pt = None
         if profile_dir is not None:
             pj, pt = os.path.join(profile_dir, "jax"), os.path.join(profile_dir, "port")
@@ -215,8 +216,9 @@ def test_same_session_same_series_counters_and_headers(batch):
         st = json.loads(request(p.tb, "/status", method="GET")[2])
         assert set(st["build"]) == {"version", "git_sha", "python", "torch", "native"}
         # no kernel built on the CPU; the host interpreter's row appears
-        # once a native engine loaded it in this process
-        assert not set(st["build"]["native"]) - {"interp"}
+        # once a native engine loaded it in this process, the codec's once
+        # a server warmed it (every server does, at its start)
+        assert not set(st["build"]["native"]) - {"interp", "textcodec"}
     finally:
         p.close()
 
@@ -283,6 +285,11 @@ def test_series_catalog_matches_the_reference(monkeypatch, tmp_path):
                      "misaka_native_tick_rung_total", "misaka_native_jit_total",
                      "misaka_native_specialize_total", "misaka_native_engines_created_total",
                      "misaka_usage_native_seconds_total"):
+            assert name in names, name
+        # the native edge's series (runtime/frontends.py)
+        for name in ("misaka_native_edge_up", "misaka_native_edge_connections_open",
+                     "misaka_native_edge_requests_total", "misaka_native_edge_plane_frames_total",
+                     "misaka_native_edge_proxied_total", "misaka_native_edge_local_rejects_total"):
             assert name in names, name
         scraped = tmetrics.parse_text(request(p.tb, "/metrics", method="GET")[2].decode())
         for series in ("misaka_usage_spool_dropped_total", "misaka_capture_spool_bytes",
@@ -375,7 +382,7 @@ def test_profile_holds_the_device_loop_threads_ops(tmp_path, batch):
     """A capture asked for by an HTTP handler thread records the device
     loop's thread: its iterations and the torch ops of feed, chunk and
     pack (the plain version on the CPU)."""
-    m = TMaster(tnet.add2(**CAPS), chunk_steps=8, batch=batch, device="cpu")
+    m = TMaster(tnet.add2(**CAPS), chunk_steps=8, batch=batch, engine="scan", device="cpu")
     h = t_http(m, port=0, profile_dir=str(tmp_path))
     base = _serve(h)
     try:

@@ -35,9 +35,9 @@ torch.set_num_threads(1)
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 
 
-def _master(batch=4, **kw):
+def _master(batch=4, engine="scan", **kw):
     return MasterNode(networks.add2(in_cap=16, out_cap=16, stack_cap=16),
-                      chunk_steps=32, batch=batch, device="cpu", **kw)
+                      chunk_steps=32, batch=batch, engine=engine, device="cpu", **kw)
 
 
 def _join_all(threads, timeout=60):

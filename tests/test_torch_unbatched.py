@@ -310,7 +310,7 @@ def request_stream():
 
 def test_http_session_matches_jax(tmp_path):
     jm = JMaster(jnet.add2(), chunk_steps=32, engine="scan")
-    tm = TMaster(tnet.add2(), chunk_steps=32, device="cpu")
+    tm = TMaster(tnet.add2(), chunk_steps=32, engine="scan", device="cpu")
     jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
     jh = j_http(jm, port=0, checkpoint_dir=jdir)
     th = t_http(tm, port=0, checkpoint_dir=tdir)
@@ -341,7 +341,8 @@ def test_compute_timeout_keeps_pairing_like_jax():
     next caller (tests/test_runtime.py::test_compute_timeout_keeps_pairing)."""
     spec = dict(node_info={"n": "program"}, programs={"n": "IN ACC\nOUT ACC"})
     for m, timeout_type in ((JMaster(JTopology(**spec), chunk_steps=16, engine="scan"), JTimeout),
-                            (TMaster(TTopology(**spec), chunk_steps=16, device="cpu"), TTimeout)):
+                            (TMaster(TTopology(**spec), chunk_steps=16, engine="scan", device="cpu"),
+                             TTimeout)):
         m.run()
         m.pause()  # stalled: inputs accepted, nothing computes
         with pytest.raises(timeout_type, match=r"no output for 1/1 value\(s\) after 0.3s"):
@@ -353,7 +354,7 @@ def test_compute_timeout_keeps_pairing_like_jax():
 
 def test_snapshot_restore_and_status_match_jax():
     jm = JMaster(jnet.add2(**CAPS), chunk_steps=16, engine="scan")
-    tm = TMaster(tnet.add2(**CAPS), chunk_steps=16, device="cpu")
+    tm = TMaster(tnet.add2(**CAPS), chunk_steps=16, engine="scan", device="cpu")
     try:
         for m in (jm, tm):
             m.run()
@@ -383,7 +384,7 @@ def test_full_stack_grows_unbatched_like_jax():
     caps = dict(in_cap=16, out_cap=16, stack_cap=4)
     text = example_text("reverse_any.json")
     jm = JMaster(JTopology.from_json(text, **caps), chunk_steps=32, engine="scan")
-    tm = TMaster(TTopology.from_json(text, **caps), chunk_steps=32, device="cpu")
+    tm = TMaster(TTopology.from_json(text, **caps), chunk_steps=32, engine="scan", device="cpu")
     jm.run()
     tm.run()
     try:
@@ -403,7 +404,8 @@ def test_full_stack_grows_unbatched_like_jax():
 def running_total_pair(**kw):
     text = example_text("running_total.json")
     return (JMaster(JTopology.from_json(text, **CAPS), chunk_steps=32, engine="scan", **kw),
-            TMaster(TTopology.from_json(text, **CAPS), chunk_steps=32, device="cpu", **kw))
+            TMaster(TTopology.from_json(text, **CAPS), chunk_steps=32, engine="scan", device="cpu",
+                    **kw))
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -632,7 +634,8 @@ def test_app_boots_unbatched_from_the_readme_env(tmp_path):
                 pass
             assert time.monotonic() < deadline, "app not serving within 60 s"
             time.sleep(0.2)
-        assert "batch" not in st and not st["running"] and st["engine"] == "plain"
+        # no card: `auto` serves on the host C++ tier, as the JAX app's does
+        assert "batch" not in st and not st["running"] and st["engine"] == "native"
         assert request(base, "/run")[:3:2] == (200, b"Success")
         assert request(base, "/compute", form(value="5"))[2] == b'{"value": 7}\n'
     finally:
