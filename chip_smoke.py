@@ -117,6 +117,18 @@ every answer checked), the edge's plane frames and the kernel's launches
 against the loop's iterations, the native decimal codec against numpy
 over a million values, and `auto` flipping to the host tier on the CPU
 only.  The phases that measure the worker tier pin MISAKA_NATIVE_EDGE=0.
+The `distributed` phase boots the reference's add2 network as four
+processes of the per-process mode (runtime/nodes.py: a distributed master,
+two program nodes, a stack node, speaking gRPC) and drives it over HTTP,
+every answer checked (a value past int32 truncated by the sint32 wire),
+with nvidia-smi showing no CUDA context of theirs; then Kahn-style random
+networks (the reference's cross-mode generator) through a loopback cluster
+of the port's nodes and through the kernel at B=1, their output streams
+identical.  Where grpcio or protobuf does not import, the phase shows the
+boot's refusal naming the missing package instead.  The servers of the
+phases from main_path to frontends (the distributed network's four
+processes among them) boot ahead, two at a time and paused, while the card
+works on the parity phases (`preboot`).
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -151,6 +163,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from http.client import HTTPException
 
 import numpy as np
 
@@ -818,21 +831,117 @@ def _stop_app(proc):
         proc.wait(timeout=30)
 
 
+# Servers of later phases booted ahead (preboot), paused: label ->
+# (spec, [Popen], port, t_boot, {"ready": t}); PREBOOT_QUEUE holds the
+# (label, spec, starter) not started yet.  PREBOOT_LOCK guards both.
+PREBOOTED: dict = {}
+PREBOOT_QUEUE: list = []
+PREBOOT_LOCK = threading.Lock()
+# boots at a time: all 11 at once took ~24 s each and slowed the parity
+# phases beside them by a third
+PREBOOT_PARALLEL = 2
+
+
+def _start_paused(spec):
+    proc, port, t_boot = _start_app(**dict(spec, autorun=False))
+    return [proc], port, t_boot
+
+
+def preboot(items) -> None:
+    """Boot the servers of later phases ahead, paused whatever their spec
+    says, PREBOOT_PARALLEL at a time in phase order (each waits until the one
+    before it answers), so that the boots overlap the card work before
+    those phases without crowding it.  `items`: app specs (served_app's
+    arguments as a dict, `label` first), or (label, starter) pairs whose
+    starter returns ([Popen], port, t_boot).  served_apps takes a
+    prebooted app whose spec is equal to its own and /run-s it when the
+    spec asks for autorun; a label still queued when its phase comes is
+    booted by the phase.  A paused app runs no device loop: it launches
+    nothing before its phase."""
+    import atexit
+
+    atexit.register(stop_prebooted)  # a phase failed before taking its app
+    with PREBOOT_LOCK:
+        for item in items:
+            if isinstance(item, dict):
+                PREBOOT_QUEUE.append((item["label"], dict(item), _start_paused))
+            else:
+                PREBOOT_QUEUE.append((item[0], None, item[1]))
+
+    def worker():
+        while True:
+            with PREBOOT_LOCK:
+                if not PREBOOT_QUEUE:
+                    break
+                label, spec, starter = PREBOOT_QUEUE.pop(0)
+                procs, port, t_boot = starter() if spec is None else starter(spec)
+                box: dict = {}
+                PREBOOTED[label] = (spec, procs, port, t_boot, box)
+            while all(p.poll() is None for p in procs) and "ready" not in box:
+                try:
+                    http(port, "/healthz", timeout=10)
+                    box["ready"] = time.perf_counter()
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    time.sleep(0.25)
+        # park, never return: the app's parent-death signal (lifecycle's
+        # PR_SET_PDEATHSIG) fires when the THREAD that forked it ends
+        threading.Event().wait()
+
+    for _ in range(PREBOOT_PARALLEL):
+        threading.Thread(target=worker, daemon=True).start()
+
+
+def take_prebooted(label):
+    """`label`'s prebooted entry, out of the pool; None when it is not
+    prebooted (a label still queued leaves the queue: the phase boots it)."""
+    with PREBOOT_LOCK:
+        PREBOOT_QUEUE[:] = [item for item in PREBOOT_QUEUE if item[0] != label]
+        return PREBOOTED.pop(label, None)
+
+
+def stop_prebooted() -> None:
+    """Stop every prebooted server no phase took (a phase failed first)."""
+    with PREBOOT_LOCK:
+        PREBOOT_QUEUE.clear()
+        entries = list(PREBOOTED.values())
+        PREBOOTED.clear()
+    for entry in entries:
+        for proc in entry[1]:
+            _stop_app(proc)
+
+
 @contextlib.contextmanager
 def served_apps(specs, procs=None):
     """Boot several apps at once (each spec: served_app's arguments as a
-    dict, `label` first), wait until all run, yield [(port, boot seconds)];
-    stop them all on the way out.  `procs`, a list, gets the Popens."""
-    started = []
+    dict, `label` first), or take them from `preboot`, wait until all run,
+    yield [(port, boot seconds)]; stop them all on the way out.  `procs`,
+    a list, gets the Popens."""
+    started, ahead = [], []
     try:
         for spec in specs:
-            started.append(_start_app(**spec))
+            pre = take_prebooted(spec["label"])
+            if pre is not None:
+                if pre[0] != spec:
+                    _stop_app(pre[1][0])
+                    raise SystemExit(f"{spec['label']}: prebooted with another spec")
+                started.append((pre[1][0], pre[2], pre[3]))
+            else:
+                started.append(_start_app(**spec))
+            ahead.append(pre[4] if pre is not None else None)
             if procs is not None:
                 procs.append(started[-1][0])
         out = []
-        for spec, (proc, port, t_boot) in zip(specs, started):
-            _await_app(spec["label"], proc, port, spec.get("autorun", True))
-            out.append((port, time.perf_counter() - t_boot))
+        for spec, (proc, port, t_boot), box in zip(specs, started, ahead):
+            autorun = spec.get("autorun", True)
+            if box is None:
+                _await_app(spec["label"], proc, port, autorun)
+                out.append((port, time.perf_counter() - t_boot))
+                continue
+            _await_app(spec["label"], proc, port, autorun=False)
+            if autorun:
+                expect(post_form(port, "/run") == (200, b"Success"), f"{spec['label']}: /run")
+                _await_app(spec["label"], proc, port, autorun=True)
+            out.append((port, box.get("ready", time.perf_counter()) - t_boot))
         yield out
     finally:
         for proc, _, _ in started:
@@ -884,6 +993,29 @@ def check_raw(port, vals, query="", want=None):
     return secs
 
 
+def phase_dir(name, fresh=True) -> str:
+    """build/chip_<name>: a fixed path, so that the env of an app booted
+    ahead (preboot) names the directory its phase makes fresh later."""
+    path = os.path.join(ROOT, "build", f"chip_{name}")
+    if fresh:
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+    return path
+
+
+def main_path_spec(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None, data_parallel=None):
+    """The app of phase_main_path: add2 on the default lane, checkpoints
+    armed (and MISAKA_DATA_PARALLEL with data_parallel)."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    label = "dp" if data_parallel else "main"
+    env = {"MISAKA_CHECKPOINT_DIR": phase_dir(f"ckpt_{label}", fresh=False)}
+    if data_parallel:
+        env["MISAKA_DATA_PARALLEL"] = str(data_parallel)
+    return dict(label=label, node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch,
+                chunk=chunk, caps=MAIN_CAPS, device=device, **env)
+
+
 def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency=100,
                     device=None, data_parallel=None):
     """Serve add2 on the default lane through the app entry point and check
@@ -892,17 +1024,10 @@ def phase_main_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, n_latency
     launch per shard under fused_superstep_dp.  device="cpu" (with a small
     batch, chunk and n_raw) rehearses this phase without a card, through
     the plain version."""
-    from misaka_tpu_torch.networks import ADD2_PROGRAMS
-
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-", dir=os.path.join(ROOT, "build"))
-    env = {"MISAKA_CHECKPOINT_DIR": ckpt_dir}
-    if data_parallel:
-        env["MISAKA_DATA_PARALLEL"] = str(data_parallel)
-    label = "dp" if data_parallel else "main"
+    spec = main_path_spec(batch, chunk, device, data_parallel)
+    ckpt_dir = phase_dir(f"ckpt_{spec['label']}")
     try:
-        with served_app(label, ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
-                        device=device, **env) as (port, boot_s):
+        with served_apps([spec]) as [(port, boot_s)]:
             row = drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir,
                                   data_parallel)
     finally:
@@ -1008,7 +1133,7 @@ def drive_main_path(port, batch, chunk, n_raw, n_latency, device, ckpt_dir,
 
     st = status(port)
     launches = st["kernel_launches"]
-    want_engine = "plain" if device == "cpu" else "fused"
+    want_engine = "native" if device == "cpu" else "fused"  # auto on the CPU: native
     expect(st["engine"] == want_engine and st["device"].startswith(device or "cuda"),
            f"engine {st['engine']} on {st['device']}")
     expect(device == "cpu" or (launches[key] > 0
@@ -1068,6 +1193,15 @@ def reverse_any_parity(text, batch, chunk):
         {k: r[k] for k in ("case", "stack_full", "commits", "plain_ms")} for r in rows]
 
 
+def autogrow_spec(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
+    """The app of phase_autogrow: reverse_any at stack_cap=16."""
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        spec = json.load(f)
+    nodes = {name: {"type": kind} for name, kind in spec["nodes"].items()}
+    return dict(label="autogrow", node_info=nodes, programs=spec["programs"], batch=batch,
+                chunk=chunk, caps=MAIN_CAPS, device=device)
+
+
 def phase_autogrow(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
     """reverse_any at stack_cap=16: one unspread /compute_batch of 40 values
     and a 0 needs depth 40, so the stack must grow 16 -> 32 -> 64.  First
@@ -1075,12 +1209,9 @@ def phase_autogrow(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
     caps (not in a CPU rehearsal: the comparison needs the card)."""
     with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
         text = f.read()
-    spec = json.loads(text)
     parity_err, parity = (None, None) if device == "cpu" else reverse_any_parity(
         text, batch, chunk)
-    nodes = {name: {"type": kind} for name, kind in spec["nodes"].items()}
-    with served_app("autogrow", nodes, spec["programs"], batch, chunk, MAIN_CAPS,
-                    device=device) as (port, boot_s):
+    with served_apps([autogrow_spec(batch, chunk, device)]) as [(port, boot_s)]:
         cap0 = status(port)["stack_cap"]
         block = list(range(1, 41)) + [0]
         t = time.perf_counter()
@@ -1103,12 +1234,16 @@ def phase_autogrow(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
     return row
 
 
-def phase_elided_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, device=None):
-    """add2 again, served by the elided variant (MISAKA_FUSED_ELIDE_HI=1)."""
+def elided_spec(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
     from misaka_tpu_torch.networks import ADD2_PROGRAMS
 
-    with served_app("elided", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
-                    device=device, MISAKA_FUSED_ELIDE_HI="1") as (port, boot_s):
+    return dict(label="elided", node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch,
+                chunk=chunk, caps=MAIN_CAPS, device=device, MISAKA_FUSED_ELIDE_HI="1")
+
+
+def phase_elided_path(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_raw=100_000, device=None):
+    """add2 again, served by the elided variant (MISAKA_FUSED_ELIDE_HI=1)."""
+    with served_apps([elided_spec(batch, chunk, device)]) as [(port, boot_s)]:
         for v in (5, -3, 2**31 - 1):
             code, body = post_form(port, "/compute", value=str(v))
             expect(code == 200 and json.loads(body) == {"value": int(wrap_i32(v + 2))},
@@ -1141,6 +1276,19 @@ def paused_window(port):
     return status(port)
 
 
+def unbatched_specs(device=None):
+    """The apps of phase_unbatched_path: the README env (paused, a
+    checkpoint dir), and reverse_any unbatched at stack_cap=4."""
+    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
+        spec = json.load(f)
+    nodes = {name: {"type": kind} for name, kind in spec["nodes"].items()}
+    return [dict(label="unbatched", node_info=ADD2_NODES, programs=readme_programs(),
+                 batch=None, chunk=None, caps=None, device=device, autorun=False,
+                 MISAKA_CHECKPOINT_DIR=phase_dir("ckpt_unbatched", fresh=False)),
+            dict(label="unbatched_autogrow", node_info=nodes, programs=spec["programs"],
+                 batch=None, chunk=None, caps={"stack_cap": 4}, device=device)]
+
+
 def phase_unbatched_path(n_latency=100, n_clients=32, per_client=10, n_raw=10_000,
                          device=None):
     """Boot the app with the reference README's add2 env only (no
@@ -1153,14 +1301,12 @@ def phase_unbatched_path(n_latency=100, n_clients=32, per_client=10, n_raw=10_00
     reverse_any unbatched at stack_cap=4 must grow its stack to answer an
     11-value request.  device="cpu" rehearses it through the plain
     version (engine "plain", no launches)."""
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    ckpt_dir = tempfile.mkdtemp(prefix="ckpt-u-", dir=os.path.join(ROOT, "build"))
+    ckpt_dir = phase_dir("ckpt_unbatched")
     key = "fused_superstep"
     rng = np.random.default_rng(SEED + 7)
+    readme_spec, grow_spec = unbatched_specs(device)
     try:
-        with served_app("unbatched", ADD2_NODES, readme_programs(), None, None, None,
-                        device=device, autorun=False,
-                        MISAKA_CHECKPOINT_DIR=ckpt_dir) as (port, boot_s):
+        with served_apps([readme_spec]) as [(port, boot_s)]:
             st = status(port)
             expect("batch" not in st and not st["running"], f"README boot status {st}")
             expect(post_form(port, "/run") == (200, b"Success"), "/run")
@@ -1226,17 +1372,13 @@ def phase_unbatched_path(n_latency=100, n_clients=32, per_client=10, n_raw=10_00
             st = status(port)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    want_engine = "plain" if device == "cpu" else "fused"
+    want_engine = "native" if device == "cpu" else "fused"  # auto on the CPU: native
     launches = st["kernel_launches"]
     expect(st["engine"] == want_engine and "batch" not in st, f"status {st}")
     expect(device == "cpu" or (launches[key] > 0 and all(
         n == 0 for k, n in launches.items() if k != key)), f"unbatched launches {launches}")
     # reverse_any, unbatched, stack_cap=4: the stack must grow to answer
-    with open(os.path.join(EXAMPLES, "reverse_any.json")) as f:
-        spec = json.load(f)
-    nodes = {name: {"type": kind} for name, kind in spec["nodes"].items()}
-    with served_app("unbatched_autogrow", nodes, spec["programs"], None, None,
-                    {"stack_cap": 4}, device=device) as (gport, _):
+    with served_apps([grow_spec]) as [(gport, _)]:
         block = list(range(1, 11)) + [0]
         t = time.perf_counter()
         code, body = post_form(gport, "/compute_batch", values=",".join(map(str, block)))
@@ -1310,6 +1452,16 @@ def compare_traced(label, top, batch, steps, rng, instance=7):
             **({"diverged": bad} if bad else {})}
 
 
+def traced_specs(traced_batch=4096, device=None):
+    """The apps of phase_traced, booted at once, paused; each run in its
+    turn: ((label, batch, env) per server, specs)."""
+    servers = (("unbatched", None, {}), ("batched", traced_batch, {"MISAKA_TRACE_INSTANCE": "7"}))
+    return servers, [dict(label=f"traced_{label}", node_info=ADD2_NODES,
+                          programs=readme_programs(), batch=batch, chunk=None, caps=None,
+                          device=device, autorun=False, MISAKA_TRACE_CAP="256", **extra)
+                     for label, batch, extra in servers]
+
+
 def phase_traced(traced_batch=4096, device=None):
     """Tracing: a server with MISAKA_TRACE_CAP=256, unbatched, and one with
     MISAKA_BATCH=`traced_batch` and MISAKA_TRACE_INSTANCE=7 (booted at once,
@@ -1324,11 +1476,7 @@ def phase_traced(traced_batch=4096, device=None):
 
     programs = readme_programs()
     rows = {}
-    servers = (("unbatched", None, {}), ("batched", traced_batch, {"MISAKA_TRACE_INSTANCE": "7"}))
-    # both booted at once, paused; each run in its turn
-    specs = [dict(label=f"traced_{label}", node_info=ADD2_NODES, programs=programs, batch=batch,
-                  chunk=None, caps=None, device=device, autorun=False, MISAKA_TRACE_CAP="256",
-                  **extra) for label, batch, extra in servers]
+    servers, specs = traced_specs(traced_batch, device)
     with served_apps(specs) as booted:
         for (label, batch, _), (port, boot_s) in zip(servers, booted):
             expect(post_form(port, "/run")[0] == 200, f"traced {label} /run")
@@ -1634,6 +1782,18 @@ def take_profile(port, name, load):
     return os.path.join(body.decode(), "trace.json")
 
 
+def observability_specs(batch=MAIN_BATCH, chunk=MAIN_CHUNK, device=None):
+    """The apps of phase_observability, booted at once, the untraced one
+    paused until its turn."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device)
+    return [dict(base, label="obs", MISAKA_PROFILE_DIR=phase_dir("prof_obs", fresh=False),
+                 MISAKA_TRACE_REQUESTS="1"),
+            dict(base, label="obs_untraced", autorun=False, MISAKA_TRACE_REQUESTS="0")]
+
+
 def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client=40,
                         profile_per_client=10, device=None, card=None):
     """The batched main path (add2, the full kernel) under the new hooks:
@@ -1648,19 +1808,11 @@ def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_cl
     MISAKA_TRACE_REQUESTS=0 (a second server, booted beside the first and
     paused until its turn) gives the tracing overhead.  device="cpu"
     rehearses it (no kernel: the profile checks are skipped)."""
-    from misaka_tpu_torch.networks import ADD2_PROGRAMS
-
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    prof_dir = tempfile.mkdtemp(prefix="prof-", dir=os.path.join(ROOT, "build"))
+    prof_dir = phase_dir("prof_obs")
     row = {"phase": "observability", "card": card, "batch": batch, "chunk_steps": chunk,
            **MAIN_CAPS}
     try:
-        # both servers booted at once, the untraced one paused until its turn
-        base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
-                    caps=MAIN_CAPS, device=device)
-        specs = [dict(base, label="obs", MISAKA_PROFILE_DIR=prof_dir, MISAKA_TRACE_REQUESTS="1"),
-                 dict(base, label="obs_untraced", autorun=False, MISAKA_TRACE_REQUESTS="0")]
-        with served_apps(specs) as [(port, _), (uport, _)]:
+        with served_apps(observability_specs(batch, chunk, device)) as [(port, _), (uport, _)]:
             expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
             s0, m0 = paused_window(port), scrape(port)
             expect(post_form(port, "/run")[0] == 200, "/run")
@@ -1718,19 +1870,23 @@ def phase_observability(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_cl
     return row
 
 
+def obs_unbatched_spec(device=None):
+    return dict(label="obs_unbatched", node_info=ADD2_NODES, programs=readme_programs(),
+                batch=None, chunk=None, caps=None, device=device,
+                MISAKA_PROFILE_DIR=phase_dir("prof_obs_unbatched", fresh=False))
+
+
 def phase_unbatched_observability(n_quiet=99, profile_requests=40, device=None, card=None):
     """The README env (no MISAKA_BATCH, chunk 128, caps 1024): 99 quiet
     /compute, every answer checked, with the medians of their
     Server-Timing phases; then a /profile window over quiet /compute that
     splits the B=1 serve call into the feed upload, fused_superstep's
     checks and clones, the kernel and the packed read."""
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    prof_dir = tempfile.mkdtemp(prefix="prof-u-", dir=os.path.join(ROOT, "build"))
+    prof_dir = phase_dir("prof_obs_unbatched")
     from misaka_tpu_torch.utils import tracespan
 
     try:
-        with served_app("obs_unbatched", ADD2_NODES, readme_programs(), None, None, None,
-                        device=device, MISAKA_PROFILE_DIR=prof_dir) as (port, _):
+        with served_apps([obs_unbatched_spec(device)]) as [(port, _)]:
             expect(post_form(port, "/compute", value="1")[1] == b'{"value": 3}\n', "warm-up")
             phases: dict = collections.defaultdict(list)
             lat = []
@@ -1805,6 +1961,20 @@ def pid_alive(pid: int) -> bool:
     return True
 
 
+def frontends_spec(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, device=None):
+    """The app of phase_frontends: add2 behind the workers, the native edge
+    off, profiles armed; its plane socket outside the profile dir, which
+    the phase makes fresh."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    return dict(label="frontends", node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch,
+                chunk=chunk, caps=MAIN_CAPS, device=device,
+                MISAKA_HTTP_WORKERS=str(workers or frontend_workers()),
+                MISAKA_NATIVE_EDGE="0",
+                MISAKA_PROFILE_DIR=phase_dir("prof_frontends", fresh=False),
+                MISAKA_PLANE_SOCKET=os.path.join(ROOT, "build", "chip_frontends.sock"))
+
+
 def phase_frontends(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client=40,
                     n_quiet=99, stream_values=None, profile_per_client=10, workers=None,
                     device=None, card=None, zero_workers=None):
@@ -1822,20 +1992,15 @@ def phase_frontends(batch=MAIN_BATCH, chunk=MAIN_CHUNK, n_clients=32, per_client
     tier, whose figures are compared across PRs (the native edge has a
     phase of its own).  device="cpu" rehearses it (no kernel: no profile;
     the streams default to 400 values, the plain loop's pace)."""
-    from misaka_tpu_torch.networks import ADD2_PROGRAMS
-
     workers = workers or frontend_workers()
     stream_values = stream_values or (400 if device == "cpu" else 12_500)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    prof_dir = tempfile.mkdtemp(prefix="prof-fe-", dir=os.path.join(ROOT, "build"))
+    prof_dir = phase_dir("prof_frontends")
     row = {"phase": "frontends", "card": card, "workers": workers,
            "cpu_count": os.cpu_count(), "batch": batch, "chunk_steps": chunk, **MAIN_CAPS}
     procs: list = []
     try:
-        with served_app("frontends", ADD2_NODES, ADD2_PROGRAMS, batch, chunk, MAIN_CAPS,
-                        device=device, procs=procs, MISAKA_HTTP_WORKERS=str(workers),
-                        MISAKA_NATIVE_EDGE="0", MISAKA_PROFILE_DIR=prof_dir,
-                        MISAKA_PLANE_SOCKET=os.path.join(prof_dir, "plane.sock")) as (port, boot_s):
+        with served_apps([frontends_spec(batch, chunk, workers, device)],
+                         procs=procs) as [(port, boot_s)]:
             from misaka_tpu_torch.runtime import frontends
 
             deadline = time.monotonic() + 60
@@ -4024,6 +4189,21 @@ def kill9_drill(port, n_small, n_raw, values) -> dict:
     return {**out, "replica": idx, "respawn_to_healthy_s": respawn_s}
 
 
+def print_log_excerpt(label, tail=60):
+    """A failed phase's server log on stderr: its lines about replica
+    deaths, respawns and errors, then its last `tail` lines."""
+    path = os.path.join(ROOT, "build", f"chip_smoke_{label}.log")
+    try:
+        with open(path, errors="replace") as f:
+            lines = f.read().splitlines()
+    except OSError as e:
+        print(f"{label}: no log ({e})", file=sys.stderr, flush=True)
+        return
+    pick = re.compile(r"replica \d|died|respawn|breaker|Error|Traceback|exiting")
+    for line in [ln for ln in lines if pick.search(ln)][-80:] + ["..."] + lines[-tail:]:
+        print(f"{label}: {line[:400]}", file=sys.stderr, flush=True)
+
+
 def second_fleet_drill(port, n_small, n_raw, values):
     """The second fleet (booted with replica_kill), beside the first's
     drills: the fault under light load, kill -9 of the other replica and
@@ -4280,12 +4460,18 @@ def phase_fleet(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, 
             row["peer_launches"] = peer_status["kernel_launches"]
             expect(call(peer_http, "/pause", b"", FLEET_ADMIN)[0] == 200, "peer /pause")
             second_thread.join(timeout=400)
-            expect("failed" not in second and second.get("roll"), f"the second fleet: {second}")
-            fault = second["replica_kill"]
-            expect(fault["errors"] == 0 and fault["restarts_total"] == 1,
-                   f"replica_kill fleet: {fault}")
-            expect(second["kill"]["errors"] == 0, f"kill -9 under load: {second['kill']}")
-            expect(second["roll"]["errors"] == 0, f"roll under load: {second['roll']}")
+            try:
+                expect("failed" not in second and second.get("roll"),
+                       f"the second fleet: {second}")
+                fault = second["replica_kill"]
+                expect(fault["errors"] == 0 and fault["restarts_total"] == 1,
+                       f"replica_kill fleet: {fault}")
+                expect(second["kill"]["errors"] == 0, f"kill -9 under load: {second['kill']}")
+                expect(second["roll"]["errors"] == 0, f"roll under load: {second['roll']}")
+            except SystemExit:
+                # why its replicas died, and how each respawn ended
+                print_log_excerpt("fleet_cost_b")
+                raise
             row["replica_kill"] = fault
             row["kill"] = second["kill"]
             row["roll_under_load"] = second["roll"]
@@ -5883,6 +6069,335 @@ def phase_native_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_stream
     return row
 
 
+# --- the per-process distributed mode (runtime/nodes.py) ------------------------
+
+# the cross-mode check's shapes (the reference's tests/test_cross_mode.py)
+KAHN_CAPS = dict(stack_cap=64, in_cap=32, out_cap=32)
+KAHN_INPUTS = 8
+KAHN_TICKS = 768
+KAHN_CHUNK = 128  # ticks per B=1 serve call: 6 calls cover KAHN_TICKS
+
+
+def kahn_network(seed):
+    """A deterministic (Kahn-style) random network: (node_info, programs,
+    outputs per input).  Every inbound port has one sender lane, each stack
+    one owner lane, one lane runs IN and one OUT, jumps target forward
+    segment boundaries only: any legal interleaving of a free-running
+    cluster gives the lockstep engine's output stream (the reference's
+    tests/test_cross_mode.py::gen_network, seed for seed)."""
+    rng = np.random.default_rng(seed)
+    n_lanes = int(rng.integers(1, 5))
+    n_stacks = int(rng.integers(0, 3))
+    lanes = [f"n{i}" for i in range(n_lanes)]
+    stacks = [f"s{i}" for i in range(n_stacks)]
+    stack_owner = {s: int(rng.integers(n_lanes)) for s in stacks}
+
+    def imm():
+        return int(rng.integers(-50, 50))
+
+    programs = {}
+    outs_per_input = 1
+    for i, name in enumerate(lanes):
+        segments: list[list[str]] = []
+        owned = [s for s in stacks if stack_owner[s] == i]
+        for _ in range(int(rng.integers(0, 5))):
+            kind = int(rng.integers(0, 12))
+            if kind <= 3:  # local register op
+                segments.append([rng.choice(["NOP", "SWP", "SAV", "NEG", f"ADD {imm()}",
+                                             f"SUB {imm()}", f"MOV {imm()}, ACC",
+                                             "MOV ACC, NIL"])])
+            elif kind <= 5 and owned:  # balanced round trip on an own stack
+                s = rng.choice(owned)
+                src = rng.choice(["ACC", str(imm())])
+                segments.append([f"PUSH {src}, {s}", f"POP {s}, ACC"])
+            elif kind <= 7:  # self-send round trip on a private port R1-R3
+                port = int(rng.integers(1, 4))
+                src = rng.choice(["ACC", str(imm())])
+                segments.append([f"MOV {src}, {name}:R{port}", f"MOV R{port}, ACC"])
+            elif kind <= 9:  # forward conditional or unconditional jump
+                segments.append([rng.choice(["JMP", "JEZ", "JNZ", "JGZ", "JLZ"])])
+            else:  # JRO with a static offset: skips its partner or falls through
+                segments.append(["JRO 2", "NEG"] if rng.integers(2) else ["JRO 1"])
+        lines = ["IN ACC" if i == 0 else "MOV R0, ACC"]
+        bound_labels = {}
+        for j, seg in enumerate(segments):
+            if len(seg) == 1 and seg[0] in ("JMP", "JEZ", "JNZ", "JGZ", "JLZ"):
+                tgt = int(rng.integers(j + 1, len(segments) + 1))
+                bound_labels.setdefault(tgt, f"b{tgt}")
+                segments[j] = [f"{seg[0]} b{tgt}"]
+        if i == n_lanes - 1:
+            tail = ["OUT ACC"]
+            if rng.integers(3) == 0:  # a constant too: 2 outputs per input
+                tail.append(f"OUT {imm()}")
+                outs_per_input = 2
+        else:
+            tail = [f"MOV ACC, {lanes[i + 1]}:R0"]
+        for j, seg in enumerate(segments):
+            if j in bound_labels:
+                lines.append(f"{bound_labels[j]}:")
+            lines.extend(seg)
+        if len(segments) in bound_labels:
+            lines.append(f"{bound_labels[len(segments)]}:")
+        lines.extend(tail)
+        programs[name] = "\n".join(lines)
+    node_info = {name: "program" for name in lanes}
+    node_info.update({s: "stack" for s in stacks})
+    return node_info, programs, outs_per_input
+
+
+def kahn_inputs(seed, offset=1000):
+    """The reference's inputs for a generated network's seed."""
+    return np.random.default_rng(offset + seed).integers(-100, 100, size=KAHN_INPUTS).tolist()
+
+
+def lockstep_outputs(node_info, programs, inputs, device, engine="auto"):
+    """The lockstep side of the cross-mode check: the network unbatched
+    through `CompiledNetwork.serve_chunk` (engine="auto": on the card each
+    128-tick call is one launch of the fused kernel on the batch-of-one
+    view, on the CPU the plain loop; "scan" the plain loop anywhere), every
+    input fed in the first call, KAHN_TICKS ticks in all; the outputs in
+    order."""
+    from misaka_tpu_torch.runtime.topology import Topology
+
+    net = Topology(node_info=node_info, programs=programs, **KAHN_CAPS).compile(device=device)
+    state = net.init_state()
+    feed = np.zeros(net.in_cap, np.int32)
+    feed[:len(inputs)] = inputs
+    count, outs = len(inputs), []
+    for _ in range(KAHN_TICKS // KAHN_CHUNK):
+        state, packed = net.serve_chunk(state, feed, count, KAHN_CHUNK, engine=engine)
+        count = 0
+        p = packed.cpu().numpy()
+        outs.extend(int(p[4 + i % net.out_cap]) for i in range(int(p[2]), int(p[3])))
+    return outs
+
+
+def cluster_stream(master, inputs, expect_n, timeout=30.0):
+    """The free-running side: stream `inputs` into a running distributed
+    master's input queue (the GetInput side, master.go:233-242) and wait
+    for `expect_n` outputs, in order.  `master` is either package's
+    MasterNodeProcess."""
+    with master._io_cond:
+        master._in_q.extend(int(v) for v in inputs)
+        master._io_cond.notify_all()
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with master._io_cond:
+            if len(master._out_q) >= expect_n:
+                return list(master._out_q)[:expect_n]
+        time.sleep(0.01)
+    with master._io_cond:
+        got = list(master._out_q)
+    raise AssertionError(f"cluster produced {len(got)}/{expect_n} outputs in {timeout} s: {got}")
+
+
+def cluster_outputs(node_info, programs, inputs, expect_n, timeout=30.0):
+    """`inputs` through the port's nodes on loopback ports in this process
+    (runtime/nodes.py::build_loopback_cluster), closed after."""
+    from misaka_tpu_torch.runtime.nodes import build_loopback_cluster
+
+    master, close = build_loopback_cluster(node_info, programs)
+    try:
+        master.run()
+        return cluster_stream(master, inputs, expect_n, timeout)
+    finally:
+        close()
+
+
+def grpc_versions() -> dict | None:
+    """{"grpcio": v, "protobuf": v} where both import, else None."""
+    try:
+        import google.protobuf
+        import grpc
+    except ImportError:
+        return None
+    return {"grpcio": grpc.__version__, "protobuf": google.protobuf.__version__}
+
+
+def smi_compute_apps() -> list[str]:
+    """nvidia-smi's compute-app rows (pid per CUDA context; the pid reads
+    1 where the card's processes sit outside this pid namespace)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [line.strip() for line in out.strip().splitlines() if line.strip()]
+
+
+DIST_MISAKA1 = "IN ACC\nADD 1\nMOV ACC, misaka2:R0\nMOV R0, ACC\nOUT ACC"
+DIST_MISAKA2 = "MOV R0, ACC\nADD 1\nPUSH ACC, misaka3\nPOP misaka3, ACC\nMOV ACC, misaka1:R0"
+
+
+def start_distributed(label="dist"):
+    """The reference's add2 network (docker-compose.yml: a distributed
+    master, program nodes misaka1 and misaka2, stack misaka3) as four
+    `python -m misaka_tpu_torch.runtime.app` processes on free loopback
+    ports, started together: ([Popen], HTTP port, t_boot)."""
+    names = ("last_order", "misaka1", "misaka2", "misaka3")
+    grpc_ports = {n: free_port() for n in names}
+    http_port = free_port()
+    base = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
+    base.update(NODE_ADDRS=json.dumps({n: f"127.0.0.1:{p}" for n, p in grpc_ports.items()}),
+                PYTHONPATH=ROOT + os.pathsep + base.get("PYTHONPATH", ""))
+    envs = {
+        "last_order": dict(MISAKA_MODE="distributed", NODE_INFO=json.dumps(ADD2_NODES),
+                           MISAKA_PORT=str(http_port)),
+        "misaka1": dict(NODE_TYPE="program", PROGRAM=DIST_MISAKA1),
+        "misaka2": dict(NODE_TYPE="program", PROGRAM=DIST_MISAKA2),
+        "misaka3": dict(NODE_TYPE="stack"),
+    }
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    procs, t_boot = {}, time.perf_counter()
+    try:
+        for n in names:
+            with open(os.path.join(ROOT, "build", f"chip_smoke_{label}_{n}.log"), "w") as log:
+                procs[n] = subprocess.Popen(
+                    [sys.executable, "-m", "misaka_tpu_torch.runtime.app"], cwd=ROOT,
+                    env={**base, **envs[n], "MISAKA_GRPC_PORT": str(grpc_ports[n])},
+                    stdout=log, stderr=subprocess.STDOUT)
+    except BaseException:
+        for p in procs.values():
+            _stop_app(p)
+        raise
+    return list(procs.values()), http_port, t_boot
+
+
+def phase_distributed(card=None, n_quiet=49, n_raw=250, seeds=(0, 1, 2, 3), device="cuda"):
+    """The per-process distributed mode.  Where grpcio and protobuf import:
+    the reference's add2 network as four processes (start_distributed),
+    driven over HTTP: /run, /compute for 5, -3, 1000 and 0, one value past
+    int32 (the sint32 wire truncates it, as the JAX package's distributed
+    master answers), n_quiet quiet /compute (p50, p90), a striped
+    /compute_raw of n_raw values (values/s), /pause, /reset, /load and a
+    bad /load (400), every answer checked; nvidia-smi lists no CUDA context
+    of the four (none of their pids, and no row more than before they
+    booted).  Then the cross-mode check: Kahn networks of `seeds` through a
+    loopback cluster of the port's nodes in this process and unbatched
+    through the fused kernel on the card (lockstep_outputs; the launch
+    counts zeroed just before and read just after), each output stream
+    identical, the kernel's also to the plain loop's on the CPU.  Where
+    they do not import: the app's boot in process with NODE_TYPE=program
+    and with MISAKA_MODE=distributed must exit naming the missing package.
+    device="cpu" rehearses it without a card (the plain loop on both
+    sides, no nvidia-smi)."""
+    from misaka_tpu_torch.core import fused
+    from misaka_tpu_torch.runtime import app
+
+    versions = grpc_versions()
+    if versions is None:
+        refusals = {}
+        for env in ({"NODE_TYPE": "program"}, {"MISAKA_MODE": "distributed"}):
+            try:
+                app.check_env(env)
+            except SystemExit as e:
+                refusals[next(iter(env.items()))[1]] = str(e)
+        expect(len(refusals) == 2 and all(
+            ("grpcio" in msg or "protobuf" in msg) and "lacks" in msg
+            for msg in refusals.values()), f"distributed boots did not refuse: {refusals}")
+        row = {"phase": "distributed", "card": card, "mode": "refused",
+               "host": "the card's host lacks grpcio or protobuf", "refusals": refusals}
+        emit(row)
+        return row
+
+    on_card = device != "cpu"
+    pre = take_prebooted("distributed")
+    procs, port, t_boot = pre[1:4] if pre is not None else start_distributed()
+    # the CUDA contexts of this script now: its own and one per server of a
+    # later phase booted ahead (each holds one once it answers)
+    contexts = 1
+    for *_, box in list(PREBOOTED.values()):
+        poll(lambda box=box: "ready" in box, "a server booted ahead answers", 120)
+        contexts += 1
+    smi_before = smi_compute_apps() if on_card else []
+    try:
+        deadline = time.monotonic() + 120
+        while True:  # the master answers, then /run reaches every peer
+            for p in procs:
+                expect(p.poll() is None, f"distributed node exited early (rc {p.returncode})")
+            try:
+                if post_form(port, "/run") == (200, b"Success"):
+                    break
+            except (OSError, HTTPException):  # not up yet, or a peer not yet (400)
+                pass
+            expect(time.monotonic() < deadline, "the distributed network did not run in 120 s")
+            time.sleep(0.25)
+        ready = pre[4].get("ready") if pre is not None else None
+        boot_s = (ready or time.perf_counter()) - t_boot
+        health = json.loads(http(port, "/healthz", timeout=60)[1])
+        expect(health["engine"] == "distributed-grpc" and health["running"], f"/healthz {health}")
+        for v in (5, -3, 1000, 0, 2**31 + 5):
+            code, body = post_form(port, "/compute", value=str(v))
+            want = int(wrap_i32(int(wrap_i32(v)) + 2))
+            expect(code == 200 and json.loads(body) == {"value": want},
+                   f"distributed /compute {v} -> {code} {body!r}")
+        lat = []
+        for v in list(range(-24, 25))[:n_quiet]:
+            t = time.perf_counter()
+            code, body = post_form(port, "/compute", value=str(v))
+            lat.append(time.perf_counter() - t)
+            expect(code == 200 and json.loads(body) == {"value": v + 2},
+                   f"distributed /compute {v} -> {code} {body!r}")
+        vals = np.random.default_rng(SEED + 16).integers(
+            -(2**31), 2**31, size=n_raw, dtype=np.int64).astype(np.int32)
+        raw_s = check_raw(port, vals)
+        expect(post_form(port, "/pause") == (200, b"Success"), "/pause")
+        expect(post_form(port, "/reset") == (200, b"Success"), "/reset")
+        add10 = DIST_MISAKA2.replace("ADD 1", "ADD 10")
+        expect(post_form(port, "/load", targetURI="misaka2", program=add10) == (200, b"Success"),
+               "/load")
+        expect(post_form(port, "/run") == (200, b"Success"), "/run after /load")
+        code, body = post_form(port, "/compute", value="1")
+        expect(json.loads(body) == {"value": 12}, f"after /load: {body!r}")
+        try:
+            code, body = post_form(port, "/load", targetURI="misaka2", program="FROB 3")
+        except urllib.error.HTTPError as e:
+            code, body = e.code, e.read()
+        expect(code == 400 and b"not a valid instruction" in body, f"bad /load {code} {body!r}")
+        st = status(port)
+        expect(st["served_engine"] == "distributed-grpc" and "device_memory" not in st,
+               f"/status {st}")
+        smi_after = smi_compute_apps() if on_card else []
+        pids = {str(p.pid) for p in procs}
+        expect(not on_card or (not pids & set(smi_after)
+                               and len(smi_before) == len(smi_after) == contexts),
+               f"a node holds a CUDA context: {smi_before} -> {smi_after} rows, where this "
+               f"script and its servers hold {contexts} (node pids {sorted(pids)})")
+    finally:
+        for p in procs:
+            _stop_app(p)
+
+    # the cross-mode check: the free-running cluster against the kernel
+    cases, t_cross, launches = [], time.perf_counter(), {}
+    for seed in seeds:
+        node_info, programs, per_input = kahn_network(seed)
+        inputs = kahn_inputs(seed)
+        for k in fused.launch_counts:
+            fused.launch_counts[k] = 0
+        got = lockstep_outputs(node_info, programs, inputs, device)
+        for k, n in fused.launch_counts.items():
+            launches[k] = launches.get(k, 0) + n
+        plain = lockstep_outputs(node_info, programs, inputs, "cpu")
+        expect(len(got) == KAHN_INPUTS * per_input, f"seed {seed}: the engine emitted {got}")
+        cluster = cluster_outputs(node_info, programs, inputs, len(got))
+        expect(got == plain == cluster,
+               f"seed {seed}: kernel {got}, plain {plain}, cluster {cluster}")
+        cases.append({"seed": seed, "lanes": sum(k == "program" for k in node_info.values()),
+                      "stacks": sum(k == "stack" for k in node_info.values()),
+                      "outputs": len(got)})
+    expect(not on_card or (launches.get(fused.KERNEL, 0) > 0 and all(
+        n == 0 for k, n in launches.items() if k != fused.KERNEL)),
+        f"cross-mode launches {launches}")
+    steady = np.sort(np.asarray(lat))
+    row = {"phase": "distributed", "card": card, "mode": "four processes", **versions,
+           "boot_s": boot_s, "compute_latency_p50_ms": float(np.percentile(steady, 50)) * 1e3,
+           "compute_latency_p90_ms": float(np.percentile(steady, 90)) * 1e3,
+           "quiet_requests": len(lat), "compute_raw_values": int(vals.size),
+           "compute_raw_s": raw_s, "values_per_s": vals.size / raw_s,
+           "smi_compute_apps_before": smi_before, "smi_compute_apps_after": smi_after,
+           "cross_mode": cases, "cross_mode_s": time.perf_counter() - t_cross,
+           "kernel_launches": launches.get(fused.KERNEL, 0)}
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -5918,6 +6433,17 @@ def main() -> int:
     emit({"phase": "build", "kernel": fused.KERNEL, "seconds": split["build"],
           "ptxas": ptxas_summary(build.ptxas_report(fused.KERNEL))})
 
+    # The servers of the phases from main_path to frontends boot now, two
+    # at a time, paused, while the card works on the parity phases (each
+    # ~10 s of boot that no longer waits in its phase); each runs at its
+    # phase's start.
+    ahead = [main_path_spec(), autogrow_spec(), elided_spec(),
+             main_path_spec(data_parallel=count), *unbatched_specs(), *traced_specs()[1],
+             *observability_specs(), obs_unbatched_spec()]
+    if grpc_versions():  # the distributed phase's four processes (no card)
+        ahead.append(("distributed", start_distributed))
+    preboot(ahead + [frontends_spec()])
+
     # depth cut to make room for the native and native_edge phases (every
     # case kept, their exactness resolved by earlier runs at the deeper
     # settings): the baselines' and pipelines' parity and the elided parity
@@ -5928,8 +6454,9 @@ def main() -> int:
     max_err_unbatched = timed("unbatched_parity", phase_unbatched_parity, chunks=(128, 256))
 
     # Each served phase runs in a fresh server process, whose launch counts
-    # start at 0 when it boots; the counts are read from its /status at the
-    # end of the phase.  The in-process two-shard phase zeroes this
+    # start at 0 when it boots (a prebooted one stays paused, launching
+    # nothing, until its phase runs it); the counts are read from its
+    # /status at the end of the phase.  The in-process two-shard phase zeroes this
     # process's counts just before it and reads them just after.
     for k in fused.launch_counts:
         fused.launch_counts[k] = 0
@@ -5954,6 +6481,9 @@ def main() -> int:
     obs_row = timed("observability", phase_observability, card=smi, per_client=10)
     obs_unbatched_row = timed("unbatched_observability", phase_unbatched_observability,
                               card=smi)
+    # the per-process nodes, when no other server of this script is up (its
+    # nvidia-smi check counts the card's contexts before and after)
+    dist_row = timed("distributed", phase_distributed, card=smi)
     fe_row = timed("frontends", phase_frontends, card=smi, zero_workers=obs_row, per_client=10,
                    n_quiet=49)
     edge_row = timed("edge", phase_edge, card=smi, flood_s=3.0)
@@ -5986,7 +6516,7 @@ def main() -> int:
             + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
             + registry_row["kernel_launches"] + telemetry_row["kernel_launches"]
             + observatory_row["kernel_launches"] + fleet_row["fleet_launches"]
-            + ne_row["kernel_launches"],
+            + ne_row["kernel_launches"] + dist_row.get("kernel_launches", 0),
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
                                grow_row["parity_max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
@@ -6016,6 +6546,9 @@ def main() -> int:
             "fleet_launches": fleet_row["fleet_launches"],
             # the native_edge phase's server, behind the C++ edge
             "native_edge_launches": ne_row["kernel_launches"],
+            # the distributed phase's cross-mode check, B=1 in this process
+            # (none where the host lacks grpcio: the phase then only refuses)
+            "distributed_launches": dist_row.get("kernel_launches", 0),
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

@@ -1,9 +1,33 @@
-"""Process entrypoint: serve one network over HTTP.
+"""Process entrypoint: serve one network over HTTP, or one node over gRPC.
 
     python -m misaka_tpu_torch.runtime.app
 
-The port's twin of misaka_tpu/runtime/app.py for NODE_TYPE=master.
-Environment:
+The port's twin of misaka_tpu/runtime/app.py.  Deployment modes (NODE_TYPE
+dispatch, mirroring cmd/app.go:17-39):
+
+  * NODE_TYPE unset / "master" (default): the fused engine, the whole
+    network in one kernel launch per chunk on the card.  The product.
+  * MISAKA_MODE=distributed + NODE_TYPE=master: the reference's distributed
+    control plane (runtime/nodes.py::MasterNodeProcess): the HTTP surface,
+    gRPC command fan-out and the Master data-plane service, for a network
+    of per-process nodes.  NODE_INFO is required; MISAKA_AUTORUN=1 runs the
+    network at boot (a failure, e.g. peers not up yet, is logged: /run
+    retries).
+  * NODE_TYPE=program: one TIS interpreter process (MASTER_URI, default
+    "last_order", and PROGRAM, app.go:20-25; a program that does not parse
+    is logged and the node keeps NOP), serving the Program gRPC service.
+  * NODE_TYPE=stack: one LIFO storage process serving the Stack service.
+
+The per-process nodes honour CERT_FILE/KEY_FILE for TLS (app.go:15-16;
+plain TCP when unset), NODE_ADDRS ({name: "host:port"}) and
+MISAKA_GRPC_PORT (default 8001, the reference's fixed port) for
+addressing, and the lifecycle guards (MISAKA_TTL_S, MISAKA_ORPHAN_OK).
+They need grpcio and protobuf, imported only in those branches: without
+them such a boot exits naming the missing package, and the fused boot
+never imports either.  None of them touches the card.
+
+Environment of the fused engine (and, where it applies, of the
+distributed master's HTTP surface):
 
   NODE_INFO          {"name": {"type": "program"|"stack"}, ...} (app.go:30-35)
   MISAKA_PROGRAMS    {"name": "<TIS source>", ...} per program node
@@ -206,9 +230,8 @@ Environment:
                      `watchdog`, a paging rule raises /healthz `degraded`;
                      MISAKA_WATCHDOG_RECENT_S, _MIN_POINTS
 
-Refused at boot, naming the ROADMAP item that ports them (the reference
-serves them; the port would otherwise ignore them without a word):
-MISAKA_MODE=distributed and NODE_TYPE=program|stack (A.5), and a mesh
+Refused at boot, naming the ROADMAP item that ports it (the reference
+serves it; the port would otherwise ignore it without a word): a mesh
 across the processes of a MISAKA_COORDINATOR group (A.7b).
 """
 
@@ -292,19 +315,44 @@ def build_topology_from_env(environ=os.environ) -> Topology:
     return Topology.from_node_info_json(node_info, programs, **caps)
 
 
-def check_env(environ=os.environ) -> None:
-    """Refuse at boot what the reference serves and the port does not yet,
-    each refusal naming its ROADMAP item."""
+# the modules the per-process distributed mode imports, by their packages
+_GRPC_PACKAGES = (("grpc", "grpcio"), ("google.protobuf", "protobuf"))
+
+
+def distributed_role(environ=os.environ) -> str | None:
+    """The per-process role the env asks for: "program", "stack", "master"
+    (MISAKA_MODE=distributed), or None for the fused engine.  An unknown
+    NODE_TYPE exits with the reference's message."""
     node_type = environ.get("NODE_TYPE", "master")
     if node_type in ("program", "stack"):
-        _refuse(f"'{node_type}' not a valid node type for this server: the "
-                "per-process node servers (NODE_TYPE=program|stack) are not "
-                "ported yet (ROADMAP A.5)")
+        return node_type
     if node_type != "master":
-        raise SystemExit(f"'{node_type}' not a valid node type for this server")
-    if environ.get("MISAKA_MODE") == "distributed":
-        _refuse("MISAKA_MODE=distributed: the distributed master (programs in "
-                "per-process peers) is not ported yet (ROADMAP A.5)")
+        raise SystemExit(f"'{node_type}' not a valid node type")
+    return "master" if environ.get("MISAKA_MODE") == "distributed" else None
+
+
+def require_grpc(what: str) -> None:
+    """Refuse the boot of `what` (a per-process role) when grpcio or
+    protobuf cannot be imported, naming the missing package.  Never falls
+    back to the fused engine: the env asked for a node of a gRPC network."""
+    import importlib
+
+    for module, package in _GRPC_PACKAGES:
+        try:
+            importlib.import_module(module)
+        except ImportError as e:
+            _refuse(f"{what}: the per-process distributed mode (ROADMAP A.5) speaks "
+                    f"gRPC and needs the {package} package (module {module!r}), which "
+                    f"this host lacks ({e})")
+
+
+def check_env(environ=os.environ) -> None:
+    """Refuse at boot what the env asks for and this host or the port cannot
+    serve, each refusal naming why."""
+    role = distributed_role(environ)
+    if role is not None:
+        require_grpc("MISAKA_MODE=distributed" if role == "master" else f"NODE_TYPE={role}")
+        return
     try:
         edge.plane_tls_from_env(environ)
     except (ValueError, OSError) as e:
@@ -322,8 +370,16 @@ def check_env(environ=os.environ) -> None:
                 "(ROADMAP A.7b); each process of a group serves its own network")
 
 
-def build_master_from_env(environ=os.environ) -> MasterNode:
+def build_master_from_env(environ=os.environ):
+    """The master the env asks for: the fused MasterNode, or (with
+    MISAKA_MODE=distributed) the distributed control plane, not started."""
     check_env(environ)
+    role = distributed_role(environ)
+    if role == "master":
+        return build_distributed_master_from_env(environ)
+    if role is not None:
+        raise SystemExit(f"'{role}' not a valid node type for a master: NODE_TYPE={role} "
+                         "boots a node server (python -m misaka_tpu_torch.runtime.app)")
     return MasterNode(
         build_topology_from_env(environ),
         chunk_steps=int(environ.get("MISAKA_CHUNK_STEPS", "0") or 0) or 128,
@@ -338,6 +394,102 @@ def build_master_from_env(environ=os.environ) -> MasterNode:
         model_parallel=int(environ.get("MISAKA_MODEL_PARALLEL", "0") or 0) or None,
         native_spec_dir=specialize_dir(environ),
     )
+
+
+def _grpc_port(environ) -> int:
+    return int(environ.get("MISAKA_GRPC_PORT", "8001"))
+
+
+def build_distributed_master_from_env(environ=os.environ):
+    """The distributed control plane (runtime/nodes.py) over NODE_INFO's
+    peers, at NODE_ADDRS / MISAKA_GRPC_PORT, TLS with CERT_FILE/KEY_FILE."""
+    from misaka_tpu_torch.runtime.nodes import MasterNodeProcess, Resolver
+
+    node_info = json.loads(environ.get("NODE_INFO", "{}") or "{}")
+    if not node_info:
+        raise SystemExit("distributed master requires NODE_INFO")
+    return MasterNodeProcess(node_info, resolver=Resolver.from_env(environ),
+                             cert_file=environ.get("CERT_FILE"),
+                             key_file=environ.get("KEY_FILE"), grpc_port=_grpc_port(environ))
+
+
+def build_node_from_env(role: str, environ=os.environ):
+    """A program or stack node server (runtime/nodes.py), not started; a
+    program node loads PROGRAM, and one that does not parse is logged and
+    left as NOP, as the reference's (app.go:22-24)."""
+    from misaka_tpu_torch.runtime.nodes import ProgramNodeProcess, Resolver, StackNodeProcess
+
+    cert, key = environ.get("CERT_FILE"), environ.get("KEY_FILE")
+    if role == "stack":
+        return StackNodeProcess(cert_file=cert, key_file=key, grpc_port=_grpc_port(environ))
+    node = ProgramNodeProcess(master_uri=environ.get("MASTER_URI", "last_order"),
+                              resolver=Resolver.from_env(environ), cert_file=cert,
+                              key_file=key, grpc_port=_grpc_port(environ))
+    program = environ.get("PROGRAM")
+    if program:
+        try:
+            node.load_program(program)
+        except Exception as e:
+            log.warning("Could not load default program: %s", e)
+    return node
+
+
+def serve_node(role: str, environ=os.environ) -> None:
+    """Boot one program or stack node and park the main thread while its
+    gRPC server and execute loop run (the reference blocks in Serve,
+    program.go:105); the guards stop it."""
+    import threading
+
+    node = build_node_from_env(role, environ)
+    install_guards(node.close, environ, start_ppid=_PPID_AT_START)
+    node.start()  # logs its gRPC port
+    threading.Event().wait()
+
+
+def serve_distributed_master(environ=os.environ) -> None:
+    """Boot the distributed control plane: its Master gRPC service and peer
+    prober, MISAKA_AUTORUN, and the shared HTTP surface on MISAKA_PORT
+    (TLS from MISAKA_TLS_CERT/KEY, the edge, the canary).  No checkpoint
+    or profile dir: the state lives in the peers, and there is no device
+    loop.  MISAKA_HTTP_WORKERS and MISAKA_PLANE_SERVE front only the fused
+    engine, as in the reference."""
+    master = build_distributed_master_from_env(environ)
+    httpd = pidfile = None
+
+    def stop() -> None:
+        try:
+            canary.shutdown()
+            master.close()
+            if httpd is not None:
+                httpd.server_close()
+        finally:
+            if pidfile:
+                _remove(pidfile)
+
+    install_guards(stop, environ, start_ppid=_PPID_AT_START)
+    if (edge.keyfile_path(environ) and not environ.get("MISAKA_EDGE_INTERNAL_TOKEN")
+            and environ.get("MISAKA_EDGE", "1") != "0"):
+        environ["MISAKA_EDGE_INTERNAL_TOKEN"] = os.urandom(16).hex()
+    master.start()
+    if environ.get("MISAKA_AUTORUN") == "1":
+        try:
+            master.run()
+        except Exception as e:  # peers may not be up yet; /run retries
+            log.warning("autorun failed: %s", e)
+    if int(environ.get("MISAKA_HTTP_WORKERS", "0") or 0) > 0:
+        log.info("MISAKA_HTTP_WORKERS fronts the fused engine only; the distributed "
+                 "master serves HTTP itself")
+    httpd = make_http_server(master, port=int(environ.get("MISAKA_PORT", "8000")))
+    pidfile = _write_pidfile(environ)
+    log.info("serving on :%d (engine=distributed-grpc%s)", httpd.server_address[1],
+             ", tls" if getattr(httpd, "misaka_tls", False) else "")
+    scheme = "https" if environ.get("MISAKA_TLS_CERT") else "http"
+    canary.ensure_started(f"{scheme}://127.0.0.1:{httpd.server_address[1]}",
+                          server=httpd, environ=environ)
+    try:
+        httpd.serve_forever()
+    finally:
+        stop()
 
 
 def specialize_dir(environ=os.environ) -> str | None:
@@ -468,6 +620,13 @@ def main() -> None:
         log.info("joined process group %s as rank %d of %d",
                  environ[multihost.COORDINATOR_ENV], multihost.process_index(),
                  multihost.process_count())
+    role = distributed_role(environ)
+    if role == "master":
+        serve_distributed_master(environ)
+        return
+    if role is not None:
+        serve_node(role, environ)
+        return
     fleet_n = int(environ.get("MISAKA_FLEET", "0") or 0)
     if fleet_n >= 1 and not environ.get("MISAKA_FLEET_REPLICA"):
         # the fleet parent (runtime/fleet.py): N replicas of this app, the

@@ -50,6 +50,7 @@ import os
 import queue
 import re
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -59,11 +60,24 @@ from bisect import bisect_left
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, quote, urlencode
 
-from misaka_tpu_torch.runtime.frontends import pick_free_port
 from misaka_tpu_torch.utils import faults, metrics
 from misaka_tpu_torch.utils.backoff import Backoff
 
 log = logging.getLogger("misaka_tpu_torch.fleet")
+
+
+def reserve_port() -> socket.socket:
+    """A free TCP port, held: a socket bound on every address with
+    SO_REUSEADDR that never listens.  The replica's server binds the same
+    port (SO_REUSEADDR, as every HTTPServer does) in each of its lives,
+    and while the replica is down no client's ephemeral source port can
+    land on it: a client connection closed there would sit in TIME_WAIT
+    and refuse the respawn's bind for a minute, a loop of failed respawns."""
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("0.0.0.0", 0))
+    return sock
+
 
 M_FLEET_CONFIGURED = metrics.gauge(
     "misaka_fleet_replicas_configured",
@@ -296,11 +310,13 @@ class FleetManager:
                                          name="misaka-fleet-spawner")
         self._spawner.start()
         now = time.monotonic()
+        # each replica's HTTP port, held for the fleet's life (reserve_port)
+        self._port_holds = [reserve_port() for _ in range(self.n)]
         self._slots: list[dict] = []
         for i in range(self.n):
             self._slots.append({
                 "idx": i,
-                "port": pick_free_port(),
+                "port": self._port_holds[i].getsockname()[1],
                 "plane": os.path.join(fleet_dir, f"plane-{i}.sock"),
                 "ckpt_dir": os.path.join(fleet_dir, f"replica-{i}"),
                 "proc": None,
@@ -408,6 +424,8 @@ class FleetManager:
         self._spawn_q.put(None)
         for t in self._threads:
             t.join(timeout=2)
+        for sock in self._port_holds:
+            sock.close()
 
     # --- spawning --------------------------------------------------------------------
 

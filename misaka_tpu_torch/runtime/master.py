@@ -67,7 +67,13 @@ the device-loop thread (utils/profiling.py::LoopCapture); the
 and `misaka_spool_errors_total` series; with a native engine the
 `misaka_native_*` series (core/native_serve.py), GET /debug/native_trace
 (its flight recorder's rings) and its worker spans in /debug/perfetto.
-Left out: the series and hooks of the distributed mode (A.5).
+The same server fronts the distributed control plane
+(runtime/nodes.py::MasterNodeProcess, duck-typed): /run /pause /reset /load
+answer 400 on a BroadcastError, the compute routes 503 on a
+PeerUnavailable, /compute_raw and spread /compute_batch stream through its
+compute_spread (it has no scheduler), the routes it lacks answer 404, and
+/healthz reports engine "distributed-grpc".  Nothing on that path touches
+the card.
 
 `AutoCheckpointer` (MISAKA_AUTOCKPT) snapshots the live state on an
 interval, rotates, and restores the newest valid snapshot at boot.
@@ -333,8 +339,39 @@ def _route_label(path: str) -> str:
     return route if route in _METRIC_ROUTES else "other"
 
 
+# /run /pause /reset's verb in a failed fan-out's 400 (the reference's text)
+_VERB_ING = {"/run": "running", "/pause": "pausing", "/reset": "resetting"}
+
+
+def _spread_lane(m):
+    """The striped lane of `m`: the serve scheduler, which falls back to
+    compute_spread when MISAKA_SERVE_BATCH=0, or the distributed control
+    plane's compute_spread, its whole-pipeline stream (no scheduler there:
+    the reference's r8 regression 500'd every distributed /compute_raw)."""
+    return getattr(m, "compute_coalesced", None) or m.compute_spread
+
+
 class ComputeTimeout(RuntimeError):
     """A compute request's outputs did not all arrive before its deadline."""
+
+
+class BroadcastError(RuntimeError):
+    """A control-plane fan-out failed on at least one node (master.go:288-292).
+
+    Defined here (not in runtime/nodes.py, which raises it) so the shared
+    HTTP surface can catch it without importing the grpc-dependent
+    distributed module: the fused master works without grpcio."""
+
+
+class PeerUnavailable(RuntimeError):
+    """A distributed compute refused fast because a peer the control plane
+    tracks as down cannot move values (runtime/nodes.py peer health).
+
+    Raised only by the distributed control plane; the HTTP surface answers
+    it 503 (retryable: the request was refused before entering the
+    pipeline, and service resumes without a master restart once the peer
+    returns).  Defined here for the same grpc-free reason as
+    BroadcastError."""
 
 
 # wakes collectors parked on a wiped queue (reset/load); never a real output
@@ -2256,7 +2293,9 @@ def make_http_server(master: MasterNode, port: int = 8000,
     slow_req_s = float(_slow_ms) / 1e3 if _slow_ms else None
     # the fast request parser; MISAKA_FAST_HTTP=0 keeps the stock one
     fast_http = os.environ.get("MISAKA_FAST_HTTP", "1") != "0"
-    profiler = profiling.Profiler(master.profiling)
+    # the distributed control plane has no device loop to profile (and
+    # no profile_dir: /profile/* answers 403 before reaching this)
+    profiler = profiling.Profiler(getattr(master, "profiling", None))
     boot_mono = time.monotonic()  # /healthz uptime anchor (server, not master)
     # the native decimal codec builds at its first use (about a second of
     # g++): here, so that the build never lands inside the first
@@ -2312,7 +2351,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
             if registry is not None:  # every engine; the seeded one is `master`
                 waiting_cache[1] = registry.waiting_values()
             else:
-                b = master._batcher
+                b = getattr(master, "_batcher", None)  # none on a control plane
                 waiting_cache[1] = b.waiting_values() if b is not None else 0
         if now - page_cache[0] > 0.25:
             page_cache[0] = now
@@ -2696,7 +2735,7 @@ def make_http_server(master: MasterNode, port: int = 8000,
             M_DEBUG_MEM.labels(plane="trace").set(trace_b)
             payload = {
                 "ok": True,
-                "engine": master.engine_name,
+                "engine": getattr(master, "engine_name", "distributed-grpc"),
                 "running": master.is_running,
                 "uptime_seconds": round(time.monotonic() - boot_mono, 3),
                 # /compute_raw takes the headered binary form (utils/wire.py)
@@ -2759,6 +2798,10 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 self._extra_headers += [
                     ("Deprecation", "true"),
                     ("Link", '</debug/isa_trace>; rel="successor-version"')]
+            if not hasattr(master, "trace"):
+                # the distributed control plane has no trace ring
+                self._text(404, "not found")
+                return
             q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
             try:
                 last = int(q["last"]) if "last" in q else None
@@ -2813,14 +2856,18 @@ def make_http_server(master: MasterNode, port: int = 8000,
         def _post(self, path: str, prog_ref: str | None) -> None:
             if path in ("/run", "/pause", "/reset"):
                 self._form()  # drain any body (keep-alive sync)
-                getattr(master, path[1:])()
+                try:
+                    getattr(master, path[1:])()
+                except BroadcastError as e:  # a distributed fan-out failed
+                    self._text(400, f"error {_VERB_ING[path]} network: {e}")
+                    return
                 self._text(200, "Success")
             elif path == "/load":
                 form = self._form()
                 target = form.get("targetURI", "")
                 try:
                     master.load(target, form.get("program", ""))
-                except (TopologyError, TISParseError, TISLowerError) as e:
+                except (TopologyError, TISParseError, TISLowerError, BroadcastError) as e:
                     self._text(400, f"error loading program on node {target}: {e}")
                     return
                 self._text(200, "Success")
@@ -2836,17 +2883,27 @@ def make_http_server(master: MasterNode, port: int = 8000,
                         except ValueError:
                             self._text(400, "cannot parse value")
                             return
-                        # through the serve scheduler
-                        result = int(m.compute_coalesced([value])[0])
+                        # through the serve scheduler; the distributed
+                        # control plane keeps its per-value path
+                        coalesced = getattr(m, "compute_coalesced", None)
+                        if coalesced is not None:
+                            result = int(coalesced([value])[0])
+                        else:
+                            result = m.compute(value)
                 except ProgramNotFound as e:
                     self._text(404, str(e))
                     return
                 except ComputeTimeout as e:
                     self._text(500, str(e))
                     return
+                except PeerUnavailable as e:
+                    # a distributed peer is down: retryable, nothing entered
+                    self._text(503, str(e))
+                    return
                 if capture_mod.RECORDING:
                     self._capture_note(m, np.asarray([value], "<i4").tobytes(),
-                                       np.asarray([result], "<i4").tobytes(), "coalesced")
+                                       np.asarray([result], "<i4").tobytes(),
+                                       "coalesced" if coalesced is not None else "many")
                 self._json({"value": result})
             elif path == "/compute_batch":
                 # form `values`: comma/whitespace-separated ints; `spread=1`
@@ -2859,12 +2916,15 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     return
                 try:
                     with resolved_master(prog_ref, values=len(values)) as m:
+                        if not hasattr(m, "compute_many"):
+                            self._text(404, "not found")
+                            return
                         if not m.is_running:
                             self._text(400, "network is not running")
                             return
-                        spread = form.get("spread") == "1"
+                        spread = form.get("spread") == "1" and hasattr(m, "compute_spread")
                         if spread:
-                            result = m.compute_coalesced(values, return_array=True)
+                            result = _spread_lane(m)(values, return_array=True)
                         else:
                             result = m.compute_many(values, return_array=True)
                 except ProgramNotFound as e:
@@ -2872,6 +2932,9 @@ def make_http_server(master: MasterNode, port: int = 8000,
                     return
                 except ComputeTimeout as e:
                     self._text(500, str(e))
+                    return
+                except PeerUnavailable as e:
+                    self._text(503, str(e))
                     return
                 if capture_mod.RECORDING:
                     self._capture_note(m, np.asarray(values, "<i4").tobytes(),
@@ -3091,12 +3154,15 @@ def make_http_server(master: MasterNode, port: int = 8000,
             query = {k: v[0] for k, v in parse_qs(urlparse(self.path).query).items()}
             try:
                 with resolved_master(prog_ref, values=int(values.size)) as m:
+                    if not hasattr(m, "compute_spread"):
+                        self._text(404, "not found")
+                        return
                     if not m.is_running:
                         self._text(400, "network is not running")
                         return
                     spread = query.get("spread", "1") == "1"
                     if spread:
-                        result = m.compute_coalesced(values, return_array=True)
+                        result = _spread_lane(m)(values, return_array=True)
                     else:
                         result = m.compute_many(values, return_array=True)
             except ProgramNotFound as e:
@@ -3104,6 +3170,9 @@ def make_http_server(master: MasterNode, port: int = 8000,
                 return
             except ComputeTimeout as e:
                 self._text(500, str(e))
+                return
+            except PeerUnavailable as e:
+                self._text(503, str(e))
                 return
             payload = result.astype("<i4").tobytes()
             if capture_mod.RECORDING:  # the body is already little-endian int32

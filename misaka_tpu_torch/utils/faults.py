@@ -44,10 +44,12 @@ Hook sites in the port (the reference's sites, in the ported code):
   edge_native_build        the native edge's build fails where a missing
                            toolchain would: the app keeps the CPython
                            workers on the public port (runtime/frontends.py)
-
-The points whose sites are in modules the port does not have yet parse
-and fire nowhere: rpc_drop and rpc_delay (the distributed mode, ROADMAP
-A.5).
+  rpc_delay                every RPC of the distributed mode sleeps
+                           `value` s before it is sent;
+  rpc_drop                 it fails with InjectedRpcError (a grpc.RpcError,
+                           retried like a network fault), and a readiness
+                           probe reports the peer unreachable
+                           (transport/rpc.py)
 
 Checks cost one dict lookup while nothing is armed.  Stdlib only: the
 frontend workers import it.

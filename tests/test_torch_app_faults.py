@@ -4,7 +4,10 @@ One test per open fault of ROADMAP C, each failing before the fix:
 
 - C.1 MISAKA_TOPOLOGY builds the same network in both packages (a compose
   .yml exits with status 2, naming ROADMAP A.10);
-- C.2 MISAKA_MODE=distributed and NODE_TYPE=program|stack refuse (A.5);
+- C.2 MISAKA_MODE=distributed and NODE_TYPE=program|stack boot the
+  per-process nodes (tests/test_torch_nodes.py); where grpcio or protobuf
+  does not import, they exit naming the missing package (and A.5), never
+  falling back to the fused engine, while a fused boot passes;
 - C.3 MISAKA_TLS_CERT/KEY: a plaintext request gets no response from
   either server, and over HTTPS both answer the same /compute;
 - C.4 an API keyfile arms auth as the JAX app's does (401 without a key,
@@ -145,12 +148,48 @@ def test_c1_neither_variable_names_both():
     {"NODE_TYPE": "program"},
     {"NODE_TYPE": "stack"},
 ], ids=["distributed", "program", "stack"])
-def test_c2_distributed_and_node_servers_refuse_naming_a5(extra):
+def test_c2_distributed_and_node_servers_refuse_naming_a5(extra, monkeypatch):
+    """With grpc hidden, each per-process boot exits (status 2) naming the
+    missing package and A.5; the fused boot's checks pass without it."""
     env = {**ADD2_ENV, **extra}
     env.pop("MISAKA_PROGRAMS")  # the distributed master's programs live in its peers
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.5") as exc:
+    monkeypatch.setitem(sys.modules, "grpc", None)
+    with pytest.raises(SystemExit, match=r"needs the grpcio package .*lacks") as exc:
         app.build_master_from_env(env)
+    assert exc.value.code == 2 and "ROADMAP A.5" in str(exc.value)
+    app.check_env({**ADD2_ENV, "MISAKA_DEVICE": "cpu"})  # the fused boot
+
+
+def test_c2_missing_protobuf_names_protobuf(monkeypatch):
+    monkeypatch.setitem(sys.modules, "google.protobuf", None)
+    with pytest.raises(SystemExit, match=r"needs the protobuf package") as exc:
+        app.check_env({"NODE_TYPE": "program"})
     assert exc.value.code == 2
+
+
+HIDDEN_GRPC_BOOT = r"""
+import runpy, sys
+sys.modules["grpc"] = None
+sys.path.insert(0, sys.argv[1])
+runpy.run_module("misaka_tpu_torch.runtime.app", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("extra", [{"NODE_TYPE": "program", "PROGRAM": "IN ACC\nOUT ACC"},
+                                   {"MISAKA_MODE": "distributed"}],
+                         ids=["program", "distributed"])
+def test_c2_boot_without_grpc_exits_naming_the_package(extra):
+    """`python -m misaka_tpu_torch.runtime.app` in a process where grpc does
+    not import: the per-process boot exits 2, its stderr naming grpcio and
+    A.5, and serves nothing (no fallback to the fused engine)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("MISAKA_", "NODE_"))}
+    env.update(ADD2_ENV, MISAKA_DEVICE="cpu", MISAKA_PORT="0", MISAKA_GRPC_PORT="0",
+               MISAKA_ORPHAN_OK="1", **extra)
+    out = subprocess.run([sys.executable, "-c", HIDDEN_GRPC_BOOT, ROOT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2, out.stdout + out.stderr
+    assert "needs the grpcio package" in out.stderr and "ROADMAP A.5" in out.stderr
+    assert "serving on" not in out.stdout + out.stderr
 
 
 # --- C.3 TLS ----------------------------------------------------------------------------

@@ -20,7 +20,8 @@ router of runtime/frontends.py) against the JAX package's.
   skipped replicas reported by a fan-out, /healthz `running`, the
   /healthz, /status and /fleet key sets, and a /fleet/roll over stub
   replicas whose JSON matches field for field; the undrain retry, the
-  restore kept armed while rolling, the fault points.
+  restore kept armed while rolling, the replica's port held between its
+  lives, the fault points.
 - A port fleet of 2 replicas on the CPU (subprocesses): the replica_kill
   fault fires once and kill -9 of the other replica, each under 8
   clients, gives no client error; POST /fleet/roll under the same load
@@ -29,11 +30,13 @@ router of runtime/frontends.py) against the JAX package's.
   boot: tests/test_torch_fleet_dist.py.)
 """
 
+import errno
 import hashlib
 import http.client
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -807,6 +810,37 @@ def test_replica_env_equal_jax(tmp_path):
     assert envs["port"] == envs["jax"]
     assert envs["port"]["MISAKA_FLEET_RESTORE"] == "/r.npz"
     assert envs["port"]["MISAKA_AUTORUN"] == "0"
+
+
+def test_replica_port_held_between_lives(tmp_path):
+    """The fleet holds each replica's port: a plain bind there fails while
+    no replica listens (no client's source port, and so no TIME_WAIT, can
+    land on it), and each life of the replica's server binds it again."""
+    from misaka_tpu_torch import networks
+    from misaka_tpu_torch.runtime import master as tmaster
+
+    fm = tfleet.FleetManager(1, str(tmp_path / "fleet"), base_env={})
+    m = tmaster.MasterNode(networks.add2(in_cap=8, out_cap=8, stack_cap=4), chunk_steps=32,
+                           batch=2, device="cpu")
+    try:
+        port = fm._slots[0]["port"]
+        for _life in range(2):
+            with socket.socket() as s, pytest.raises(OSError) as ei:
+                s.bind(("127.0.0.1", port))
+            assert ei.value.errno == errno.EADDRINUSE
+            httpd = tmaster.make_http_server(m, port=port, tls=False)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            try:
+                status, _ = _req(port, "GET", "/healthz")
+                assert status == 200
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+    finally:
+        m.close()
+        fm.close()
+    with socket.socket() as s:  # released with the fleet
+        s.bind(("127.0.0.1", port))
 
 
 def test_fleet_fault_points_parse():

@@ -16,8 +16,12 @@ parallel/routed.py, sharded.py, multihost.py) and the native host tier's
 (utils/nativelib.py, tis/native.py, core/cinterp.py, specialize.py, jit.py,
 native_serve.py) are among those checked, with runtime/compose.py and
 utils/intmath.py; a native master maps only the port's own builds of its
-C++ copies, never the reference's native/*.so.  chip_smoke.py must refuse to
-report a result without a card, and when it is alone in a directory.
+C++ copies, never the reference's native/*.so.  The per-process distributed
+mode's modules (runtime/nodes.py, transport/*) are walked too, and the fused
+boot does not import gRPC: a fresh interpreter that imports
+runtime/app.py, runtime/master.py and chip_smoke.py has neither `grpc` nor
+`google.protobuf` in sys.modules.  chip_smoke.py must refuse to report a
+result without a card, and when it is alone in a directory.
 """
 
 import json
@@ -76,8 +80,31 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.utils.nativelib", "misaka_tpu_torch.tis.native",
               "misaka_tpu_torch.core.cinterp", "misaka_tpu_torch.core.specialize",
               "misaka_tpu_torch.core.jit", "misaka_tpu_torch.core.native_serve",
-              "misaka_tpu_torch.runtime.compose", "misaka_tpu_torch.utils.intmath"):
+              "misaka_tpu_torch.runtime.compose", "misaka_tpu_torch.utils.intmath",
+              "misaka_tpu_torch.runtime.nodes", "misaka_tpu_torch.transport",
+              "misaka_tpu_torch.transport.rpc", "misaka_tpu_torch.transport.messenger_pb2"):
         assert m in report["modules"]
+
+
+NO_GRPC_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import misaka_tpu_torch.runtime.app, misaka_tpu_torch.runtime.master
+import chip_smoke
+misaka_tpu_torch.runtime.app.check_env({"NODE_INFO": "{}"})  # the fused boot's checks
+print(json.dumps(sorted(k for k in sys.modules
+                        if k.split(".")[0] == "grpc" or k.startswith("google.protobuf"))))
+"""
+
+
+def test_fused_boot_imports_no_grpc():
+    """The fused boot, the HTTP surface and chip_smoke.py import neither
+    grpc nor google.protobuf: a card's host without them serves."""
+    out = subprocess.run(
+        [sys.executable, "-c", NO_GRPC_PROBE, ROOT], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 NATIVE_PROBE = r"""

@@ -58,6 +58,12 @@ from misaka_tpu_torch.runtime import frontends as _tfrontends  # noqa: F401 (its
 from misaka_tpu_torch.runtime import capture as tcapture
 from misaka_tpu_torch.runtime import fleet as _tfleet  # noqa: F401 (its series)
 from misaka_tpu_torch.runtime import usage as tusage
+
+try:  # the distributed mode's series (runtime/nodes.py), where grpcio is installed
+    from misaka_tpu.runtime import nodes as _jnodes  # noqa: F401 (its series)
+    from misaka_tpu_torch.runtime import nodes as _tnodes
+except ImportError:
+    _tnodes = None
 from misaka_tpu_torch.runtime.master import MasterNode as TMaster
 from misaka_tpu_torch.runtime.master import make_http_server as t_http
 from misaka_tpu_torch.utils import metrics as tmetrics
@@ -285,6 +291,15 @@ def test_series_catalog_matches_the_reference(monkeypatch, tmp_path):
                      "misaka_native_tick_rung_total", "misaka_native_jit_total",
                      "misaka_native_specialize_total", "misaka_native_engines_created_total",
                      "misaka_usage_native_seconds_total"):
+            assert name in names, name
+        # the distributed mode's series (runtime/nodes.py)
+        for name in (() if _tnodes is None else (
+                "misaka_dist_compute_requests_total", "misaka_dist_compute_values_total",
+                "misaka_dist_compute_timeouts_total", "misaka_dist_inputs_total",
+                "misaka_dist_outputs_total", "misaka_dist_broadcasts_total",
+                "misaka_stack_push_total", "misaka_stack_pop_total",
+                "misaka_program_instructions_total", "misaka_rpc_retries_total",
+                "misaka_dist_peer_unavailable_total", "misaka_peer_state")):
             assert name in names, name
         # the native edge's series (runtime/frontends.py)
         for name in ("misaka_native_edge_up", "misaka_native_edge_connections_open",
