@@ -125,10 +125,14 @@ with nvidia-smi showing no CUDA context of theirs; then Kahn-style random
 networks (the reference's cross-mode generator) through a loopback cluster
 of the port's nodes and through the kernel at B=1, their output streams
 identical.  Where grpcio or protobuf does not import, the phase shows the
-boot's refusal naming the missing package instead.  The servers of the
-phases from main_path to frontends (the distributed network's four
-processes among them) boot ahead, two at a time and paused, while the card
-works on the parity phases (`preboot`).
+boot's refusal naming the missing package instead.  The `cli_bench`
+phase runs `python -m misaka_tpu_torch bench` (the JAX CLI's add-2 smoke
+on the fused kernel) at its defaults as a subprocess and at B=262144 in
+this process, its launches counted, and holds the kernel to its plain
+version on that bench state.  The servers of the phases from main_path to
+edge (the distributed network's four processes among them, and the edge's
+six with their key file written first) boot ahead, two at a time and
+paused, while the card works on the parity phases (`preboot`).
 
 Last it times the kernel and its variants at the served shapes and at
 caps 1024, the data-parallel runner against the whole-batch launch, and
@@ -150,6 +154,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
 import re
@@ -2327,10 +2332,47 @@ def cost_turn(port, n_clients, per_client, n_quiet):
     return {"small_requests_per_s": n / secs, **latency_ms(lat)}
 
 
+# fixed, not drawn per run: a prebooted server's spec must equal its phase's
+EDGE_TOKEN_SECRET = "chip-edge-token-secret"
+
+
+def edge_specs(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, device=None):
+    """The servers of phase_edge, in its order: the drill's (keys and a
+    token secret), admission's, and the cost's a and b behind the workers
+    and with none.  All boot paused (autorun off: with a key file /run
+    needs the admin key, which served_apps does not send).  The key file
+    and the plane sockets live in build/chip_edge, and the key file is
+    written here, before any of them boots."""
+    from misaka_tpu_torch.networks import ADD2_PROGRAMS
+
+    workers = workers or frontend_workers()
+    tmp = phase_dir("edge", fresh=False)
+    os.makedirs(tmp, exist_ok=True)
+    keys = os.path.join(tmp, "keys.json")
+    with open(keys, "w") as f:
+        json.dump({"keys": EDGE_KEYS}, f)
+    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
+                caps=MAIN_CAPS, device=device, autorun=False)
+    flood_values = batch
+    keyed = dict(base, MISAKA_API_KEYS=keys, MISAKA_HTTP_WORKERS=str(workers),
+                 MISAKA_NATIVE_EDGE="0")
+    specs = [dict(keyed, label="edge_drill", MISAKA_TOKEN_SECRET=EDGE_TOKEN_SECRET,
+                  MISAKA_PLANE_SOCKET=os.path.join(tmp, "drill.sock")),
+             dict(keyed, label="edge_admission", MISAKA_ADMISSION_HIGH=str(4 * flood_values),
+                  MISAKA_BATCH_PASSES="1", MISAKA_BATCH_MAX=str(flood_values // 8),
+                  MISAKA_PLANE_SOCKET=os.path.join(tmp, "admission.sock"))]
+    specs += [dict(base, label=f"edge_cost_{cfg}_{n}", MISAKA_HTTP_WORKERS=str(n),
+                   MISAKA_NATIVE_EDGE="0",
+                   MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}{n}.sock"),
+                   **({"MISAKA_EDGE": "0"} if cfg == "b" else {}))
+              for n in (workers, 0) for cfg in ("a", "b")]
+    return specs
+
+
 def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, per_client=10,
                n_quiet=13, flooders=6, flood_s=5.0, device=None, card=None):
     """The edge on the main path (add2 at B, the full kernel) behind N
-    frontend workers, in three sets of servers, each set booted at once:
+    frontend workers, in three sets of servers (edge_specs):
 
     - the drill: a key file (an admin key, two tenant keys, bob's with
       `rps<5`, a disabled key, a program-pinned key) and a token secret:
@@ -2353,45 +2395,27 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
       paused.
 
     Every server pins MISAKA_NATIVE_EDGE=0: the phase measures the edge
-    chain behind the worker tier, as in earlier runs.  device="cpu"
-    rehearses it at a small B."""
-    from misaka_tpu_torch.networks import ADD2_PROGRAMS
-
+    chain behind the worker tier, as in earlier runs.  Its servers are
+    booted paused (edge_specs), ahead when `preboot` has them.
+    device="cpu" rehearses it at a small B."""
     workers = workers or frontend_workers()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="edge-", dir=os.path.join(ROOT, "build"))
-    keys = os.path.join(tmp, "keys.json")
-    with open(keys, "w") as f:
-        json.dump({"keys": EDGE_KEYS}, f)
-    base = dict(node_info=ADD2_NODES, programs=ADD2_PROGRAMS, batch=batch, chunk=chunk,
-                caps=MAIN_CAPS, device=device)
+    specs = edge_specs(batch, chunk, workers, device)
     flood_values = batch
     row = {"phase": "edge", "card": card, "workers": workers, "cpu_count": os.cpu_count(),
            "batch": batch, "chunk_steps": chunk, **MAIN_CAPS}
     t0 = time.perf_counter()
-    keyed = dict(base, MISAKA_API_KEYS=keys, MISAKA_HTTP_WORKERS=str(workers),
-                 MISAKA_NATIVE_EDGE="0")
-    specs = [dict(keyed, label="edge_drill", MISAKA_TOKEN_SECRET=os.urandom(16).hex(),
-                  MISAKA_PLANE_SOCKET=os.path.join(tmp, "drill.sock")),
-             dict(keyed, label="edge_admission", MISAKA_ADMISSION_HIGH=str(4 * flood_values),
-                  MISAKA_BATCH_PASSES="1", MISAKA_BATCH_MAX=str(flood_values // 8),
-                  MISAKA_PLANE_SOCKET=os.path.join(tmp, "admission.sock"))]
     # the cost's servers: a (the default env) and b (MISAKA_EDGE=0), behind
     # the workers and with none
     cost_cfgs = [(cfg, n) for n in (workers, 0) for cfg in ("a", "b")]
-    specs += [dict(base, label=f"edge_cost_{cfg}_{n}", MISAKA_HTTP_WORKERS=str(n),
-                   MISAKA_NATIVE_EDGE="0",
-                   MISAKA_PLANE_SOCKET=os.path.join(tmp, f"{cfg}{n}.sock"),
-                   **({"MISAKA_EDGE": "0"} if cfg == "b" else {}))
-              for cfg, n in cost_cfgs]
     try:
-        # all booted at once; every server but the one measured is paused
+        # every server but the one measured stays paused
         with served_apps(specs) as booted:
             from misaka_tpu_torch.runtime import frontends
 
-            (drill, boot_drill), (adm, _) = booted[:2]
-            ports = {c: p for c, (p, _) in zip(cost_cfgs, booted[2:])}
-            row["boot_s"] = boot_drill
+            port_of = {spec["label"]: port for spec, (port, _) in zip(specs, booted)}
+            drill, adm = port_of["edge_drill"], port_of["edge_admission"]
+            ports = {(cfg, n): port_of[f"edge_cost_{cfg}_{n}"] for cfg, n in cost_cfgs}
+            row["boot_s"] = booted[0][1]
             keyed_window(drill)
             keyed_window(adm)
             for p in ports.values():
@@ -2438,7 +2462,7 @@ def phase_edge(batch=MAIN_BATCH, chunk=MAIN_CHUNK, workers=None, n_clients=32, p
             launches = [json.loads(call(p, "/status", headers=ADMIN)[2])["kernel_launches"]
                         for p in [drill, adm, *ports.values()]]
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(phase_dir("edge", fresh=False), ignore_errors=True)
     from misaka_tpu_torch.core import fused
 
     row["kernel_launches"] = sum(k.get(fused.KERNEL, 0) for k in launches)
@@ -5272,6 +5296,79 @@ def phase_unbatched_timings(smi, steps_list=(128, 2048)):
     return row
 
 
+def bench_line(label, out: str, card) -> dict:
+    """The last line of a `bench` run, checked to be the JAX CLI's, printed
+    with the card's name and power limit."""
+    lines = out.strip().splitlines()
+    expect(bool(lines), f"cli_bench {label}: no output")
+    line = json.loads(lines[-1])
+    expect(set(line) == {"metric", "value", "unit"} and line["metric"] == "add2_cli_smoke"
+           and line["unit"] == "inputs/sec" and line["value"] > 0,
+           f"cli_bench {label}: {lines[-1]}")
+    emit({"cli_bench": label, "line": line, "card": card})
+    return line
+
+
+def phase_cli_bench(batch=MAIN_BATCH, per=32, device=None, card=None):
+    """`python -m misaka_tpu_torch bench` (misaka_tpu_torch/__main__.py,
+    the JAX CLI's add-2 smoke on the fused kernel): at its defaults (B=1024,
+    32 values) as a subprocess, the CLI alone, which loads the kernel build
+    this script made; then in this process at B=`batch`, the launch counts
+    set to 0 just before and read just after (the warm-up and the timed
+    run: 2 launches).  Then the same bench state through the kernel
+    (`fused_runner`, elide_dead_hi off) held to its plain version, every
+    field exact, and the kernel alone timed on it (CUDA events) beside its
+    bound.  The subprocess's launches are not counted: the bench prints
+    nothing but its line.  device="cpu" rehearses the two runs (the check
+    and the times need the card)."""
+    from misaka_tpu_torch import __main__ as cli
+    from misaka_tpu_torch.core import fused
+
+    t0 = time.perf_counter()
+    row = {"phase": "cli_bench", "card": card, "batch": batch, "values": per,
+           "ticks": cli.bench_ticks(per)}
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MISAKA_")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    if device == "cpu":
+        env["MISAKA_DEVICE"] = "cpu"
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "misaka_tpu_torch", "bench"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    row["defaults_s"] = time.perf_counter() - t
+    expect(out.returncode == 0, f"cli_bench defaults exited {out.returncode}: "
+                                f"{out.stderr[-2000:]}")
+    row["defaults"] = bench_line("defaults", out.stdout, card)
+
+    argv = ["bench", "--batch", str(batch), "--values", str(per)]
+    if device is not None:
+        argv += ["--device", device]
+    buf = io.StringIO()
+    for k in fused.launch_counts:
+        fused.launch_counts[k] = 0
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    row["launches"] = dict(fused.launch_counts)
+    expect(rc == 0, f"cli_bench B={batch} exited {rc}")
+    row["full_width"] = bench_line(f"batch={batch}", buf.getvalue(), card)
+    if device != "cpu":
+        expect(row["launches"][fused.KERNEL] == 2 and sum(row["launches"].values()) == 2,
+               f"cli_bench B={batch}: launches {row['launches']}")
+        net, state, _ = cli.bench_setup(batch, per, device)
+        n0 = fused.launch_counts[fused.KERNEL]
+        check = compare(f"cli_bench/add2/B={batch}", net, state, row["ticks"])
+        row["check_launches"] = fused.launch_counts[fused.KERNEL] - n0
+        if not check["exact"]:
+            emit({"phase": "cli_bench", "failed": [check]})
+            raise SystemExit("the kernel disagrees with its plain version on the bench state")
+        run = net.fused_runner(row["ticks"], elide_dead_hi=False)
+        row.update(exact=True, max_abs_err=check["max_abs_err"], plain_ms=check["plain_ms"],
+                   ms=cuda_time_ms(lambda: run(state), 5),
+                   **bound(net, state, check, row["ticks"]))
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def ptxas_summary(report: str):
     """Registers, spills, stack and shared memory per kernel instantiation
     (max lanes, hi mode: 0 full, 1 mask, 2 all lanes hi-dead)."""
@@ -6433,16 +6530,17 @@ def main() -> int:
     emit({"phase": "build", "kernel": fused.KERNEL, "seconds": split["build"],
           "ptxas": ptxas_summary(build.ptxas_report(fused.KERNEL))})
 
-    # The servers of the phases from main_path to frontends boot now, two
-    # at a time, paused, while the card works on the parity phases (each
-    # ~10 s of boot that no longer waits in its phase); each runs at its
-    # phase's start.
+    # The servers of the phases from main_path to edge boot now, two at a
+    # time, paused, while the card works on the parity phases (each ~10 s
+    # of boot that no longer waits in its phase); each runs at its phase's
+    # start.  The edge's six come last: their key file is written before
+    # they boot (edge_specs).
     ahead = [main_path_spec(), autogrow_spec(), elided_spec(),
              main_path_spec(data_parallel=count), *unbatched_specs(), *traced_specs()[1],
              *observability_specs(), obs_unbatched_spec()]
     if grpc_versions():  # the distributed phase's four processes (no card)
         ahead.append(("distributed", start_distributed))
-    preboot(ahead + [frontends_spec()])
+    preboot(ahead + [frontends_spec(), *edge_specs()])
 
     # depth cut to make room for the native and native_edge phases (every
     # case kept, their exactness resolved by earlier runs at the deeper
@@ -6498,6 +6596,9 @@ def main() -> int:
     # the native edge in front of the card's engine (after `native`, whose
     # first check is that no native engine was built before it)
     ne_row = timed("native_edge", phase_native_edge, card=smi)
+    # the CLI's bench: at its defaults in a subprocess, at full width here
+    # (the counts set to 0 just before it and read just after)
+    cli_row = timed("cli_bench", phase_cli_bench, card=smi)
     emit({"phase": "dp_plumbing", "card": smi, "data_parallel": count,
           **{f"{k}_{lane}": row[k] for lane, row in (("lane", main_row), ("dp", dp_row))
              for k in ("compute_latency_p50_s", "compute_raw_striped_values_per_s",
@@ -6516,9 +6617,10 @@ def main() -> int:
             + grow_row["kernel_launches"][fused.KERNEL] + edge_row["kernel_launches"]
             + registry_row["kernel_launches"] + telemetry_row["kernel_launches"]
             + observatory_row["kernel_launches"] + fleet_row["fleet_launches"]
-            + ne_row["kernel_launches"] + dist_row.get("kernel_launches", 0),
+            + ne_row["kernel_launches"] + dist_row.get("kernel_launches", 0)
+            + cli_row["launches"][fused.KERNEL],
             "max_abs_err": max(max_err, full["max_abs_err"], big["max_abs_err"],
-                               grow_row["parity_max_abs_err"]),
+                               grow_row["parity_max_abs_err"], cli_row["max_abs_err"]),
             "ms": full["ms"], "plain_ms": full["plain_ms"],
             "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
             "library_ms": None, "exact": True,
@@ -6549,6 +6651,15 @@ def main() -> int:
             # the distributed phase's cross-mode check, B=1 in this process
             # (none where the host lacks grpcio: the phase then only refuses)
             "distributed_launches": dist_row.get("kernel_launches", 0),
+            # `python -m misaka_tpu_torch bench` at B=262144 in this process
+            # (counted in `launches` above: its warm-up and timed run); the
+            # check against the plain version launched cli_bench_check_launches
+            # more, not counted
+            "cli_bench_launches": cli_row["launches"][fused.KERNEL],
+            "cli_bench_check_launches": cli_row["check_launches"],
+            "cli_bench": {k: cli_row[k] for k in (
+                "batch", "values", "ticks", "defaults", "full_width", "ms", "plain_ms",
+                "bound_ms", "bound_by")},
             # B=1, 128 ticks: the unbatched lane's chunk (launches from its server)
             "unbatched": {"launches": unbatched_row["kernel_launches"][fused.KERNEL],
                           "observability_profile_iterations":

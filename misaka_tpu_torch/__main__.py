@@ -10,6 +10,9 @@ The port's twin of misaka_tpu/__main__.py:
                              (misaka_tpu_torch.debug), on the card unless
                              --device cpu (or MISAKA_DEVICE=cpu)
   compute  <v...> [--url]    send values to a running master's /compute
+  bench    [--batch --values] quick add-2 throughput smoke: one launch of
+                             the fused kernel, on the card unless --device
+                             cpu (or MISAKA_DEVICE=cpu)
   replay   <segment|dir>     shadow-replay a captured .mskcap segment
                              (misaka_tpu_torch/replay.py), on the card
                              unless --device cpu (or MISAKA_DEVICE=cpu)
@@ -21,9 +24,6 @@ mesh8 -- misaka_tpu_torch/networks.py), a path to a declarative JSON file
 ({"nodes": {...}, "programs": {...}} -- runtime/topology.py), or a
 reference docker-compose .yml whose services carry NODE_TYPE/PROGRAM envs
 (runtime/compose.py; a host without PyYAML answers it with status 2).
-
-Not ported yet, it exits with status 2: `bench` (the port's benchmark
-harness comes with the port's benchmark).
 """
 
 from __future__ import annotations
@@ -35,16 +35,11 @@ import sys
 
 from misaka_tpu_torch import replay as replay_mod
 
-# command -> why it is missing: each answers with status 2
-NOT_PORTED = {
-    "bench": "needs the port's benchmark harness, which is not ported yet "
-             "(it comes with the port's benchmark)",
-}
 NOT_PORTED_STATUS = 2
 
 
 class NotPorted(Exception):
-    """A request the port cannot serve yet (exit status 2)."""
+    """A request this host cannot serve (exit status 2)."""
 
 
 def _load_topology(spec: str):
@@ -111,6 +106,68 @@ def cmd_compute(args) -> int:
         except urllib.error.URLError as e:
             print(f"error: cannot reach {args.url}: {e.reason}", file=sys.stderr)
             return 1
+    return 0
+
+
+def bench_ticks(per: int) -> int:
+    """`bench`'s tick count for `per` values an instance: add-2 retires one
+    value per ~12-14 ticks."""
+    return 14 * per + 64
+
+
+def bench_setup(batch: int, per: int, device=None):
+    """(network, state, values) of `bench`: add-2 at `batch` instances with
+    each input ring filled from default_rng(0), int32 in [-1000, 1000)."""
+    import numpy as np
+    import torch
+
+    from misaka_tpu_torch import networks
+
+    net = networks.add2(in_cap=per, out_cap=per, stack_cap=16).compile(batch=batch,
+                                                                       device=device)
+    vals = np.random.default_rng(0).integers(-1000, 1000, (batch, per)).astype(np.int32)
+    state = net.init_state()._replace(
+        in_buf=torch.tensor(vals, device=net.device),
+        in_wr=torch.full((batch,), per, dtype=torch.int32, device=net.device),
+    )
+    return net, state, vals
+
+
+def cmd_bench(args) -> int:
+    """Quick engine-path throughput smoke on the add-2 network: the run is
+    one launch of the fused kernel on the card (its plain version on the
+    CPU).  The timed window holds the run, with the wrapper's checks and
+    clones, and the read of out_wr, as the JAX CLI's holds its run and
+    that read."""
+    import time
+
+    import numpy as np
+    import torch
+
+    batch, per = args.batch, args.values
+    net, state, vals = bench_setup(batch, per, args.device)
+    ticks = bench_ticks(per)
+    run = net.fused_runner(ticks, elide_dead_hi=False)  # builds the kernel on the card
+    # Warm up on a throwaway state, and wait for it, or the asynchronous
+    # launch would bleed into the timed window below.
+    run(net.init_state())
+    if net.device.type == "cuda":
+        torch.cuda.synchronize(net.device)
+    t0 = time.perf_counter()
+    state = run(state)
+    out_wr = state.out_wr.cpu().numpy()
+    dt = time.perf_counter() - t0
+    if not (out_wr == per).all():
+        print(f"error: only {int(out_wr.min())}/{per} outputs after {ticks} ticks",
+              file=sys.stderr)
+        return 1
+    got = state.out_buf.cpu().numpy()
+    if not (np.sort(got, axis=1) == np.sort(vals + 2, axis=1)).all():
+        print("error: output mismatch", file=sys.stderr)
+        return 1
+    rate = batch * per / dt
+    print(json.dumps({"metric": "add2_cli_smoke", "value": round(rate, 1),
+                      "unit": "inputs/sec"}))
     return 0
 
 
@@ -232,6 +289,11 @@ def main(argv=None) -> int:
     p.add_argument("values", nargs="+", type=int)
     p.add_argument("--url", default="http://localhost:8000")
     p.add_argument("--timeout", type=float, default=60.0)
+    p = sub.add_parser("bench", help="quick add-2 throughput smoke")
+    p.add_argument("--batch", type=int, default=1024)
+    p.add_argument("--values", type=int, default=32)
+    p.add_argument("--device", default=os.environ.get("MISAKA_DEVICE") or None,
+                   help="cuda (default) or cpu")
     p = sub.add_parser("replay", help="shadow-replay a captured .mskcap segment")
     replay_mod.add_arguments(p)
     p = sub.add_parser("usage-report",
@@ -244,14 +306,6 @@ def main(argv=None) -> int:
     p.add_argument("--raw", action="store_true",
                    help="print the JSONL lines verbatim instead of totals")
     p.add_argument("--timeout", type=float, default=60.0)
-    for name, why in NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported: {why}")
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:  # whatever its arguments
-        print(f"error: '{argv[0]}' is not ported to misaka_tpu_torch yet: "
-              f"{NOT_PORTED[argv[0]]}", file=sys.stderr)
-        return NOT_PORTED_STATUS
     args = parser.parse_args(argv)
     if args.command == "serve":
         from misaka_tpu_torch.runtime.app import main as serve_main
@@ -260,7 +314,7 @@ def main(argv=None) -> int:
         return 0
     try:
         return {"check": cmd_check, "disasm": cmd_disasm, "debug": cmd_debug,
-                "compute": cmd_compute, "replay": replay_mod.run,
+                "compute": cmd_compute, "bench": cmd_bench, "replay": replay_mod.run,
                 "usage-report": cmd_usage_report}[args.command](args)
     except NotPorted as e:
         print(f"error: {e}", file=sys.stderr)

@@ -5,8 +5,8 @@ tests/test_debug.py's cases, each on the JAX `Debugger` and the port's
 count, outputs, `inspect` (full 64-bit registers), `stacks`, `listing`,
 `history` and the errors, every answer equal (exact).  The CLI's check,
 disasm and scripted debug sessions print what the JAX CLI prints (the
-debugger's banner names its package), and the commands the port does not
-have yet exit with status 2 and name their ROADMAP item.
+debugger's banner names its package), and a compose file on a host
+without PyYAML exits with status 2.
 """
 
 import json
@@ -198,15 +198,14 @@ def test_cli_debug_scripted_matches_jax():
 
 
 @pytest.mark.parametrize("argv,why", [
-    (["bench"], "benchmark harness"),
     (["check", "deploy.yml"], "PyYAML"), (["disasm", "deploy.yaml"], "PyYAML"),
     (["debug", "deploy.yml", "--device", "cpu"], "PyYAML")],
-    ids=["argv0-A.10", "argv1-A.10", "argv2-A.10", "argv3-A.10"])
+    ids=["argv1-A.10", "argv2-A.10", "argv3-A.10"])
 def test_cli_unported_commands_exit_2(capsys, monkeypatch, tmp_path, argv, why):
-    """The CLI leftovers (ROADMAP A.10) answer status 2 where the port
-    cannot serve them: `bench` (the benchmark harness is not ported) and a
-    compose file (the repo's deploy/docker-compose.yml) on a host without
-    PyYAML (hidden here)."""
+    """The CLI leftovers (ROADMAP A.10) answer status 2 where this host
+    cannot serve them: a compose file (the repo's deploy/docker-compose.yml)
+    on a host without PyYAML (hidden here).  No command exits 2 for want of
+    a port: `bench` runs (tests/test_torch_cli_bench.py)."""
     argv = list(argv)
     for i, a in enumerate(argv):
         if a.startswith("deploy."):

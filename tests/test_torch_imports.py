@@ -20,8 +20,10 @@ C++ copies, never the reference's native/*.so.  The per-process distributed
 mode's modules (runtime/nodes.py, transport/*) are walked too, and the fused
 boot does not import gRPC: a fresh interpreter that imports
 runtime/app.py, runtime/master.py and chip_smoke.py has neither `grpc` nor
-`google.protobuf` in sys.modules.  chip_smoke.py must refuse to report a
-result without a card, and when it is alone in a directory.
+`google.protobuf` in sys.modules.  The port's linter (lint/*, stdlib only
+as the reference's) is walked too and imports no torch.  chip_smoke.py must
+refuse to report a result without a card, and when it is alone in a
+directory.
 """
 
 import json
@@ -82,7 +84,9 @@ def test_port_imports_neither_jax_nor_misaka_tpu():
               "misaka_tpu_torch.core.jit", "misaka_tpu_torch.core.native_serve",
               "misaka_tpu_torch.runtime.compose", "misaka_tpu_torch.utils.intmath",
               "misaka_tpu_torch.runtime.nodes", "misaka_tpu_torch.transport",
-              "misaka_tpu_torch.transport.rpc", "misaka_tpu_torch.transport.messenger_pb2"):
+              "misaka_tpu_torch.transport.rpc", "misaka_tpu_torch.transport.messenger_pb2",
+              "misaka_tpu_torch.lint", "misaka_tpu_torch.lint.__main__",
+              "misaka_tpu_torch.lint.checkers", "misaka_tpu_torch.lint.engine"):
         assert m in report["modules"]
 
 
@@ -153,6 +157,7 @@ import misaka_tpu_torch.runtime.capture
 import misaka_tpu_torch.utils.spool, misaka_tpu_torch.utils.tsdb, misaka_tpu_torch.utils.watchdog
 import misaka_tpu_torch.utils.sampler, misaka_tpu_torch.utils.dashboard
 import misaka_tpu_torch.runtime.fleet
+import misaka_tpu_torch.lint, misaka_tpu_torch.lint.__main__
 added = set(sys.modules) - before
 print(json.dumps(sorted(k for k in added
                         if k.split(".")[0] in ("torch", "jax", "jaxlib", "misaka_tpu"))))
